@@ -15,7 +15,28 @@ Phases (any failure exits non-zero; nothing is caught):
      built in memory from a seed; every re-injected repeat must be found
      at its sample index with CC >= 0.99, through the kernel only;
   5. exactness: one day at 'highest', each detection's CC within 1e-5 of
-     the float64 oracle `ops.reference.matched_filter_at`.
+     the float64 oracle `ops.reference.matched_filter_at`;
+  6. where a warm 'screen' day's time goes (host clock, torch.profiler);
+  7. the BP kernel against its plain PyTorch version on the card at the
+     BP configuration's width (100,000 lattice sources x 32 stations x 2
+     phases, closest-10 weights, tools/lattice.py): reduce='max' on a
+     2^14-sample window and 'none' on 2^12, both policies, values within
+     rtol=1e-4, atol=1e-5, the argmax equal wherever the plain version's two
+     best beams differ by more than 1e-5 (elsewhere the kernel's source has
+     a plain beam within 1e-5 of the maximum), seeded exact ties to the
+     smallest index, the 3-chunk call equal to the single call bit for bit,
+     and the fail-loud checks; then every station weighted (64 rows a
+     source tile, staged in more than one part) on a 2^13-sample window;
+  8. the BP main path at full size: a two-day `scan_days(stage="bp")`
+     campaign over 32 stations x 3 components x 2,160,000 samples built
+     in memory from a seed, with Hann bursts (P on Z, S on N/E) injected
+     at the travel times of known lattice sources; every event must be
+     found within 2 samples and one lattice spacing, through the kernel
+     only; prints s/day of each stage and Gpoints/s;
+  9. the BP kernel's numbers at day shape: ms per day (CUDA events, the
+     day's chunk launches), its bound, the plain version's time, the values
+     and the first-max rule held against the plain version; then
+     where a warm BP day's time goes (stage timers, torch.profiler).
 It then prints the card line, one JSON line of per-kernel numbers, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -41,11 +62,17 @@ from seismic_bpmf_tpu_torch import _build  # noqa: E402
 from seismic_bpmf_tpu_torch import workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
 from seismic_bpmf_tpu_torch.data import (  # noqa: E402
-    Data, Stream, TemplateGroup, Trace,
+    Data, Network, Stream, TemplateGroup, Trace, TravelTimes,
 )
-from seismic_bpmf_tpu_torch.detection import MatchedFilter  # noqa: E402
-from seismic_bpmf_tpu_torch.ops import mf  # noqa: E402
+from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
+    Beamformer, MatchedFilter,
+)
+from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
+from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
+    KM_PER_DEG, closest_weights, lattice, smooth_grid_moveouts, travel_times,
+)
 from seismic_bpmf_tpu_torch.utils.observe import GLOBAL_TIMER  # noqa: E402
 
 SEED = 20260816
@@ -89,6 +116,32 @@ def plain_of(plan, data_pad):
     return mf.matched_filter_plain(
         data_pad, plan.filt, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
         n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
+
+
+def device_profile(prof, name: str) -> tuple:
+    """(device busy ms, the top kernels as text) of a torch.profiler run,
+    from its device-side rows only (a CPU op's own device time repeats its
+    kernels'); the whole table goes to chiprun_out/<name>."""
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write(f"{CARD}\n")
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=25))
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms "
+                    f"x{e.count}" for e in rows[:6])
+    return sum(e.self_device_time_total for e in rows) / 1e3, top
+
+
+def zero_counts():
+    """Every kernel's launch count and plain version's call count to 0,
+    just before a main path is driven."""
+    mf.mf_cc.launches = mf.matched_filter_plain.calls = 0
+    bp.bp_beam.launches = bp.beamform_plain.calls = 0
 
 
 def kernel_bound_ms(plan, data_pad) -> tuple:
@@ -246,8 +299,7 @@ print(f"world: {N_TP} templates x {N_STA * N_COMP} channels x {N_SAMP} "
 cfg = Config(sampling_rate_hz=SR, template_len_sec=L / SR)
 kw = dict(minimum_interevent_time=5.0, min_channels=6, min_stations=3,
           max_kurto=1e6, rng=np.random.default_rng(SEED + 2))
-mf.mf_cc.launches = 0
-mf.matched_filter_plain.calls = 0
+zero_counts()
 t0 = time.perf_counter()
 results = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg, **kw)
 wall = time.perf_counter() - t0
@@ -341,24 +393,297 @@ with torch.profiler.profile(activities=acts) as prof:
                                 minimum_interevent_time=5.0)
     torch.cuda.synchronize()
     prof_s = time.perf_counter() - t0
-# device-side rows only: a CPU op's own device time repeats its kernels'
-rows = sorted((e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA),
-              key=lambda e: e.self_device_time_total, reverse=True)
-busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "chiprun_out")
-os.makedirs(out_dir, exist_ok=True)
-with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
-    f.write(f"{CARD}\n")
-    f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=25))
-top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms "
-                f"x{e.count}" for e in rows[:6])
+busy_ms, top = device_profile(prof, "chip_smoke_profile.txt")
 print(f"warm screen day: {warm_s:.3f} s ({macs_day / warm_s / 1e9:.0f} "
       f"GMAC/s): " + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
       + f"; profiled day {prof_s:.3f} s, device busy {busy_ms:.1f} ms "
       f"({100 * busy_ms / (1e3 * prof_s):.0f}%): {top} [{CARD}]",
+      flush=True)
+
+
+# 7. the BP kernel against its plain version at the main path's width
+def bp_bound_ms(tab, g_pad) -> tuple:
+    """Least time for one day through a plan: f32 multiply-adds of the used
+    (source, station-phase) pairs, against the padded features, the tables
+    and the (max, argmax) output each moved once."""
+    flops = 2.0 * tab.n_pairs * tab.n_samp
+    nbytes = (4.0 * g_pad.numel() + 8.0 * tab.n_pairs
+              + 4.0 * (tab.tile_stage.numel() + tab.stage_pp.numel()
+                       + tab.lo.numel() + tab.hi.numel()
+                       + tab.stage_row.numel() + 3 * tab.ent_sp.numel())
+              + 8.0 * tab.n_samp)
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_first_max(tab, g_pad, kv, ki, pv, pi, what: str) -> int:
+    """Hold a 'max' result (kv, ki) to the plain version's (pv, pi): values
+    within RTOL/ATOL, and wherever the indices differ the kernel's source
+    has a plain beam within ATOL of the plain maximum (so the two best
+    beams there differ by no more than ATOL).  Returns that count."""
+    if not torch.allclose(kv, pv, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"bp kernel != plain ({what}): max|diff| "
+                             f"{float((kv - pv).abs().max()):.3g}")
+    t = torch.nonzero(ki != pi).flatten()
+    if t.numel():
+        src = ki[t].long()
+        at_k = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        for sp in range(tab.n_sp):      # as beamform_plain sums
+            at_k = at_k + tab.w[sp, src] * g_pad[sp, t + tab.mv[sp, src]]
+        if tab.strict:
+            ok = (t + tab.lo[src] >= 0) & (t + tab.hi[src] < tab.n_samp)
+            at_k = torch.where(ok, at_k, torch.zeros_like(at_k))
+        if bool((at_k < pv[t] - ATOL).any()):
+            raise AssertionError(f"bp kernel argmax breaks the first-max "
+                                 f"rule ({what})")
+    return int(t.numel())
+
+
+N_SRC_BP, N_STA_BP = 100_000, 32
+src_km, sta_km, spacing = lattice(N_SRC_BP, N_STA_BP)
+tt_bp = travel_times(src_km, sta_km)                       # seconds
+mv_bp = smooth_grid_moveouts(N_SRC_BP, N_STA_BP, SR)
+w_src_bp = closest_weights(mv_bp)
+w_ph_bp = workflow.default_weights_phases(N_STA_BP)
+# seeded exact ties: later copies of the sources that a spike makes best
+brng = np.random.default_rng(SEED + 3)
+tie_src = brng.choice(N_SRC_BP // 2, size=4, replace=False)
+tie_copy = tie_src + N_SRC_BP // 2
+mv_bp7, w_src_bp7 = mv_bp.copy(), w_src_bp.copy()
+mv_bp7[tie_copy], w_src_bp7[tie_copy] = mv_bp[tie_src], w_src_bp[tie_src]
+errs_bp = []
+t0 = time.perf_counter()
+for oob in ("strict", "flexible"):
+    n7 = 2**14
+    feat7 = brng.uniform(0, 1, size=(N_STA_BP, 3, n7)).astype(np.float32)
+    for j, i in enumerate(tie_src):                # a spike for source i
+        for s in np.flatnonzero(w_src_bp[i]):
+            feat7[s, 2, 3000 + 2000 * j + mv_bp[i, s, 0]] += 50.0
+            feat7[s, :2, 3000 + 2000 * j + mv_bp[i, s, 1]] += 50.0
+    plan7 = bp.BeamformPlan(mv_bp7, w_ph_bp, w_src_bp7, n7,
+                            out_of_bounds=oob)
+    g7 = plan7.fold_and_pad(feat7)
+    kv, ki = plan7.call_folded(g7)
+    pv, pi = bp.beamform_plain(g7, plan7.tables)
+    none7 = bp.BeamformPlan(mv_bp7, w_ph_bp, w_src_bp7, n7, reduce="none",
+                            out_of_bounds=oob)
+    full = bp.beamform_plain(none7.fold_and_pad(feat7), none7.tables,
+                             reduce="none")
+    top2 = torch.topk(full, 2, dim=0).values
+    at_k = full.gather(0, ki[None].long())[0]
+    del full
+    torch.cuda.synchronize()
+    pv, pi = pv[:n7], pi[:n7]
+    errs_bp.append(float((kv - pv).abs().max()))
+    if not torch.allclose(kv, pv, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"bp kernel != plain ({oob}, max): max|diff| "
+                             f"{errs_bp[-1]:.3g}")
+    clear = (top2[0] - top2[1]) > ATOL
+    if (not torch.equal(ki[clear], pi[clear])
+            or bool((at_k < top2[0] - ATOL).any())):
+        raise AssertionError(f"bp kernel argmax breaks the first-max rule "
+                             f"({oob})")
+    for j, i in enumerate(tie_src):
+        t_sp = 3000 + 2000 * j
+        if int(ki[t_sp]) != i or int(pi[t_sp]) != i:
+            raise AssertionError(f"tie at sample {t_sp}: kernel "
+                                 f"{int(ki[t_sp])}, plain {int(pi[t_sp])}, "
+                                 f"want the smaller copy {i}")
+    if bool(torch.isin(ki, torch.from_numpy(tie_copy.astype(np.int32))
+                       .to(ki.device)).any()):
+        raise AssertionError("a later exact copy won a tie")
+    cv, ci = plan7.call_folded_chunked(g7, 3)
+    if not (torch.equal(cv, kv) and torch.equal(ci, ki)):
+        raise AssertionError(f"3-chunk call != single call ({oob})")
+    n7n = 2**12
+    none7 = bp.BeamformPlan(mv_bp7, w_ph_bp, w_src_bp7, n7n, reduce="none",
+                            out_of_bounds=oob)
+    g7n = none7.fold_and_pad(feat7[..., :n7n])
+    kb = none7.call_folded(g7n)
+    pb = bp.beamform_plain(g7n, none7.tables, reduce="none")
+    torch.cuda.synchronize()
+    errs_bp.append(float((kb - pb).abs().max()))
+    if not torch.allclose(kb, pb, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"bp kernel != plain ({oob}, none): max|diff| "
+                             f"{errs_bp[-1]:.3g}")
+    del kb, pb
+# every station weighted: a source tile's 64 rows are staged in parts
+n7a = 2**13
+w_all = np.full((N_SRC_BP, N_STA_BP), 1.0 / N_STA_BP, np.float32)
+plan7a = bp.BeamformPlan(mv_bp, w_ph_bp, w_all, n7a)
+if plan7a.tables.n_stages <= plan7a.tables.n_tiles:
+    raise AssertionError("every station weighted: no tile took two stages")
+g7a = plan7a.fold_and_pad(brng.uniform(0, 1, size=(N_STA_BP, 3, n7a))
+                          .astype(np.float32))
+kv, ki = plan7a.call_folded(g7a)
+pv, pi = bp.beamform_plain(g7a, plan7a.tables)
+errs_bp.append(float((kv - pv[:n7a]).abs().max()))
+near7a = check_first_max(plan7a.tables, g7a, kv, ki, pv[:n7a], pi[:n7a],
+                         "every station weighted")
+cv, ci = plan7a.call_folded_chunked(g7a, 3)
+if not (torch.equal(cv, kv) and torch.equal(ci, ki)):
+    raise AssertionError("3-chunk call != single call (every station "
+                         "weighted)")
+print(f"bp kernel vs plain, every station weighted (100k x 64 pairs, "
+      f"{plan7a.tables.n_stages} stages over {plan7a.tables.n_tiles} source "
+      f"tiles, 2^13 samples): max|diff| {errs_bp[-1]:.3g}, {near7a} samples "
+      f"with another source within {ATOL} of the maximum", flush=True)
+del g7a, plan7a
+bad = mv_bp.copy()
+bad[7, 3, 1] = -2
+try:
+    bp.BeamformPlan(bad, w_ph_bp, w_src_bp, 2**12)
+except ValueError:
+    pass
+else:
+    raise AssertionError("negative moveouts reached the plan")
+try:
+    bp.bp_beam(g7.double(), plan7.tables)
+except ValueError:
+    pass
+else:
+    raise AssertionError("a float64 feature array reached the kernel")
+print(f"bp kernel vs plain (100k x 32 x 2, closest-10, both policies; max "
+      f"on 2^14, none on 2^12): max|diff| {max(errs_bp):.3g} "
+      f"(rtol={RTOL}, atol={ATOL}), first-max argmax and ties, 3-chunk "
+      f"call bit-identical ({time.perf_counter() - t0:.1f} s) [{CARD}]",
+      flush=True)
+del g7, g7n, plan7, none7
+
+
+# 8. the BP main path at full size
+stations_bp = [f"B{s:02d}" for s in range(N_STA_BP)]
+travel = TravelTimes.from_arrays(
+    {ph: {name: tt_bp[:, s, p] for s, name in enumerate(stations_bp)}
+     for p, ph in enumerate(("P", "S"))},
+    {"longitude": src_km[:, 0] / KM_PER_DEG,
+     "latitude": src_km[:, 1] / KM_PER_DEG, "depth": src_km[:, 2]})
+travel.convert_to_samples(SR)
+net_bp = Network.from_arrays(stations_bp, longitude=sta_km[:, 0] / KM_PER_DEG,
+                             latitude=sta_km[:, 1] / KM_PER_DEG)
+# (origin sample, lattice source) of the injected events of each day
+BP_EVENTS = {"d1": [(400_000, 12_345), (1_100_003, 55_555),
+                    (1_800_007, 87_001)],
+             "d2": [(300_011, 33_333), (1_500_000, 70_707),
+                    (2_050_001, 5_000)]}
+BURST = (10.0 * np.hanning(13)).astype(np.float32)   # centred on arrival
+BP_DAYS = {}
+
+
+def make_bp_day(key):
+    g = np.random.default_rng(SEED + 20 + int(key[1:]))
+    x = g.standard_normal((N_STA_BP, 3, N_SAMP), dtype=np.float32)
+    for o, src in BP_EVENTS[key]:
+        for s, name in enumerate(stations_bp):
+            for c, ph in ((2, "P"), (0, "S"), (1, "S")):
+                a = o + int(travel.travel_times_samp[ph][name][src])
+                x[s, c, a - 6 : a + 7] += BURST
+    return x
+
+
+def bp_reader(where, network=None, stations=None, channels=None,
+              location=None, starttime=None, endtime=None, **kwargs):
+    """In-memory data reader of the BP days."""
+    key = where.split("/")[-1]
+    if key not in BP_DAYS:
+        BP_DAYS[key] = make_bp_day(key)
+    t0 = T0_EPOCH + DAY_SEC * (int(key[1:]) - 1)
+    out = Stream()
+    for s, name in enumerate(stations_bp):
+        for c, comp in enumerate("NEZ"):
+            out += Trace(BP_DAYS[key][s, c], station=name, network="XX",
+                         channel=f"HH{comp}", sampling_rate=SR, starttime=t0)
+    return out
+
+
+def make_bp_data(key):
+    return Data(DATES[key], f"bp/{key}", bp_reader, duration=DAY_SEC,
+                sampling_rate=SR).read_waveforms()
+
+
+cfg_bp = Config(sampling_rate_hz=SR)
+zero_counts()
+t0 = time.perf_counter()
+res_bp = workflow.scan_days(list(DATES), make_bp_data, cfg=cfg_bp,
+                            stage="bp", network=net_bp, travel_times=travel)
+wall_bp = time.perf_counter() - t0
+launches_bp = bp.bp_beam.launches
+plain_bp = bp.beamform_plain.calls
+if launches_bp < len(DATES) or plain_bp != 0:
+    raise AssertionError(f"bp main path: {launches_bp} kernel launches, "
+                         f"{plain_bp} plain-version calls")
+for day, evs in BP_EVENTS.items():
+    for o, src in evs:
+        t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
+        hits = [e for e in res_bp[day]
+                if abs(e.origin_time_epoch - t_exp) <= 2.0 / SR
+                and np.all(np.abs(src_km[e.aux_data["source_index"]]
+                                  - src_km[src]) <= spacing + 1e-9)]
+        if not hits:
+            raise AssertionError(
+                f"bp event at sample {o} of {day} (source {src}) not found: "
+                f"{[(e.origin_time_epoch - t_exp, e.aux_data) for e in res_bp[day]]}")
+stage_s = {k: GLOBAL_TIMER.times[k] / len(DATES)
+           for k in ("bp_features", "bp_backproject", "bp_detect")}
+gpts = GLOBAL_TIMER.meters["beam_points"] / GLOBAL_TIMER.times[
+    "bp_backproject"] / 1e9
+print(f"scan_days bp: {({d: len(v) for d, v in res_bp.items()})} "
+      f"detections, every injected event found; s/day: "
+      + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+      + f"; {gpts:.1f} Gpoints/s in bp_backproject; campaign wall "
+      f"{wall_bp:.1f} s; kernel launches {launches_bp} [{CARD}]", flush=True)
+
+
+# 9. the BP kernel's numbers at day shape
+bf9 = Beamformer(network=net_bp, phases=["P", "S"], travel_times=travel,
+                 cfg=cfg_bp)
+bf9.set_weights(weights_phases=w_ph_bp)
+bf9.set_weights_sources(method="closest_stations", num_closest_stations=10,
+                        normalize=True)
+plan9 = bf9._plan(N_SAMP, "max", "strict")
+g9 = plan9.fold_and_pad(saturated_envelopes(BP_DAYS["d2"])[0])
+bound_bp, bound_by_bp = bp_bound_ms(plan9.tables, g9)
+kv9, ki9 = plan9.call_folded(g9)
+ms_bp = cuda_ms(lambda: plan9.call_folded(g9), 3)
+t0 = time.perf_counter()
+pv9, pi9 = bp.beamform_plain(g9, plan9.tables)
+torch.cuda.synchronize()
+plain_ms_bp = 1e3 * (time.perf_counter() - t0)
+pv9, pi9 = pv9[:N_SAMP], pi9[:N_SAMP]
+errs_bp.append(float((kv9 - pv9).abs().max()))
+near9 = check_first_max(plan9.tables, g9, kv9, ki9, pv9, pi9, "one day")
+pts = plan9.n_src * N_SAMP
+print(f"bp kernel, one day: {ms_bp:.2f} ms ({pts / ms_bp / 1e6:.0f} "
+      f"Gpoints/s, {plan9.tables.n_pairs * N_SAMP / ms_bp / 1e9:.2f} T "
+      f"multiply-adds/s) in {plan9.n_t_blocks} tiles x "
+      f"{plan9.tables.n_tiles} source tiles ({plan9.tables.n_stages} "
+      f"stages), bound {bound_bp:.2f} ms ({bound_by_bp}), plain "
+      f"{plain_ms_bp:.0f} ms; max|diff| {errs_bp[-1]:.3g}, first-max rule "
+      f"held, indices differ at {near9} samples, each a tie within {ATOL} "
+      f"[{CARD}]",
+      flush=True)
+del pv9, pi9, g9
+
+# where a warm BP day's time goes: the stage timers of one more day on the
+# warm engine (its plan is cached), then torch.profiler over another
+day_bp = make_bp_data("d2")
+before = {k: GLOBAL_TIMER.times[k] for k in stage_s}
+t0 = time.perf_counter()
+workflow.backproject_day(day_bp, net_bp, travel, cfg=cfg_bp, bf=bf9)
+torch.cuda.synchronize()
+warm_bp_s = time.perf_counter() - t0
+warm_stages = {k: GLOBAL_TIMER.times[k] - before[k] for k in stage_s}
+with torch.profiler.profile(activities=acts) as prof_bp:
+    t0 = time.perf_counter()
+    workflow.backproject_day(day_bp, net_bp, travel, cfg=cfg_bp, bf=bf9)
+    torch.cuda.synchronize()
+    prof_bp_s = time.perf_counter() - t0
+busy_bp, top_bp = device_profile(prof_bp, "chip_smoke_bp_profile.txt")
+print(f"warm bp day: {warm_bp_s:.3f} s: "
+      + ", ".join(f"{k} {v:.3f} s" for k, v in warm_stages.items())
+      + f"; profiled day {prof_bp_s:.3f} s, device busy {busy_bp:.1f} ms "
+      f"({100 * busy_bp / (1e3 * prof_bp_s):.0f}%): {top_bp} [{CARD}]",
       flush=True)
 
 print(CARD)
@@ -373,6 +698,18 @@ print(json.dumps({"kernels": [{
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,
     "bound_by": bound_by,
+    "library_ms": None,
+}, {
+    "name": "bp_beam",
+    "route": "cuda",
+    "source": "seismic_bpmf_tpu_torch/csrc/bp.cu",
+    "replaces": "seismic_bpmf_tpu/ops/pallas_bp.py:67",
+    "launches": launches_bp,
+    "max_abs_err": max(errs_bp),
+    "ms": ms_bp,
+    "plain_ms": plain_ms_bp,
+    "bound_ms": bound_bp,
+    "bound_by": bound_by_bp,
     "library_ms": None,
 }]}))
 print(json.dumps({"ok": True, "device": {

@@ -5,16 +5,19 @@ from .groups import TemplateGroup
 from .network import Network
 from .readers import data_reader_hdf5, write_hdf5_continuous
 from .stream import Stream, Trace
+from .travel_times import SourceTable, TravelTimes
 from .waveforms import Data, get_np_array
 
 __all__ = [
     "Data",
     "Event",
     "Network",
+    "SourceTable",
     "Stream",
     "Template",
     "TemplateGroup",
     "Trace",
+    "TravelTimes",
     "data_reader_hdf5",
     "get_np_array",
     "write_hdf5_continuous",

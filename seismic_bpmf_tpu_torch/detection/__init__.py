@@ -1,5 +1,6 @@
 """Detection engines."""
 
+from .beamformer import Beamformer
 from .matched_filter import MatchedFilter
 
-__all__ = ["MatchedFilter"]
+__all__ = ["Beamformer", "MatchedFilter"]

@@ -1,17 +1,24 @@
 """Pure-NumPy reference implementations ("oracles") used by the port.
 
 The port's own copy of the oracles of `seismic_bpmf_tpu.ops.reference`
-that the matched-filter day scan needs: `matched_filter` (the kernel's
-specification), `matched_filter_at` (the float64 refine of the `screen`
-rung), `time_dependent_threshold`, `select_cc_indexes` and
+that its day scans need: `beamform` (the BP kernel's specification),
+`bp_detection_threshold`, `envelope`, `saturated_envelopes` and `kurtosis`
+(the backprojection features and threshold), `matched_filter` (the MF
+kernel's specification), `matched_filter_at` (the float64 refine of the
+`screen` rung), `time_dependent_threshold`, `select_cc_indexes` and
 `dedup_detection_indexes`.
 
 Behavioral parity targets (reference file:line cited per function):
+  - beamform .................. external `beampower` package as consumed at
+                                BPMF/template_search.py:549-569
   - matched_filter ............ external `fast_matched_filter` as consumed at
                                 BPMF/similarity_search.py:526-533
   - time_dependent_threshold .. BPMF/libc.c:516-673 ('rms'),
                                 BPMF/similarity_search.py:1079-1113 ('mad')
+  - bp_detection_threshold .... BPMF/template_search.py:1418-1487
   - select_cc_indexes ......... BPMF/libc.c:441-485
+  - kurtosis .................. BPMF/libc.c:11-53
+  - envelope / saturation ..... BPMF/template_search.py:1525-1617
 """
 
 from __future__ import annotations
@@ -19,6 +26,75 @@ from __future__ import annotations
 import numpy as np
 
 GAUSSIAN_SAMPLE_LEN = 500
+
+
+# ---------------------------------------------------------------------------
+# Beamforming (backprojection)
+# ---------------------------------------------------------------------------
+
+def beamform(
+    features: np.ndarray,
+    moveouts: np.ndarray,
+    weights_phases: np.ndarray,
+    weights_sources: np.ndarray,
+    reduce: str = "max",
+    out_of_bounds: str = "strict",
+):
+    """Shift-and-stack beamforming over a source grid.
+
+    beam[i, t] = sum_{s,c,p} w_src[i,s] * w_ph[s,c,p] * feat[s,c,t + mv[i,s,p]]
+
+    Parameters
+    ----------
+    features : (n_sta, n_comp, n_samp) float array
+    moveouts : (n_src, n_sta, n_ph) int array, in samples
+    weights_phases : (n_sta, n_comp, n_ph) float array
+    weights_sources : (n_src, n_sta) float array
+    reduce : 'max' returns (maxbeam (n_samp,), maxbeam_sources (n_samp,));
+             'none' returns beam (n_src, n_samp).
+    out_of_bounds : 'strict' zeroes beam values at times where any channel
+        with non-zero weight points outside the data; 'flexible' only drops
+        the invalid channels' contributions.
+    """
+    features = np.asarray(features, dtype=np.float32)
+    moveouts = np.asarray(moveouts)
+    n_sta, n_comp, n_samp = features.shape
+    n_src, _, n_ph = moveouts.shape
+
+    # fold the component axis first:  g[s, p, t] = sum_c w_ph[s,c,p] f[s,c,t]
+    g = np.einsum("scp,sct->spt", weights_phases.astype(np.float64), features)
+
+    t = np.arange(n_samp)
+    beam = np.zeros((n_src, n_samp), dtype=np.float64)
+    # a channel (s, p) is "used" for source i iff w_src[i, s] != 0 and
+    # the phase weight row for (s, :, p) is not all-zero
+    phase_used = np.any(weights_phases != 0.0, axis=1)  # (n_sta, n_ph)
+    for i in range(n_src):
+        invalid_any = np.zeros(n_samp, dtype=bool)
+        for s in range(n_sta):
+            w_is = weights_sources[i, s]
+            if w_is == 0.0:
+                continue
+            for p in range(n_ph):
+                if not phase_used[s, p]:
+                    continue
+                idx = t + int(moveouts[i, s, p])
+                valid = (idx >= 0) & (idx < n_samp)
+                contrib = np.zeros(n_samp, dtype=np.float64)
+                contrib[valid] = g[s, p, idx[valid]]
+                beam[i] += w_is * contrib
+                invalid_any |= ~valid
+        if out_of_bounds == "strict":
+            beam[i, invalid_any] = 0.0
+
+    beam = beam.astype(np.float32)
+    if reduce == "max":
+        maxbeam_sources = np.argmax(beam, axis=0).astype(np.int32)
+        maxbeam = beam[maxbeam_sources, np.arange(n_samp)]
+        return maxbeam, maxbeam_sources
+    elif reduce == "none":
+        return beam
+    raise ValueError(f"reduce must be 'max' or 'none', got {reduce!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +323,44 @@ def time_dependent_threshold(
     raise ValueError(f"threshold_type must be 'rms' or 'mad', got {threshold_type!r}")
 
 
+def bp_detection_threshold(
+    maxbeam: np.ndarray,
+    window: int,
+    overlap: float = 0.75,
+    num_dev: float = 15.0,
+):
+    """Running median + num_dev * MAD, linearly interpolated to full length.
+
+    Reference: BPMF/template_search.py:1418-1487.
+    """
+    from scipy.stats import median_abs_deviation as scimad
+    from scipy.interpolate import interp1d
+
+    x = np.asarray(maxbeam)
+    shift = int((1.0 - overlap) * window)
+    n_windows = int((len(x) - window) // shift) + 1
+    mad_ = np.zeros(n_windows + 2, dtype=np.float32)
+    med_ = np.zeros(n_windows + 2, dtype=np.float32)
+    time = np.zeros(n_windows + 2, dtype=np.float32)
+    for i in range(1, n_windows + 1):
+        i1 = i * shift
+        i2 = min(x.size, i1 + window)
+        w = x[i1:i2]
+        med_[i] = np.median(w)
+        mad_[i] = scimad(w)
+        time[i] = (i1 + i2) / 2.0
+    time[0] = 0.0
+    mad_[0], med_[0] = mad_[1], med_[1]
+    time[-1] = len(x)
+    mad_[-1], med_[-1] = mad_[-2], med_[-2]
+    thr = med_ + num_dev * mad_
+    interpolator = interp1d(
+        time, thr, kind="slinear", fill_value=(thr[0], thr[-1]),
+        bounds_error=False,
+    )
+    return interpolator(np.arange(len(x))).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # CC-index selection (detection triggering)
 # ---------------------------------------------------------------------------
@@ -297,3 +411,81 @@ def dedup_detection_indexes(
                 cc_idx.remove(b)
             n_rm += 1
     return np.asarray(cc_idx, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Running kurtosis characteristic function
+# ---------------------------------------------------------------------------
+
+def kurtosis(signal: np.ndarray, w: int) -> np.ndarray:
+    """Running kurtosis over a trailing window of `w` samples.
+
+    kurto[n] uses samples [n-w, n).  Output is 0 for n < w and wherever the
+    window variance is <= 1e-6.  Reference: BPMF/libc.c:11-53.
+    """
+    signal = np.asarray(signal, dtype=np.float32)
+    orig_shape = signal.shape
+    x = signal.reshape(-1, orig_shape[-1]).astype(np.float64)
+    n_tr, n = x.shape
+    out = np.zeros_like(x, dtype=np.float64)
+    wf = float(w)
+    coeff = 1.0 / ((wf - 2.0) * (wf - 3.0))
+    for i in range(n_tr):
+        windows = np.lib.stride_tricks.sliding_window_view(x[i], w)[: n - w]
+        mean = windows.mean(axis=-1, keepdims=True)
+        d = windows - mean
+        m2 = (d**2).mean(axis=-1)
+        m4 = (d**4).mean(axis=-1)
+        valid = m2 > 1e-6
+        k = np.zeros(len(windows))
+        k[valid] = coeff * (
+            (wf**2 - 1.0) * m4[valid] / m2[valid] ** 2 - 3.0 * (wf - 1.0) ** 2
+        )
+        out[i, w:] = k
+    return out.reshape(orig_shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Envelope characteristic functions
+# ---------------------------------------------------------------------------
+
+def envelope(traces: np.ndarray) -> np.ndarray:
+    """Modulus of the analytic signal along the last axis.
+
+    Reference: BPMF/template_search.py:1598-1617.
+    """
+    from scipy.signal import hilbert
+
+    return np.abs(hilbert(np.asarray(traces), axis=-1)).astype(np.float32)
+
+
+def saturated_envelopes(
+    traces: np.ndarray,
+    anomaly_threshold: float = 1.0e-11,
+    max_dynamic_range: float = 1.0e5,
+):
+    """MAD-standardized, clipped envelopes + per-station availability count.
+
+    Reference: BPMF/template_search.py:1525-1570.
+    """
+    from scipy.stats import median_abs_deviation as scimad
+
+    env = envelope(traces)
+    n_sta, n_comp, n_samp = env.shape
+    availability = np.zeros(n_sta, dtype=np.int32)
+    for s in range(n_sta):
+        for c in range(n_comp):
+            missing = env[s, c] == 0.0
+            if missing.sum() > n_samp / 2:
+                env[s, c] = 0.0
+                continue
+            med = np.median(env[s, c, ~missing])
+            mad = scimad(env[s, c, ~missing])
+            if mad < anomaly_threshold:
+                env[s, c] = 0.0
+                continue
+            env[s, c] = (env[s, c] - med) / mad
+            env[s, c, missing] = 0.0
+            env[s, c] = np.minimum(env[s, c], max_dynamic_range)
+            availability[s] += 1
+    return env, availability

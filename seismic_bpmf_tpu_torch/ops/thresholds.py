@@ -3,9 +3,10 @@
 Counterpart of `seismic_bpmf_tpu/ops/thresholds.py` (the matched-filter
 part): the 'rms' threshold of BPMF/libc.c:516-673 with its cyclic
 500-sample Gaussian zero-fill and "delay-the-jump" smoothing, the 'mad'
-threshold of BPMF/similarity_search.py:1079-1113, and the batched
-threshold + two-stage top-k candidate extraction of the day scan.  These
-were XLA programs in the JAX package; here they are plain torch ops on the
+threshold of BPMF/similarity_search.py:1079-1113, the batched threshold +
+two-stage top-k candidate extraction of the day scan, and the
+backprojection threshold (median + N MAD, BPMF/template_search.py:1418-1487).
+These were XLA programs in the JAX package; here they are plain torch ops on the
 device of the CC tensor they are given.  Where a noise table is not
 passed, it is drawn from an explicit `numpy.random.Generator` (`rng`).
 """
@@ -91,11 +92,13 @@ def _median(x):
 
 
 def _nanmedian(x):
-    """Median of the non-NaN entries of a 1-D tensor (NaN sorts last)."""
-    s, _ = torch.sort(x)
-    nv = (~torch.isnan(x)).sum()
+    """Median of the non-NaN entries along the last axis, kept as a
+    length-1 axis: the midpoint of the two middle values for an even
+    count (numpy's), NaN for a row without values.  NaN sorts last."""
+    s, _ = torch.sort(x, dim=-1)
+    nv = (~torch.isnan(x)).sum(dim=-1, keepdim=True)
     lo = torch.clamp((nv - 1) // 2, min=0)
-    return (s[lo] + s[nv // 2]) * 0.5
+    return (s.gather(-1, lo) + s.gather(-1, nv // 2)) * 0.5
 
 
 def _tdt_mad(ts, noise, num_dev: float, *, window: int, shift: int,
@@ -168,6 +171,44 @@ def time_dependent_threshold(time_series, sliding_window_samp: int,
     raise ValueError(
         f"threshold_type must be 'rms' or 'mad', got {threshold_type!r}"
     )
+
+
+def bp_detection_threshold(maxbeam, window: int, overlap: float = 0.75,
+                           num_dev: float = 15.0, device=None):
+    """Running median + num_dev * MAD of the max beam in strided windows,
+    linearly interpolated between the window centres (flat beyond the
+    first and last), as a tensor on the beam's device (a numpy beam goes
+    to `device`).  Matches `ops.reference.bp_detection_threshold`
+    (BPMF/template_search.py:1418-1487); the MAD has scipy's default
+    scale 1."""
+    dev = (maxbeam.device if isinstance(maxbeam, torch.Tensor)
+           else resolve_device(device))
+    x = _f32(maxbeam, dev)
+    n = x.shape[0]
+    window = min(int(window), int(n))
+    shift = max(int((1.0 - overlap) * window), 1)
+    n_windows = max(int((n - window) // shift) + 1, 1)
+    # NaN past the end: windows cut by the data end hold fewer values
+    x_pad = torch.cat([x, torch.full((window,), float("nan"), device=dev)])
+    w = x_pad.unfold(0, window, shift)[1 : n_windows + 1]
+    med = _nanmedian(w)
+    thr = (med + float(num_dev) * _nanmedian(torch.abs(w - med)))[:, 0]
+    starts = torch.arange(1, n_windows + 1, device=dev) * shift
+    centers = (starts + torch.clamp(starts + window, max=n)) / 2.0
+    xp = torch.cat([torch.zeros(1, device=dev), centers.float(),
+                    torch.full((1,), float(n), device=dev)])
+    fp = torch.cat([thr[:1], thr, thr[-1:]])
+    # np.interp / jnp.interp
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    i = torch.clamp(torch.searchsorted(xp, t, right=True), 1, xp.shape[0] - 1)
+    dx = xp[i] - xp[i - 1]
+    flat = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(flat, fp[i - 1],
+                    fp[i - 1] + ((t - xp[i - 1])
+                                 / torch.where(flat, torch.ones_like(dx), dx))
+                    * (fp[i] - fp[i - 1]))
+    f = torch.where(t < xp[0], fp[0], f)
+    return torch.where(t > xp[-1], fp[-1], f)
 
 
 def _cc_kurtosis(cc):

@@ -1,7 +1,8 @@
 """Geodesy helpers (cartopy-free, vectorized numpy).
 
 The part of `seismic_bpmf_tpu.utils.geo` the port uses (the network's
-interstation distances).  Replaces cartopy.geodesic.Geodesic usage in the
+interstation distances, the beamformer's location-uncertainty
+integrals).  Replaces cartopy.geodesic.Geodesic usage in the
 reference (BPMF/dataset.py:204-225) with a vectorized
 WGS84 great-circle implementation (haversine on the WGS84 mean radius with
 a latitude-dependent radius correction is accurate to <0.2% at regional
@@ -38,4 +39,19 @@ def geodesic_distance_km(lon1, lat1, lon2, lat2):
     )
     R = _earth_radius_km(np.degrees((lat1 + lat2) / 2.0))
     return 2.0 * R * np.arcsin(np.minimum(1.0, np.sqrt(h)))
+
+
+def two_point_distance(lon1, lat1, depth1, lon2, lat2, depth2):
+    """Hypocentral distance (km) between two points with depths in km.
+
+    Reference parity: BPMF/utils.py:1778-1835.
+    """
+    d_epi = geodesic_distance_km(lon1, lat1, lon2, lat2)
+    return np.sqrt(d_epi**2 + (np.asarray(depth1) - np.asarray(depth2)) ** 2)
+
+
+def two_point_epicentral_distance(lat_1, lon_1, lat_2, lon_2):
+    """Surface (epicentral) distance in km; note the reference's
+    (lat, lon) argument order (BPMF/utils.py:1778-1802)."""
+    return geodesic_distance_km(lon_1, lat_1, lon_2, lat_2)
 

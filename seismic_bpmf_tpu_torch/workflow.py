@@ -1,9 +1,9 @@
-"""High-level workflow API: the matched-filter day scan and campaign.
+"""High-level workflow API: the backprojection and matched-filter day
+scans and the multi-day campaign.
 
-Counterpart of `matched_filter_day` and `scan_days(stage="mf")` of
-`seismic_bpmf_tpu.workflow` (notebook 8 of the reference tutorial), with
-the same JSON resume contract.  The backprojection stage comes with the
-next slice of the port.
+Counterpart of `backproject_day`, `matched_filter_day` and `scan_days` of
+`seismic_bpmf_tpu.workflow` (notebooks 5-6 and 8 of the reference
+tutorial), with the same JSON resume contract and the same HDF5 outputs.
 """
 
 from __future__ import annotations
@@ -13,10 +13,112 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
+import torch
+
 from .config import Config, DEFAULT_CONFIG
-from .data import Data, TemplateGroup
-from .detection import MatchedFilter
+from .data import Data, Network, TemplateGroup, TravelTimes
+from .detection import Beamformer, MatchedFilter
+from .ops.cf import saturated_envelopes
 from .utils.observe import GLOBAL_TIMER, logger
+
+
+def default_weights_phases(n_stations: int, n_components: int = 3,
+                           n_phases: int = 2) -> np.ndarray:
+    """P on the vertical, S on the horizontals (tutorial convention,
+    5_backprojection.ipynb)."""
+    w = np.zeros((n_stations, n_components, n_phases), np.float32)
+    w[:, 2, 0] = 1.0
+    w[:, :2, 1] = 1.0
+    return w
+
+
+def backproject_day(
+    data: Data,
+    network: Network,
+    travel_times: TravelTimes,
+    cfg: Config = DEFAULT_CONFIG,
+    feature_fn: Optional[Callable] = None,
+    phases: Sequence[str] = ("P", "S"),
+    num_closest_stations: int = 10,
+    minimum_interevent_time: float = 10.0,
+    threshold_window_sec: float = 3600.0,
+    n_max_stations: Optional[int] = None,
+    mesh=None,
+    precision: str = "high",
+    output_file: Optional[str] = None,
+    bf: Optional[Beamformer] = None,
+    device=None,
+):
+    """One-day backprojection scan -> (Beamformer, list of Events).
+
+    feature_fn(data_arr) -> features (host array or device tensor);
+    defaults to MAD-standardized envelopes on the device.  Pass a
+    `Beamformer` via `bf` to reuse it across days: its content-keyed plan
+    cache (device-resident moveouts and weights) then persists, so only
+    the day's features move.  `output_file` ("w" mode) holds exactly this
+    run's detections."""
+    if bf is None:
+        bf = Beamformer(
+            data=data, network=network, phases=list(phases),
+            travel_times=travel_times, cfg=cfg, mesh=mesh,
+            precision=precision, device=device,
+        )
+    else:
+        bf.set_data(data)
+    with GLOBAL_TIMER.stage("bp_features"):
+        arr = data.get_np_array(network.stations)
+        if feature_fn is None:
+            features, _ = saturated_envelopes(arr, device=bf.device)
+        else:
+            features = feature_fn(arr)
+        if isinstance(features, torch.Tensor) and features.is_cuda:
+            torch.cuda.synchronize(features.device)  # the stage's own time
+    n_feat_comp = int(features.shape[1])
+    if n_feat_comp == network.n_components:
+        # waveform-derived features (e.g. envelopes): P on vertical,
+        # S on horizontals
+        w_ph = default_weights_phases(
+            network.n_stations, network.n_components, len(phases)
+        )
+    else:
+        # picker probability features: one channel per phase (P, S, ...)
+        w_ph = np.zeros(
+            (network.n_stations, n_feat_comp, len(phases)), np.float32
+        )
+        for p in range(min(n_feat_comp, len(phases))):
+            w_ph[:, p, p] = 1.0
+    bf.set_weights(weights_phases=w_ph)
+    bf.set_weights_sources(
+        method="closest_stations",
+        num_closest_stations=num_closest_stations,
+        normalize=True,
+    )
+    with GLOBAL_TIMER.stage("bp_backproject"):
+        bf.backproject(features, reduce="max")
+        GLOBAL_TIMER.add("beam_points",
+                         float(bf.n_sources) * features.shape[-1])
+    with GLOBAL_TIMER.stage("bp_detect"):
+        thr = bf.compute_detection_threshold(window_sec=threshold_window_sec)
+        detections, _, _ = bf.find_detections(
+            thr, minimum_interevent_time, n_max_stations=n_max_stations
+        )
+    logger.info("backprojection: %d detections", len(detections))
+    if output_file is not None:
+        import h5py
+
+        # "w": the file holds exactly this run's detections (resume reruns
+        # whole days, so append mode would keep a partial run's groups)
+        with h5py.File(output_file, "w") as f:
+            for i, ev in enumerate(detections):
+                ev.write(os.path.basename(output_file), gid=str(i),
+                         hdf5_file=f)
+    return bf, detections
+
+
+def phasenet_feature_fn(*args, **kwargs):
+    raise NotImplementedError(
+        "PhaseNet features are not ported yet (ROADMAP Queue 1 #15)")
 
 
 def matched_filter_day(
@@ -77,28 +179,33 @@ def scan_days(
     state_file: Optional[str] = None,
     db_path: Optional[str] = None,
     stage: str = "mf",
+    network: Optional[Network] = None,
+    travel_times: Optional[TravelTimes] = None,
     **stage_kwargs,
 ) -> Dict:
-    """Multi-day matched-filter campaign with checkpoint/resume.
+    """Multi-day detection campaign with checkpoint/resume.
 
-    Runs `matched_filter_day` for each date with ONE campaign-persistent
-    engine and returns {date: {tid: [events]}}.  make_data(date) -> a
-    `Data` with waveforms read; the next day is read, normalized and
-    uploaded on a background thread while the current day computes.
+    stage='mf' (requires `template_group`) runs `matched_filter_day` and
+    returns {date: {tid: [events]}}; stage='bp' (requires `network` and
+    `travel_times`) runs `backproject_day` and returns {date: [events]},
+    writing per-day ``raw_bp_<date>.h5`` files under `db_path`.  Both keep
+    ONE campaign-persistent engine: plans move to the device once, only
+    each day's data moves.  make_data(date) -> a `Data` with waveforms
+    read; the next day is fetched on a background thread while the
+    current day computes (for 'mf' it is also normalized and uploaded
+    there).
 
     Resume contract: the state file records only ``{date:
     {"n_detections": N}}``.  Completed days are skipped on resume and
     their events are NOT re-returned; set `db_path` to persist detections
-    (per-template detection files) for a lossless resume."""
-    if stage == "bp":
-        raise NotImplementedError(
-            "scan_days(stage='bp') comes with the backprojection slice "
-            "(ROADMAP Queue 1 #12)"
-        )
-    if stage != "mf":
+    (per-template detection files, or the per-day raw BP files) for a
+    lossless resume."""
+    if stage not in ("mf", "bp"):
         raise ValueError(f"stage must be 'mf' or 'bp', got {stage!r}")
-    if template_group is None:
+    if stage == "mf" and template_group is None:
         raise ValueError("stage='mf' requires template_group")
+    if stage == "bp" and (network is None or travel_times is None):
+        raise ValueError("stage='bp' requires network and travel_times")
     if state_file is not None and db_path is None:
         logger.warning(
             "scan_days(stage=%r): state_file without db_path — the "
@@ -115,17 +222,40 @@ def scan_days(
     results: Dict = {}
     todo = [d for d in dates if str(d) not in done]
 
-    day_kwargs = {
-        k: stage_kwargs.pop(k)
-        for k in ("minimum_interevent_time", "threshold_window_dur",
-                  "weights_method", "weights_kwargs", "white_noise")
-        if k in stage_kwargs
-    }
-    stage_kwargs.setdefault("precision", "screen")
-    engine = MatchedFilter(template_group, cfg=cfg, **stage_kwargs)
+    if stage == "mf":
+        day_kwargs = {
+            k: stage_kwargs.pop(k)
+            for k in ("minimum_interevent_time", "threshold_window_dur",
+                      "weights_method", "weights_kwargs", "white_noise")
+            if k in stage_kwargs
+        }
+        stage_kwargs.setdefault("precision", "screen")
+        engine = MatchedFilter(template_group, cfg=cfg, **stage_kwargs)
 
-    def fetch(date):
-        return engine.preupload_day(make_data(date))
+        def fetch(date):
+            return engine.preupload_day(make_data(date))
+
+        def run_day(date, data):
+            dets = matched_filter_day(
+                template_group, data, cfg=cfg, db_path=db_path, mf=engine,
+                **day_kwargs,
+            )
+            return dets, sum(len(v) for v in dets.values())
+    else:
+        fetch = make_data
+        bf_holder = {"bf": None}
+
+        def run_day(date, data):
+            out = None
+            if db_path is not None:
+                os.makedirs(db_path, exist_ok=True)
+                out = os.path.join(db_path, f"raw_bp_{date}.h5")
+            bf, dets = backproject_day(
+                data, network, travel_times, cfg=cfg, output_file=out,
+                bf=bf_holder["bf"], **stage_kwargs,
+            )
+            bf_holder["bf"] = bf
+            return dets, len(dets)
 
     pool = ThreadPoolExecutor(max_workers=1)
     try:
@@ -135,18 +265,13 @@ def scan_days(
             data = pending.result()
             pending = (pool.submit(fetch, todo[i + 1])
                        if i + 1 < len(todo) else None)
-            detections = matched_filter_day(
-                template_group, data, cfg=cfg, db_path=db_path, mf=engine,
-                **day_kwargs,
-            )
+            detections, n = run_day(date, data)
             results[key] = detections
-            done[key] = {"n_detections": sum(len(v)
-                                             for v in detections.values())}
+            done[key] = {"n_detections": n}
             if state_file is not None:
                 with open(state_file, "w") as f:
                     json.dump(done, f)
-            logger.info("day %s: %d detections", key,
-                        done[key]["n_detections"])
+            logger.info("day %s: %d detections", key, n)
     finally:
         pool.shutdown(wait=True)
     return results

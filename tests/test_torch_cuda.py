@@ -1,5 +1,5 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel has no
-CPU mode.  They skip without one.  This file imports neither JAX nor the
+"""Tests of the port that need a CUDA card: the hand-written kernels have
+no CPU mode.  They skip without one.  This file imports neither JAX nor the
 JAX package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -16,10 +16,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from seismic_bpmf_tpu_torch import workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
-from seismic_bpmf_tpu_torch.data import TemplateGroup  # noqa: E402
+from seismic_bpmf_tpu_torch.data import (  # noqa: E402
+    Data, Network, Stream, TemplateGroup, Trace, TravelTimes,
+)
 from seismic_bpmf_tpu_torch.detection import MatchedFilter  # noqa: E402
-from seismic_bpmf_tpu_torch.ops import mf  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import reference as tref  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5  # the f32 gate of the JAX package's kernel tests
@@ -145,3 +148,144 @@ def test_matched_filter_on_card_matches_cpu(card, precision):
         np.testing.assert_allclose([c for _, c in found["cuda"][t]],
                                    [c for _, c in hits], atol=1e-5)
     assert [i for i, _ in found["cuda"]["0"]] == [3000, 17003]
+
+
+def _bp_problem(seed, n_src=75, n_sta=6, n_samp=1700, max_mv=300):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n_sta, 3, n_samp)).astype(np.float32)
+    mv = rng.integers(0, max_mv, size=(n_src, n_sta, 2)).astype(np.int32)
+    w_ph = np.zeros((n_sta, 3, 2), np.float32)
+    w_ph[:, 2, 0] = 1.0
+    w_ph[:, :2, 1] = 1.0
+    w_src = rng.uniform(0.2, 1.0, size=(n_src, n_sta)).astype(np.float32)
+    w_src[:, ::2] = 0.0              # sparse weights
+    w_src[3] = 0.0                   # no used pair: a beam of 0
+    for i in (40, n_src - 1):        # exact copies of source 9: ties
+        mv[i], w_src[i] = mv[9], w_src[9]
+    return feats, mv, w_ph, w_src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oob", ["strict", "flexible"])
+def test_bp_kernel_matches_plain_on_card(card, oob):
+    feats, mv, w_ph, w_src = _bp_problem(19)
+    for reduce in ("max", "none"):
+        plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1],
+                               reduce=reduce, out_of_bounds=oob, device=card)
+        g = plan.fold_and_pad(feats)
+        launches, calls = bp.bp_beam.launches, bp.beamform_plain.calls
+        got = plan.call_folded(g)
+        assert bp.bp_beam.launches == launches + 1
+        assert bp.beamform_plain.calls == calls
+        want = bp.beamform_plain(g, plan.tables, reduce=reduce)
+        torch.cuda.synchronize()
+        if reduce == "none":
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            assert bool((got[3] == 0).all())
+            continue
+        torch.testing.assert_close(got[0], want[0][: plan.n_samp],
+                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(got[1], want[1][: plan.n_samp])
+        assert not bool(torch.isin(got[1], torch.tensor(
+            [40, mv.shape[0] - 1], device=card)).any())
+        v2, i2 = plan.call_folded_chunked(g, 3)
+        assert torch.equal(v2, got[0]) and torch.equal(i2, got[1])
+        with pytest.raises(ValueError, match="float32"):
+            bp.bp_beam(g.double(), plan.tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_weighted", "small_buffers"])
+def test_bp_kernel_with_staged_rows_matches_plain_on_card(card, case,
+                                                          monkeypatch):
+    """Every one of 32 stations weighted: a tile's 64 rows are staged in
+    parts, and with buffers cut small on purpose in many parts."""
+    feats, mv, w_ph, w_src = _bp_problem(21, n_sta=32, max_mv=120)
+    w_src[:] = 1.0 / 32
+    if case == "small_buffers":
+        monkeypatch.setattr(bp, "SMEM_LIMIT", 60_000)
+    for reduce in ("max", "none"):
+        plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1],
+                               reduce=reduce, device=card)
+        assert plan.tables.n_stages > plan.tables.n_tiles
+        g = plan.fold_and_pad(feats)
+        got = plan.call_folded(g)
+        want = bp.beamform_plain(g, plan.tables, reduce=reduce)
+        torch.cuda.synchronize()
+        if reduce == "none":
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            continue
+        torch.testing.assert_close(got[0], want[0][: plan.n_samp],
+                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(got[1], want[1][: plan.n_samp])
+        v2, i2 = plan.call_folded_chunked(g, 3)
+        assert torch.equal(v2, got[0]) and torch.equal(i2, got[1])
+
+
+def _bp_world(seed=20, n_samp=12000, sr=25.0):
+    """A 60-source line under 5 stations, in memory; two events a day."""
+    rng = np.random.default_rng(seed)
+    sta_x = np.linspace(0.0, 48.0, 5)
+    src_x = np.linspace(0.0, 48.0, 60)
+    dist = np.hypot(src_x[:, None] - sta_x[None, :], 8.0)
+    names = [f"S{i}" for i in range(5)]
+    tts = {"P": {s: dist[:, i] / 6.0 for i, s in enumerate(names)},
+           "S": {s: dist[:, i] / 3.4 for i, s in enumerate(names)}}
+    tt = TravelTimes.from_arrays(tts, {"longitude": src_x / 111.0,
+                                       "latitude": np.zeros(60),
+                                       "depth": np.full(60, 8.0)})
+    tt.convert_to_samples(sr)
+    net = Network.from_arrays(names, longitude=sta_x / 111.0,
+                              latitude=np.zeros(5))
+    days = {}
+    for key, events in (("d1", [(3000, 11), (8000, 40)]),
+                        ("d2", [(5003, 25), (10007, 52)])):
+        x = 0.1 * rng.standard_normal((5, 3, n_samp), dtype=np.float32)
+        for o, src in events:
+            for s, sta in enumerate(names):
+                for c, ph in ((2, "P"), (0, "S"), (1, "S")):
+                    a = o + int(tt.travel_times_samp[ph][sta][src])
+                    x[s, c, a - 6: a + 7] += 8.0 * np.hanning(13)
+        days[key] = x
+
+    def reader(where, starttime=None, endtime=None, **kw):
+        st = Stream()
+        for s, sta in enumerate(names):
+            for c, comp in enumerate("NEZ"):
+                st += Trace(days[where][s, c], station=sta,
+                            channel="HH" + comp, sampling_rate=sr,
+                            starttime=0.0)
+        return st
+
+    def make_data(key):
+        return Data("1970-01-01", key, reader, duration=n_samp / sr,
+                    sampling_rate=sr).read_waveforms()
+
+    return net, tt, make_data
+
+
+@pytest.mark.cuda
+def test_backproject_day_on_card_matches_cpu(card):
+    """The whole BP day (envelopes, kernel, threshold, peaks) on the card
+    gives the CPU run's detections."""
+    net, tt, make_data = _bp_world()
+    cfg = Config(sampling_rate_hz=25.0)
+    found = {}
+    for dev in ("cpu", "cuda"):
+        launches = bp.bp_beam.launches
+        out = workflow.scan_days(["d1", "d2"], make_data, cfg=cfg,
+                                 stage="bp", network=net, travel_times=tt,
+                                 device=dev, num_closest_stations=4,
+                                 threshold_window_sec=120.0)
+        assert (bp.bp_beam.launches - launches >= 2) == (dev == "cuda")
+        found[dev] = {d: [(round(e.origin_time_epoch * 25.0),
+                           e.aux_data["source_index"],
+                           e.aux_data["maxbeam"]) for e in evs]
+                      for d, evs in out.items()}
+    for d in ("d1", "d2"):
+        assert [x[:2] for x in found["cuda"][d]] == [
+            x[:2] for x in found["cpu"][d]]
+        np.testing.assert_allclose([x[2] for x in found["cuda"][d]],
+                                   [x[2] for x in found["cpu"][d]],
+                                   rtol=1e-4, atol=1e-5)
+    assert {x[0] for x in found["cuda"]["d1"]} >= {3000, 8000}

@@ -77,6 +77,52 @@ MAIN_PATH = textwrap.dedent("""
                 if abs(e.origin_time_epoch - o / SR) < 0.5 / SR]
         assert hits and hits[0].aux_data["cc"] > 0.99, (key, out[key])
     assert mf.matched_filter_plain.calls > 0 and mf.mf_cc.launches == 0
+
+    # the backprojection day scan: a 40-source line, 4 stations, two events
+    from seismic_bpmf_tpu_torch.data import Network, TravelTimes
+    from seismic_bpmf_tpu_torch.ops import bp
+
+    n_src, n_bp = 40, 9000
+    sta_x = np.array([0.0, 15.0, 30.0, 45.0])
+    src_x = np.linspace(0.0, 45.0, n_src)
+    dist = np.hypot(src_x[:, None] - sta_x[None, :], 8.0)
+    tts = {{"P": {{s: dist[:, i] / 6.0 for i, s in enumerate("ABCD")}},
+            "S": {{s: dist[:, i] / 3.4 for i, s in enumerate("ABCD")}}}}
+    tt = TravelTimes.from_arrays(tts, {{"longitude": src_x / 111.0,
+                                       "latitude": np.zeros(n_src),
+                                       "depth": np.full(n_src, 8.0)}})
+    tt.convert_to_samples(SR)
+    net = Network.from_arrays(list("ABCD"), longitude=sta_x / 111.0,
+                              latitude=np.zeros(4))
+    bp_days = {{}}
+    for key, (o, src) in (("d1", (3000, 11)), ("d2", (6001, 30))):
+        x = 0.1 * rng.standard_normal((4, 3, n_bp), dtype=np.float32)
+        for s in range(4):
+            for c, ph in ((2, "P"), (0, "S"), (1, "S")):
+                a = o + int(tt.travel_times_samp[ph]["ABCD"[s]][src])
+                x[s, c, a - 6: a + 7] += 8.0 * np.hanning(13)  # centred
+        bp_days[key] = x
+
+    def bp_reader(where, starttime=None, endtime=None, **kw):
+        st = Stream()
+        for s, sta in enumerate("ABCD"):
+            for c, comp in enumerate("NEZ"):
+                st += Trace(bp_days[where][s, c], station=sta,
+                            channel="HH" + comp, sampling_rate=SR,
+                            starttime=0.0)
+        return st
+
+    out = workflow.scan_days(
+        ["d1", "d2"],
+        lambda d: Data("1970-01-01", d, bp_reader, duration=n_bp / SR,
+                       sampling_rate=SR).read_waveforms(),
+        cfg=cfg, stage="bp", network=net, travel_times=tt, device="cpu",
+        num_closest_stations=4, threshold_window_sec=120.0)
+    for key, (o, src) in (("d1", (3000, 11)), ("d2", (6001, 30))):
+        t_ot = o / SR
+        assert any(abs(e.origin_time_epoch - t_ot) < 3 / SR
+                   for e in out[key]), (key, out[key])
+    assert bp.beamform_plain.calls > 0 and bp.bp_beam.launches == 0
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not loaded, loaded
@@ -117,9 +163,12 @@ def test_no_port_file_imports_jax_or_the_jax_package(forbidden):
 def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    from seismic_bpmf_tpu_torch.data import TemplateGroup
-    from seismic_bpmf_tpu_torch.detection import MatchedFilter
-    from seismic_bpmf_tpu_torch.ops import mf, thresholds
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.data import (
+        Network, TemplateGroup, TravelTimes,
+    )
+    from seismic_bpmf_tpu_torch.detection import Beamformer, MatchedFilter
+    from seismic_bpmf_tpu_torch.ops import bp, cf, mf, thresholds
 
     tp = np.ones((1, 1, 3, 8), np.float32)
     tp[..., ::2] = 2.0
@@ -127,6 +176,14 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     w = np.full((1, 1, 3), 1 / 3, np.float32)
     data = np.ones((1, 3, 64), np.float32)
     tg = TemplateGroup.from_arrays(tp, mv, ["0"], ["A"])
+    bmv = np.array([[[0, 3]], [[1, 5]]])
+    w_ph = np.ones((1, 3, 2), np.float32)
+    w_src = np.ones((2, 1), np.float32)
+    net = Network.from_arrays(["A"])
+    tts = TravelTimes.from_arrays(
+        {"P": {"A": np.array([1.0, 1.1])}, "S": {"A": np.array([2.0, 2.2])}},
+        {"longitude": np.zeros(2), "latitude": np.zeros(2),
+         "depth": np.ones(2)})
     calls = [
         lambda: mf.MatchedFilterPlan(tp, mv, w, 64),
         lambda: mf.matched_filter(tp, mv, w, data),
@@ -134,6 +191,13 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
         lambda: MatchedFilter(tg),
         lambda: thresholds.time_dependent_threshold(np.ones(600), 100, 8.0),
         lambda: thresholds.RmsExtractionPlan(4096, 2048),
+        lambda: bp.BeamformPlan(bmv, w_ph, w_src, 64),
+        lambda: bp.beamform(data, bmv, w_ph, w_src),
+        lambda: cf.saturated_envelopes(data),
+        lambda: thresholds.bp_detection_threshold(np.ones(600), 100),
+        lambda: Beamformer(network=net, phases=["P", "S"],
+                           travel_times=tts),
+        lambda: workflow.backproject_day(None, net, tts),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -141,22 +205,26 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     # asked for the CPU, the same calls run
     assert mf.matched_filter(tp, mv, w, data, device="cpu").shape == (1, 57)
     assert MatchedFilter(tg, device="cpu").device.type == "cpu"
+    assert bp.beamform(data, bmv, w_ph, w_src, device="cpu")[0].shape == (64,)
+    assert Beamformer(network=net, travel_times=tts,
+                      device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MatchedFilter(tg, device="cpu", mesh=object())
 
 
 def test_nothing_is_compiled_at_import():
     from seismic_bpmf_tpu_torch import _build, workflow  # noqa: F401
-    from seismic_bpmf_tpu_torch.ops import mf  # noqa: F401
+    from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: F401
 
     assert _build._LIBS == {}
-    assert _build.sources() == ["mf"]
+    assert _build.sources() == ["bp", "mf"]
     try:
         _build._nvcc()
     except RuntimeError:
         # no CUDA compiler: a kernel's first use raises, naming nvcc
-        with pytest.raises(RuntimeError, match="nvcc"):
-            _build.load("mf")
+        for name in ("bp", "mf"):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                _build.load(name)
 
 
 def test_host_ops_copies_match_the_jax_package():
@@ -173,3 +241,46 @@ def test_host_ops_copies_match_the_jax_package():
         np.testing.assert_array_equal(
             tops.dedup_detection_indexes(idx, cc, 15),
             jops.dedup_detection_indexes(idx, cc, 15))
+
+
+BP_ORACLES = ["beamform", "bp_detection_threshold", "kurtosis", "envelope",
+              "saturated_envelopes"]
+
+
+@pytest.mark.parametrize("name", BP_ORACLES)
+def test_bp_oracle_copies_match_the_jax_package(name):
+    """The copies in the port's ops/reference.py are the JAX package's
+    functions, text and results."""
+    import inspect
+
+    from seismic_bpmf_tpu.ops import reference as jref
+    from seismic_bpmf_tpu_torch.ops import reference as tref
+
+    assert inspect.getsource(getattr(tref, name)) == inspect.getsource(
+        getattr(jref, name))
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(3, 3, 900)).astype(np.float32)
+    x[1, 2] = 0.0
+    if name == "beamform":
+        mv = rng.integers(0, 40, size=(7, 3, 2))
+        w_ph = np.ones((3, 3, 2), np.float32)
+        w_src = rng.uniform(0, 1, size=(7, 3)).astype(np.float32)
+        w_src[:, 1] = 0.0
+        for reduce in ("max", "none"):
+            for oob in ("strict", "flexible"):
+                np.testing.assert_array_equal(
+                    tref.beamform(x, mv, w_ph, w_src, reduce, oob),
+                    jref.beamform(x, mv, w_ph, w_src, reduce, oob))
+    elif name == "bp_detection_threshold":
+        y = np.abs(x[0, 0])
+        np.testing.assert_array_equal(tref.bp_detection_threshold(y, 200),
+                                      jref.bp_detection_threshold(y, 200))
+    elif name == "kurtosis":
+        np.testing.assert_array_equal(tref.kurtosis(x, 40),
+                                      jref.kurtosis(x, 40))
+    elif name == "envelope":
+        np.testing.assert_array_equal(tref.envelope(x), jref.envelope(x))
+    else:
+        for a, b in zip(tref.saturated_envelopes(x),
+                        jref.saturated_envelopes(x)):
+            np.testing.assert_array_equal(a, b)

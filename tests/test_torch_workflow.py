@@ -187,5 +187,5 @@ def test_scan_days_state_matches_jax(world, tmp_path):
     assert again == {} and days == ["d1", "d2"]
     # the detections were written per template
     assert (tmp_path / "db" / "detections_tp0.h5").is_file()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="stage='bp' requires"):
         twf.scan_days(["d1"], lambda d: w["tdata"], stage="bp")

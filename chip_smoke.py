@@ -36,7 +36,31 @@ Phases (any failure exits non-zero; nothing is caught):
   9. the BP kernel's numbers at day shape: ms per day (CUDA events, the
      day's chunk launches), its bound, the plain version's time, the values
      and the first-max rule held against the plain version; then
-     where a warm BP day's time goes (stage timers, torch.profiler).
+     where a warm BP day's time goes (stage timers, torch.profiler);
+ 10. the split MF kernel (the `high` rung: bf16-split operands, tensor
+     cores) against its plain PyTorch version on phase 3's inputs, rtol=1e-4,
+     atol=1e-5; against the float64 oracle at sampled lags within 5e-6;
+     step=2; the fail-loud checks; and not bit-equal to the f32 kernel;
+ 11. this rung's main path at full size: a two-day
+     `scan_days(stage="mf", precision="high")` over phase 4's world, through
+     the split kernel only; every repeat found at its sample with CC >=
+     0.99, every detection's CC within 5e-6 of the float64 oracle; then
+     `assemble_catalog` over both days (the bank's inter-template CC
+     computed on the card) with each repeat a `unique_event`;
+ 12. the campaign end to end on phase 8's world: one day
+     `backproject_day` -> `build_templates` from its detections (an
+     in-memory reader) -> `matched_filter_day(precision="high")` ->
+     `assemble_catalog`, the scan through an explicit `high` engine; each
+     of the three injected events is in the catalog once, at its time with
+     CC >= 0.99, as the `unique_event` of its group of multiples (BP also
+     triggers on an event's sidelobes, whose templates detect themselves
+     a second or two away); then this plan (one ragged template tile x 96
+     channels, wide moveout spans) is held to the plain version over the
+     whole day, rtol=1e-4, atol=1e-5, and every detection's CC to the
+     float64 oracle within 5e-6;
+ 13. the split kernel's numbers at day shape beside the f32 kernel's on the
+     same bank and day: ms per day (CUDA events), its bound, the plain
+     version's time and the day-size compare with the plain version.
 It then prints the card line, one JSON line of per-kernel numbers, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -84,6 +108,8 @@ N_SAMP = int(DAY_SEC * SR)          # 2,160,000
 T0_EPOCH = 1343260800.0             # 2012-07-26T00:00:00
 DATES = {"d1": "2012-07-26", "d2": "2012-07-27"}
 F32_PEAK_FLOPS = 67e12              # H100 SXM, f32 outside tensor cores
+BF16_PEAK_FLOPS = 989e12            # H100 SXM, dense bf16 on tensor cores
+ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -113,9 +139,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def plain_of(plan, data_pad):
-    return mf.matched_filter_plain(
-        data_pad, plan.filt, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
-        n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
+    kw = dict(n_tp=plan.n_tp, L=plan.L, n_corr=plan.n_corr_unit,
+              lo_p=plan.lo_p, hi_p=plan.hi_p)
+    if plan.precision_name == "high":
+        return mf.matched_filter_split_plain(
+            data_pad, *mf.split_rows_parts(plan.filt_rows, plan.L),
+            plan.mv_table, **kw)
+    return mf.matched_filter_plain(data_pad, plan.filt, plan.mv_table, **kw)
 
 
 def device_profile(prof, name: str) -> tuple:
@@ -141,19 +171,28 @@ def zero_counts():
     """Every kernel's launch count and plain version's call count to 0,
     just before a main path is driven."""
     mf.mf_cc.launches = mf.matched_filter_plain.calls = 0
+    mf.mf_cc_split.launches = mf.matched_filter_split_plain.calls = 0
     bp.bp_beam.launches = bp.beamform_plain.calls = 0
 
 
 def kernel_bound_ms(plan, data_pad) -> tuple:
-    """Least time for one plan call: f32 FMAs of the (template, channel)
-    pairs that add something, against each input read and the output
-    written once."""
+    """Least time for one plan call: the multiply-adds of the (template,
+    channel) pairs that add something (f32 at the FMA rate; for a 'high'
+    plan three bf16 products each at the tensor cores' dense rate),
+    against each input read and the output written once."""
     pairs = int((plan.mv_table[:, : plan.n_tp] >= 0).sum())
     flops = 2.0 * pairs * plan.L * plan.n_corr_unit
-    nbytes = 4.0 * (data_pad.numel() + plan.filt.numel()
-                    + plan.mv_table.numel() + plan.tile_lo.numel()
-                    + plan.n_tp * plan.n_corr_unit)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    if plan.precision_name == "high":
+        t_ops = 3.0 * flops / BF16_PEAK_FLOPS
+        # the rows' hi and lo parts, L bf16 taps each
+        filt_bytes = 2.0 * 2 * plan.n_ch * plan.n_tp * plan.L
+    else:
+        t_ops = flops / F32_PEAK_FLOPS
+        filt_bytes = 4.0 * plan.filt.numel()
+    nbytes = filt_bytes + 4.0 * (data_pad.numel() + plan.mv_table.numel()
+                                 + plan.tile_lo.numel()
+                                 + plan.n_tp * plan.n_corr_unit)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops / 2.0)
 
@@ -686,6 +725,278 @@ print(f"warm bp day: {warm_bp_s:.3f} s: "
       f"({100 * busy_bp / (1e3 * prof_bp_s):.0f}%): {top_bp} [{CARD}]",
       flush=True)
 
+
+# 10. the split kernel against its plain version at full bank width
+plan10 = mf.MatchedFilterPlan(tpl, mv, wts, n_win, precision="high")
+if (plan10.pad_left, plan10.ext) != (plan3.pad_left, plan3.ext):
+    raise AssertionError("the two rungs disagree on the padded layout")
+got10 = plan10(dp3)
+ref10 = plain_of(plan10, dp3)
+torch.cuda.synchronize()
+err10 = float((got10 - ref10).abs().max())
+if not torch.allclose(got10, ref10, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"split kernel != plain version: max|diff| "
+                         f"{err10:.3g}")
+if float(got10[:, 40050:49400].abs().max()) != 0.0:
+    raise AssertionError("split kernel: the zero-filled gap does not give "
+                         "CC = 0")
+f32_10 = plan3(dp3)
+diff_f32 = float((got10 - f32_10).abs().max())
+if torch.equal(got10, f32_10) or not bool(
+        (mf.split_rows_parts(plan10.filt_rows, L)[1].float() != 0).any()):
+    raise AssertionError("the `high` plan gave the f32 kernel's bits: wrong "
+                         "kernel, or a zeroed lo part")
+lags10 = rng.integers(0, n_win - L, size=64)
+lags10[:4] = (0, n_win - L, 39990, 50003)       # the edges, the gap's rim
+worst10 = 0.0
+for t10 in (0, 1, N_TP // 2, N_TP - 1):
+    exact = matched_filter_at(tpl[t10], mv[t10], wts[t10], win, lags10)
+    worst10 = max(worst10, float(np.abs(
+        exact - got10[t10, lags10].cpu().numpy()).max()))
+if worst10 > ATOL_HIGH:
+    raise AssertionError(f"split kernel: max|CC - oracle| {worst10:.3g}")
+got10s = mf.matched_filter(tpl, mv, wts, win, step=2, precision="high")
+if not torch.allclose(got10s, ref10[:, ::2][:, : (n_win - L) // 2 + 1],
+                      rtol=RTOL, atol=ATOL):
+    raise AssertionError("split kernel: step=2 disagrees with the "
+                         "decimated scan")
+call10 = dict(n_tp=plan10.n_tp, L=L, n_corr=plan10.n_corr_unit,
+              lo_p=plan10.lo_p, hi_p=plan10.hi_p,
+              max_delta=plan10.max_delta)
+for what, args in (
+        ("a float64 day", (dp3.double(), plan10.filt_rows)),
+        ("f32 template rows", (dp3, plan10.filt_rows.float()))):
+    try:
+        mf.mf_cc_split(*args, plan10.mv_table, plan10.tile_lo, **call10)
+    except ValueError:
+        continue
+    raise AssertionError(f"{what} reached the split kernel")
+ms10 = cuda_ms(lambda: plan10(dp3), 5)
+t0 = time.perf_counter()
+plain_of(plan10, dp3)
+torch.cuda.synchronize()
+plain10 = 1e3 * (time.perf_counter() - t0)
+print(f"split kernel vs plain (128 x 30 x L=200, 2^17 samples): max|diff| "
+      f"{err10:.3g} (rtol={RTOL}, atol={ATOL}), max|CC - oracle| "
+      f"{worst10:.3g} at {4 * len(lags10)} lags (atol={ATOL_HIGH}), "
+      f"max|diff| from the f32 kernel {diff_f32:.3g}; kernel {ms10:.3f} ms "
+      f"(f32 kernel {ms3:.3f} ms), plain {plain10:.1f} ms [{CARD}]",
+      flush=True)
+del got10, ref10, f32_10, got10s
+
+
+# 11. the `high` rung's main path at full size
+zero_counts()
+kw_high = dict(kw, rng=np.random.default_rng(SEED + 4))
+before11 = GLOBAL_TIMER.times["mf_scan"]
+t0 = time.perf_counter()
+res11 = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg,
+                           precision="high", **kw_high)
+wall11 = time.perf_counter() - t0
+launches11 = mf.mf_cc_split.launches
+others11 = (mf.mf_cc.launches, mf.matched_filter_plain.calls,
+            mf.matched_filter_split_plain.calls)
+if launches11 < len(DATES) or others11 != (0, 0, 0):
+    raise AssertionError(f"high main path: {launches11} split-kernel "
+                         f"launches; f32 kernel, plain, split plain: "
+                         f"{others11}")
+for day, tid, o in REPEATS:
+    t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
+    hits = [e for e in res11[day][str(tid)]
+            if abs(e.origin_time_epoch - t_exp) < 0.5 / SR]
+    if not hits or hits[0].aux_data["cc"] < 0.99:
+        raise AssertionError(f"high: repeat of template {tid} at sample {o} "
+                             f"of {day} not detected with CC >= 0.99: {hits}")
+scan11_s = (GLOBAL_TIMER.times["mf_scan"] - before11) / len(DATES)
+engine11 = MatchedFilter(tg, cfg=cfg, precision="high",
+                         **{k: v for k, v in kw_high.items()
+                            if k != "minimum_interevent_time"})
+worst11, n11 = 0.0, 0
+for day in DATES:
+    data11 = make_data(day)
+    engine11.set_data(data11)
+    engine11.set_weights_channels(method="simple", normalize=True)
+    for tid, evs in res11[day].items():
+        tt = int(tg.tindexes[tid])
+        idx = np.array([int(round((e.origin_time_epoch - data11.date_epoch)
+                                  * SR)) for e in evs], np.int64)
+        if not len(idx):
+            continue
+        exact = matched_filter_at(tg.waveforms_arr[tt], tg.moveouts_arr[tt],
+                                  engine11.weights_channels[tt],
+                                  engine11.data_arr, idx)
+        worst11 = max(worst11, float(np.abs(
+            exact - np.array([e.aux_data["cc"] for e in evs])).max()))
+        n11 += len(idx)
+if n11 < N_TP + len(REPEATS) or worst11 > ATOL_HIGH:
+    raise AssertionError(f"high: {n11} detections, max|CC - oracle| "
+                         f"{worst11:.3g}")
+t0 = time.perf_counter()
+cat11 = workflow.assemble_catalog(
+    {tid: [e for day in DATES for e in res11[day][tid]]
+     for tid in res11["d1"]}, tg)
+torch.cuda.synchronize()
+cat11_s = time.perf_counter() - t0
+if cat11.n_events != n11:
+    raise AssertionError(f"catalog of {cat11.n_events} events from {n11} "
+                         f"detections")
+for day, tid, o in REPEATS:
+    t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
+    rows = np.flatnonzero(
+        (np.abs(cat11.origin_times_epoch - t_exp) < 0.5 / SR)
+        & (cat11["tid"].astype(str) == str(tid)))
+    if len(rows) != 1 or not cat11["unique_event"][rows[0]]:
+        raise AssertionError(f"repeat of template {tid} at sample {o} of "
+                             f"{day} is not one unique event of the catalog")
+print(f"scan_days high: {({d: sum(len(v) for v in r.values()) for d, r in res11.items()})} "
+      f"detections, every repeat found, max|CC - oracle| {worst11:.3g} over "
+      f"{n11} detections; {scan11_s:.3f} s/day matched_filter_day, "
+      f"{macs_day / scan11_s / 1e9:.0f} GMAC/s end to end, campaign wall "
+      f"{wall11:.1f} s; split-kernel launches {launches11}; catalog of "
+      f"{cat11.n_events} events, {int(cat11['unique_event'].sum())} unique, "
+      f"assemble_catalog {cat11_s:.2f} s (inter-template CC of {N_TP} "
+      f"templates on the card) [{CARD}]", flush=True)
+
+
+# 12. the campaign end to end on the BP world, at `high`
+def bp_window_reader(where, stations=None, channels=None, starttime=None,
+                     endtime=None, **kwargs):
+    """In-memory reader of windows of the BP days: honours the station
+    list, the channel pattern ('*Z') and the time window."""
+    key = where.split("/")[-1]
+    t0 = T0_EPOCH + DAY_SEC * (int(key[1:]) - 1)
+    out = Stream()
+    for s, name in enumerate(stations_bp):
+        if stations is not None and name not in stations:
+            continue
+        for c, comp in enumerate("NEZ"):
+            if channels is None or channels.endswith(comp):
+                out += Trace(BP_DAYS[key][s, c], station=name, network="XX",
+                             channel=f"HH{comp}", sampling_rate=SR,
+                             starttime=t0)
+    return out.slice(starttime, endtime)
+
+
+cfg12 = Config(sampling_rate_hz=SR, template_len_sec=L / SR)
+zero_counts()
+steps12 = {}
+t0 = time.perf_counter()
+day12 = make_bp_data("d1")
+_, dets12 = workflow.backproject_day(day12, net_bp, travel, cfg=cfg12, bf=bf9)
+steps12["backproject_day"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+tg12 = workflow.build_templates(dets12, net_bp, cfg=cfg12,
+                                data_reader=bp_window_reader)
+steps12["build_templates"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+engine12 = MatchedFilter(tg12, cfg=cfg12, precision="high", min_channels=6,
+                         min_stations=3, max_kurto=1e6,
+                         rng=np.random.default_rng(SEED + 5))
+mf12 = workflow.matched_filter_day(tg12, day12, cfg=cfg12, mf=engine12)
+torch.cuda.synchronize()
+steps12["matched_filter_day"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+cat12 = workflow.assemble_catalog(mf12, tg12)
+steps12["assemble_catalog"] = time.perf_counter() - t0
+counts12 = (bp.bp_beam.launches, mf.mf_cc_split.launches)
+others12 = (bp.beamform_plain.calls, mf.mf_cc.launches,
+            mf.matched_filter_plain.calls,
+            mf.matched_filter_split_plain.calls)
+if min(counts12) < 1 or others12 != (0, 0, 0, 0):
+    raise AssertionError(f"end to end: bp and split-kernel launches "
+                         f"{counts12}; plain bp, f32 kernel, plain, split "
+                         f"plain: {others12}")
+if tg12.n_templates < len(BP_EVENTS["d1"]):
+    raise AssertionError(f"{tg12.n_templates} templates from "
+                         f"{len(dets12)} detections")
+for o, src in BP_EVENTS["d1"]:
+    dt12 = np.abs(cat12.origin_times_epoch - (T0_EPOCH + o / SR))
+    near = dt12 <= 2.5 / SR
+    group = dt12 <= 3.0              # assemble_catalog's dt_criterion
+    if (int(near.sum()) != 1 or cat12["cc"][near][0] < 0.99
+            or not bool(cat12["unique_event"][near][0])):
+        raise AssertionError(
+            f"event at sample {o} (source {src}): {int(near.sum())} catalog "
+            f"rows at its time, {int(group.sum())} within 3 s: "
+            f"{list(zip(cat12['origin_time'][group], cat12['tid'][group], cat12['cc'][group], cat12['unique_event'][group]))}")
+# this path's plan is another shape than phases 10, 11 and 13 hold to the
+# plain version (one ragged template tile, 96 channels, the bank's moveouts
+# spread wide inside the tile): the whole day's CC against the plain
+# version, and every detection's CC against the float64 oracle
+plans12 = [p for ps in engine12._plans.values() for p in ps]
+if sum(p.n_tp for p in plans12) != tg12.n_templates:
+    raise AssertionError(f"end to end: plans of {[p.n_tp for p in plans12]} "
+                         f"templates for a bank of {tg12.n_templates}")
+dp12 = engine12._data_pad
+got12 = torch.cat([p(dp12) for p in plans12])
+ref12 = torch.cat([plain_of(p, dp12) for p in plans12])
+torch.cuda.synchronize()
+err12 = float((got12 - ref12).abs().max())
+if not torch.allclose(got12, ref12, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"end to end: split kernel != plain version at "
+                         f"{tg12.n_templates} x {plans12[0].n_ch}: max|diff| "
+                         f"{err12:.3g}")
+del got12, ref12
+worst12, n12 = 0.0, 0
+for tid, evs in mf12.items():
+    if not evs:
+        continue
+    tt = int(tg12.tindexes[tid])
+    idx = np.array([int(round((e.origin_time_epoch - day12.date_epoch) * SR))
+                    for e in evs], np.int64)
+    exact = matched_filter_at(tg12.waveforms_arr[tt], tg12.moveouts_arr[tt],
+                              engine12.weights_channels[tt],
+                              engine12.data_arr, idx)
+    worst12 = max(worst12, float(np.abs(
+        exact - np.array([e.aux_data["cc"] for e in evs])).max()))
+    n12 += len(idx)
+if n12 != cat12.n_events or worst12 > ATOL_HIGH:
+    raise AssertionError(f"end to end: {n12} detections, catalog of "
+                         f"{cat12.n_events}, max|CC - oracle| {worst12:.3g}")
+print(f"end to end at high: {len(dets12)} bp detections -> "
+      f"{tg12.n_templates} templates ({len(tg12.stations)} stations x 3) -> "
+      f"{sum(len(v) for v in mf12.values())} mf detections -> catalog of "
+      f"{cat12.n_events}, {int(cat12['unique_event'].sum())} unique; the 3 "
+      f"injected events each once in it and the kept row of their group of "
+      f"multiples; split kernel vs plain on this plan "
+      f"({tg12.n_templates} x {plans12[0].n_ch}, max_delta "
+      f"{max(p.max_delta for p in plans12)}): max|diff| {err12:.3g} "
+      f"(rtol={RTOL}, atol={ATOL}), max|CC - oracle| {worst12:.3g} over "
+      f"{n12} detections (atol={ATOL_HIGH}); "
+      + ", ".join(f"{k} {v:.2f} s" for k, v in steps12.items())
+      + f"; bp launches {counts12[0]}, split-kernel launches {counts12[1]} "
+      f"[{CARD}]", flush=True)
+del day12, mf12, dp12
+
+
+# 13. the split kernel's numbers at day shape, beside the f32 kernel's
+workflow.matched_filter_day(tg, day1, cfg=cfg, mf=engine11,
+                            minimum_interevent_time=5.0)
+plan13 = next(iter(engine11._plans.values()))[0]
+dp13 = engine11._data_pad
+bound13, bound_by13, _ = kernel_bound_ms(plan13, dp13)
+got13 = plan13(dp13)
+t0 = time.perf_counter()
+ref13 = plain_of(plan13, dp13)
+torch.cuda.synchronize()
+plain13 = 1e3 * (time.perf_counter() - t0)
+err13 = float((got13 - ref13).abs().max())
+if not torch.allclose(got13, ref13, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"day-size split kernel != plain: max|diff| "
+                         f"{err13:.3g}")
+del ref13
+f32_13 = plan(dp)
+diff13 = float((got13 - f32_13).abs().max())
+del got13, f32_13
+ms13 = cuda_ms(lambda: plan13(dp13), 5)
+ms13_f32 = cuda_ms(lambda: plan(dp), 5)
+print(f"mf split kernel, one day: {ms13:.2f} ms ({macs / ms13 / 1e6:.0f} "
+      f"GMAC/s; the f32 kernel on the same bank and day {ms13_f32:.2f} ms), "
+      f"bound {bound13:.2f} ms ({bound_by13}: 3 bf16 products at "
+      f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s), plain {plain13:.0f} ms; "
+      f"max|diff| from plain {err13:.3g}, from the f32 kernel {diff13:.3g} "
+      f"[{CARD}]", flush=True)
+
 print(CARD)
 print(json.dumps({"kernels": [{
     "name": "mf_cc",
@@ -698,6 +1009,18 @@ print(json.dumps({"kernels": [{
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,
     "bound_by": bound_by,
+    "library_ms": None,
+}, {
+    "name": "mf_cc_split",
+    "route": "cuda",
+    "source": "seismic_bpmf_tpu_torch/csrc/mf_split.cu",
+    "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:285",
+    "launches": launches11,
+    "max_abs_err": max(err10, err12, err13),
+    "ms": ms13,
+    "plain_ms": plain13,
+    "bound_ms": bound13,
+    "bound_by": bound_by13,
     "library_ms": None,
 }, {
     "name": "bp_beam",

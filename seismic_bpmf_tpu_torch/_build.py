@@ -1,6 +1,7 @@
 """Builds the package's CUDA kernels at first use and loads them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (the ``csrc/*.cuh`` headers
+are what the sources share) and is compiled by ``nvcc``
 into ``build/seismic_bpmf_tpu_torch/lib<name>-<hash>.so`` beside the
 package, then loaded with ctypes.  Nothing is compiled when this module is
 imported: a kernel's library is built when a CUDA tensor first reaches its
@@ -44,8 +45,12 @@ def _nvcc() -> str:
 def _target(name: str, defines=(), extra_flags=()) -> tuple:
     src = os.path.join(CSRC, f"{name}.cu")
     flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), *extra_flags]
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha1(" ".join(flags).encode())
+    headers = sorted(os.path.join(CSRC, fn) for fn in os.listdir(CSRC)
+                     if fn.endswith(".cuh"))
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
     return src, so, flags
 

@@ -1,7 +1,7 @@
 // Fused normalized, network-summed matched filter (CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel `seismic_bpmf_tpu/ops/pallas_mf.py::_mf_kernel`
-// (and, at f32 accumulation, its `high` twin `_mf_kernel_split`).  Same
+// (its `high` twin `_mf_kernel_split` is csrc/mf_split.cu).  Same
 // semantics as `ops.reference.matched_filter(network_sum=True)`:
 //
 //   out[t, b] = sum_c mask(t, c, b) * y_c(b + mv[c, t]) *
@@ -22,10 +22,8 @@
 // templates.  Per channel it stages in shared memory the tile's template
 // rows (32 x L_pad f32), the data span the tile's moveouts reach
 // (MF_T + max_delta + L_pad samples, read once from global memory) and y
-// for every window start of that span, computed from local f32 L-sums (no
-// global prefix sum: r2 - r1^2/L would cancel over a 2 M-sample scan),
-// summed as MF_YG-sample partials so each sample is read ~MF_YG + L/MF_YG
-// times instead of L times.
+// for every window start of that span (csrc/mf_window.cuh: local f32
+// L-sums, summed as MF_YG-sample partials).
 // Each warp owns 4 templates, each lane MF_R = 16 consecutive lags of one
 // template at a time: a rolling register window of 16 data samples turns
 // every shared-memory read of data into 16 FMAs, and the template taps are
@@ -40,13 +38,16 @@
 // the TPU's L + max_moveout filter fold are computed.  The network sum is
 // kept in registers and each output is written once, with 64-bit offsets.
 //
-// Precision.  Every rung (highest, high, default and the screen scan)
-// runs this kernel in f32 accumulation, which lies inside every rung's
-// error class; `screen` keeps its margin-widened candidate extraction and
-// exact float64 host refine, so its detection decisions do not change.
+// Precision.  The rungs highest and default and the screen scan run this
+// kernel, in f32, which lies inside each of these rungs' error classes;
+// `screen` keeps its margin-widened candidate extraction and exact
+// float64 host refine, so its detection decisions do not change.  The
+// rung high runs csrc/mf_split.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mf_window.cuh"
 
 #ifndef MF_R
 #define MF_R 16         // consecutive lags per thread (a multiple of 4)
@@ -62,6 +63,10 @@
 #define MF_THREADS 256
 #define MF_TPW (MF_TP / (MF_THREADS / 32))  // templates per warp
 #define SK(i) ((i) + ((i) >> 5))
+
+struct MfSkew {
+    __device__ static __forceinline__ int at(int i) { return SK(i); }
+};
 
 __global__ void __launch_bounds__(MF_THREADS, MF_MINB)
 mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
@@ -82,8 +87,6 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
     const int span = n_y + L_pad;
     float* s1_s = d_s + SK(span) + 1;                // n_y + L_pad each
     float* s2_s = s1_s + n_y + L_pad;
-    const int n_grp = L / MF_YG;                     // whole partials in L
-    const int n_s = n_y + (n_grp - 1) * MF_YG;
 
     const long long b0 = (long long)blockIdx.x * MF_T;
     const int tile = blockIdx.y;
@@ -92,7 +95,6 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const float inv_l = 1.0f / (float)L;
 
     float tot[MF_TPW][MF_R];
 #pragma unroll
@@ -117,35 +119,8 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
         }
         __syncthreads();
 
-        // window sums as sums of MF_YG-sample partials: each sample is
-        // read MF_YG + L / MF_YG times instead of L times
-        for (int p = tid; p < n_s; p += MF_THREADS) {
-            float u1 = 0.0f, u2 = 0.0f;
-#pragma unroll
-            for (int k = 0; k < MF_YG; ++k) {
-                const float v = d_s[SK(p + k)];
-                u1 += v;
-                u2 = fmaf(v, v, u2);
-            }
-            s1_s[p] = u1;
-            s2_s[p] = u2;
-        }
-        __syncthreads();
-        for (int q = tid; q < n_y; q += MF_THREADS) {
-            float r1 = 0.0f, r2 = 0.0f;
-            for (int m = 0; m < n_grp; ++m) {
-                r1 += s1_s[q + m * MF_YG];
-                r2 += s2_s[q + m * MF_YG];
-            }
-            for (int j = n_grp * MF_YG; j < L; ++j) {
-                const float v = d_s[SK(q + j)];
-                r1 += v;
-                r2 = fmaf(v, v, r2);
-            }
-            const float var = r2 - r1 * r1 * inv_l;
-            y_s[q] = (var > 1e-10f) ? rsqrtf(fabsf(var) + 1e-30f) : 0.0f;
-        }
-        __syncthreads();
+        mf_window_y<MF_YG, MfSkew>(d_s, s1_s, s2_s, y_s, n_y, L, tid,
+                                   MF_THREADS);
 
 #pragma unroll
         for (int ti = 0; ti < MF_TPW; ++ti) {

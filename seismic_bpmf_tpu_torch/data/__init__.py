@@ -1,5 +1,6 @@
 """Host-side data model: streams, network/event/template containers, IO."""
 
+from .catalog import Catalog
 from .events import Event, Template
 from .groups import TemplateGroup
 from .network import Network
@@ -9,6 +10,7 @@ from .travel_times import SourceTable, TravelTimes
 from .waveforms import Data, get_np_array
 
 __all__ = [
+    "Catalog",
     "Data",
     "Event",
     "Network",

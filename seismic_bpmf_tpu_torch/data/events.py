@@ -180,6 +180,73 @@ class Event:
         return self.availability_per_sta
 
     # ------------------------------------------------------------------
+    # waveforms
+    # ------------------------------------------------------------------
+    def read_waveforms(
+        self,
+        duration: float,
+        phase_on_comp: Dict[str, str] = DEFAULT_PHASE_ON_COMP,
+        component_aliases: Dict[str, List[str]] = DEFAULT_ALIASES,
+        offset_phase: Dict[str, float] = DEFAULT_OFFSET_PHASE,
+        time_shifted: bool = True,
+        offset_ot: float = 20.0,
+        data_reader: Optional[Callable] = None,
+        **reader_kwargs,
+    ):
+        """Extract per-channel windows around the predicted phase arrivals.
+
+        Reference parity: BPMF/dataset.py:1929-2069.  With `time_shifted`,
+        the window on component `c` starts at
+        ``origin_time + moveout(phase_on_comp[c]) - offset_phase[phase]``.
+        """
+        data_reader = data_reader or self.data_reader
+        if data_reader is None:
+            raise RuntimeError("a data_reader is required")
+        self.data_reader = data_reader
+        self.traces = Stream()
+        self.duration = duration
+        ot = self.origin_time_epoch
+        table = self.moveouts_table()
+        col = {p.upper(): i for i, p in enumerate(self.phases)}
+        for s, sta in enumerate(self.stations):
+            for comp in self.components:
+                ph = phase_on_comp[comp].upper()
+                if time_shifted:
+                    start = (ot + float(table[s, col[ph]])
+                             - offset_phase[ph])
+                else:
+                    start = ot - offset_ot
+                for cp_alias in component_aliases[comp]:
+                    st = data_reader(
+                        self.where,
+                        stations=[sta],
+                        channels=f"*{cp_alias}",
+                        starttime=utc_from_epoch(start),
+                        endtime=utc_from_epoch(start + duration),
+                        **reader_kwargs,
+                    )
+                    if len(st) > 0:
+                        self.traces += st
+                        break
+        for ph, off in offset_phase.items():
+            self.set_aux_data({f"offset_{ph.upper()}": off})
+        for comp, ph in phase_on_comp.items():
+            self.set_aux_data({f"phase_on_comp{comp}": ph})
+        if len(self.traces) > 0:
+            self.sampling_rate = self.traces[0].stats.sampling_rate
+        if not time_shifted:
+            self.trim_waveforms(
+                starttime=ot - offset_ot,
+                endtime=ot - offset_ot + duration,
+            )
+        return self
+
+    def trim_waveforms(self, starttime=None, endtime=None):
+        for tr in self.traces:
+            tr.trim(starttime=starttime, endtime=endtime, pad=True,
+                    fill_value=0.0)
+
+    # ------------------------------------------------------------------
     # methods that reach modules not ported yet
     # ------------------------------------------------------------------
     def pick_PS_phases(self, *args, **kwargs):

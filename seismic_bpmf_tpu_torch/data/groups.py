@@ -8,7 +8,14 @@ pandas.  It assembles the dense arrays the kernel consumes:
   waveforms_arr : (n_tp, n_stations, n_components, n_samples) float32
 
 `TemplateGroup.from_arrays` builds a group straight from these arrays
-(and the bank's metadata), so a bank made elsewhere can be carried over.
+(and the bank's metadata) and `TemplateGroup.from_group` reads them off
+another group object, so a bank made elsewhere (by the JAX package, for
+one) can be carried over.
+
+The inter-template tables (distances, directional errors, ellipsoid
+separations, CC) are plain numpy (n_tp, n_tp) arrays whose rows and
+columns follow `tids`; `table_at(table, tid_i, tid_j)` reads one entry by
+template id.  The JAX package keeps the same numbers in DataFrames.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..utils.geo import two_point_distance
 from .events import Template
 from .network import Network
 from .waveforms import get_np_array
@@ -57,6 +65,8 @@ class TemplateGroup:
         locations=None,
         origin_times=None,
         network: Optional[Network] = None,
+        cov_mats=None,
+        uncertainties=None,
     ) -> "TemplateGroup":
         """A group holding the given bank.
 
@@ -65,7 +75,10 @@ class TemplateGroup:
         `components`; moveouts_sec (n_tp, n_sta, n_phases) per-template
         phase moveouts in seconds (the Events a detection builds carry
         them); locations (n_tp, 3) longitude, latitude, depth;
-        origin_times (n_tp,) datetime64 or epoch seconds."""
+        origin_times (n_tp,) datetime64 or epoch seconds; cov_mats a
+        sequence of (3, 3) location covariances or None per template;
+        uncertainties a sequence of dicts with 'hmax_unc' / 'vmax_unc' (km)
+        or None per template."""
         waveforms_arr = np.asarray(waveforms_arr, np.float32)
         moveouts_arr = np.asarray(moveouts_arr, np.int32)
         n_tp, n_sta, n_comp, L = waveforms_arr.shape
@@ -92,11 +105,55 @@ class TemplateGroup:
             )
             tp.duration = L / float(sampling_rate)
             tp.set_aux_data({"tid": tids[i], "n_samples": L})
+            if cov_mats is not None and cov_mats[i] is not None:
+                tp.cov_mat = np.asarray(cov_mats[i], float)
+                tp.set_aux_data({"cov_mat": tp.cov_mat})
+            if uncertainties is not None and uncertainties[i]:
+                tp.set_aux_data(dict(uncertainties[i]))
             templates.append(tp)
         group = cls(templates, network)
         group._waveforms_arr = waveforms_arr
         group._moveouts_arr = moveouts_arr
         return group
+
+    @classmethod
+    def from_group(cls, other) -> "TemplateGroup":
+        """Carry a bank over from another group object: this package's or
+        the JAX package's `TemplateGroup`, read through the attributes both
+        have.  Taken across: `waveforms_arr`, `moveouts_arr`, `tids`, the
+        stations and components, and per template the sampling rate,
+        phases, moveouts in seconds, location, origin time and, where
+        present, `cov_mat` and the `hmax_unc` / `vmax_unc` aux data (which
+        the directional errors read).  Arrays are copied as numpy; nothing
+        of the other object is kept."""
+        stations = [str(s) for s in other.stations]
+        mv_sec, covs, uncs = [], [], []
+        for tp in other.templates:
+            if hasattr(tp, "moveouts_at"):
+                mv_sec.append(np.asarray(tp.moveouts_at(stations)))
+            else:  # a station-indexed table
+                mv_sec.append(np.asarray(tp.moveouts.loc[stations].values))
+            cov = getattr(tp, "cov_mat", None)
+            if cov is None:
+                cov = tp.aux_data.get("cov_mat")
+            covs.append(None if cov is None else np.asarray(cov, float))
+            uncs.append({k: float(tp.aux_data[k])
+                         for k in ("hmax_unc", "vmax_unc")
+                         if tp.aux_data.get(k) is not None})
+        first = other.templates[0]
+        return cls.from_arrays(
+            np.array(other.waveforms_arr, np.float32),
+            np.array(other.moveouts_arr, np.int32),
+            [tp.tid for tp in other.templates], stations,
+            components=tuple(str(c) for c in other.components),
+            sampling_rate=float(first.sr),
+            phases=tuple(str(p) for p in first.phases),
+            moveouts_sec=np.stack(mv_sec),
+            locations=np.array([[tp.longitude, tp.latitude, tp.depth]
+                                for tp in other.templates], float),
+            origin_times=[tp.origin_time for tp in other.templates],
+            cov_mats=covs, uncertainties=uncs,
+        )
 
     # ------------------------------------------------------------------
     @property
@@ -166,3 +223,270 @@ class TemplateGroup:
             np.float32
         )
         return self._waveforms_arr
+
+    # ------------------------------------------------------------------
+    # inter-template similarity and dedup
+    # ------------------------------------------------------------------
+    def table_at(self, table: np.ndarray, tid_i, tid_j):
+        """One entry of an (n_tp, n_tp) inter-template table by template
+        ids (the tables' rows and columns follow `tids`)."""
+        return table[self.tindexes[tid_i], self.tindexes[tid_j]]
+
+    def _locations(self):
+        return (np.array([tp.longitude for tp in self.templates], float),
+                np.array([tp.latitude for tp in self.templates], float),
+                np.array([tp.depth for tp in self.templates], float))
+
+    @property
+    def intertemplate_distances(self) -> np.ndarray:
+        """(n_tp, n_tp) float64 hypocentral distances in km, a numpy array
+        in `tids` order (read entries with `table_at`)."""
+        if hasattr(self, "_intertp_dist"):
+            return self._intertp_dist
+        lon, lat, dep = self._locations()
+        self._intertp_dist = np.asarray(two_point_distance(
+            lon[:, None], lat[:, None], dep[:, None],
+            lon[None, :], lat[None, :], dep[None, :],
+        ), np.float64)
+        return self._intertp_dist
+
+    @property
+    def directional_errors(self) -> np.ndarray:
+        """(n_tp, n_tp) float32 numpy array in `tids` order: entry [i, j] is
+        the 68 %-confidence half-length (km) of template i's
+        location-uncertainty ellipsoid along the direction from template i
+        to template j.
+
+        Reference parity: BPMF/dataset.py:4594-4663 (`compute_dir_errors`),
+        with the JAX package's divergence kept: direction vectors live in
+        a consistent local km frame.  Templates without a `cov_mat` fall
+        back to an isotropic ellipsoid from their hmax/vmax aux data, then
+        to the reference's 15 km default."""
+        if hasattr(self, "_dir_errors"):
+            return self._dir_errors
+        s_68_3df = 3.52  # 68 % chi^2 quantile, 3 degrees of freedom
+        lon, lat, dep = self._locations()
+        km_per_deg = 2.0 * np.pi * 6371.0 / 360.0
+        xyz = np.stack([
+            (lon - lon.mean()) * km_per_deg * np.cos(np.deg2rad(lat.mean())),
+            (lat - lat.mean()) * km_per_deg,
+            dep,
+        ], axis=1)
+        n = len(self.templates)
+        errors = np.zeros((n, n), np.float32)
+        for t, tp in enumerate(self.templates):
+            u = xyz - xyz[t]
+            norm = np.sqrt((u**2).sum(axis=1, keepdims=True))
+            u = np.divide(u, norm, out=np.zeros_like(u), where=norm > 0)
+            cov = getattr(tp, "cov_mat", None)
+            if cov is None:
+                cov = tp.aux_data.get("cov_mat")
+            if cov is not None:
+                cov_dir = np.abs(np.einsum("ji,jk,ki->i", u.T,
+                                           np.asarray(cov, float), u.T))
+                errors[t] = np.sqrt(s_68_3df * cov_dir)
+            else:
+                hunc = float(tp.aux_data.get("hmax_unc", 0.0) or 0.0)
+                vunc = float(tp.aux_data.get("vmax_unc", 0.0) or 0.0)
+                if hunc > 0.0 or vunc > 0.0:
+                    errors[t] = np.sqrt(
+                        (u[:, 0]**2 + u[:, 1]**2) * hunc**2
+                        + u[:, 2]**2 * vunc**2
+                    )
+                else:
+                    errors[t] = 15.0  # reference default (dataset.py:4658)
+        self._dir_errors = errors
+        return self._dir_errors
+
+    @property
+    def ellipsoid_distances(self) -> np.ndarray:
+        """(n_tp, n_tp) numpy array in `tids` order: separation between two
+        templates' uncertainty ellipsoids along the inter-template
+        direction, negative when they overlap (reference parity:
+        BPMF/dataset.py:4665-4688: distance minus both directional
+        errors)."""
+        if hasattr(self, "_ellips_dist"):
+            return self._ellips_dist
+        de = self.directional_errors
+        self._ellips_dist = self.intertemplate_distances - de - de.T
+        return self._ellips_dist
+
+    # reference-name aliases (BPMF/dataset.py:4560-4688)
+    @property
+    def intertemplate_dist(self) -> np.ndarray:
+        return self.intertemplate_distances
+
+    @property
+    def dir_errors(self) -> np.ndarray:
+        return self.directional_errors
+
+    @property
+    def ellipsoid_dist(self) -> np.ndarray:
+        return self.ellipsoid_distances
+
+    def compute_intertemplate_dist(self):
+        # distances feed both derived tables; drop them too
+        for cache in ("_intertp_dist", "_dir_errors", "_ellips_dist"):
+            self.__dict__.pop(cache, None)
+        _ = self.intertemplate_distances
+
+    def compute_dir_errors(self):
+        # a stale separation table must not survive a refresh
+        for cache in ("_dir_errors", "_ellips_dist"):
+            self.__dict__.pop(cache, None)
+        _ = self.directional_errors
+
+    def compute_ellipsoid_dist(self, refresh_dir_errors: bool = True):
+        """Recompute the ellipsoid-separation table; by default the
+        directional errors are refreshed too (``refresh_dir_errors=False``
+        reuses the cached ones, as the reference does)."""
+        if refresh_dir_errors:
+            self.__dict__.pop("_dir_errors", None)
+        self.__dict__.pop("_ellips_dist", None)
+        _ = self.ellipsoid_distances
+
+    def compute_intertemplate_cc(
+        self,
+        distance_threshold: float = 5.0,
+        n_stations: int = 10,
+        max_lag: int = 10,
+        device_step: int = 1,
+        cache_file: Optional[str] = None,
+        device=None,
+    ) -> np.ndarray:
+        """Pairwise max-lag-corrected template CC through
+        `ops.matched_filter.matched_filter` on `device` (CUDA unless 'cpu'
+        is asked for); returns an (n_tp, n_tp) float32 numpy array in `tids`
+        order (read entries with `table_at`).
+
+        For each template pair within `distance_threshold` (ellipsoid
+        distance), slides template 2 across template 1's waveforms within
+        +-`max_lag` samples and takes the weighted network CC maximum.
+        `cache_file` caches the matrix in HDF5 keyed by a parameter hash
+        (recomputed on any parameter or template-set change; h5py is
+        imported then).  Reference parity: BPMF/dataset.py:4690-4932."""
+        from ..ops.matched_filter import matched_filter as mf_op
+
+        cache_key = None
+        if cache_file is not None:
+            import hashlib
+
+            import h5py
+
+            hsh = hashlib.sha1()
+            hsh.update(np.asarray(
+                [distance_threshold, n_stations, max_lag, device_step],
+                np.float64).tobytes())
+            hsh.update(",".join(map(str, self.tids)).encode())
+            hsh.update(np.ascontiguousarray(self.moveouts_arr).tobytes())
+            cache_key = f"cc_{hsh.hexdigest()[:16]}"
+            if os.path.isfile(cache_file):
+                with h5py.File(cache_file, "r") as f:
+                    if cache_key in f:
+                        self._intertemplate_cc = f[cache_key][()]
+                        return self._intertemplate_cc
+
+        n_tp = self.n_templates
+        cc = np.zeros((n_tp, n_tp), np.float32)
+        np.fill_diagonal(cc, 1.0)
+        ell = self.ellipsoid_distances
+        wf = self.waveforms_arr  # (n_tp, n_sta, n_comp, n_samp)
+        mv = self.moveouts_arr
+        for i in range(n_tp):
+            close = np.flatnonzero(ell[i] <= distance_threshold)
+            close = close[close > i]
+            if close.size == 0:
+                continue
+            # template i's waveforms (padded) are the "data"; moveout
+            # differences that leave it are masked by the engine
+            data = np.pad(wf[i], ((0, 0), (0, 0), (max_lag, max_lag)))
+            templates = wf[close]
+            rel_mv = mv[close] - mv[i][None, ...]
+            weights = np.any(templates != 0.0, axis=-1).astype(np.float32)
+            norm = weights.sum(axis=(1, 2), keepdims=True)
+            norm[norm == 0] = 1.0
+            weights = weights / norm
+            ccs = mf_op(templates, rel_mv + max_lag, weights, data,
+                        step=device_step, device=device)  # (n_close, n_lags)
+            cc_max = ccs.max(dim=1).values.cpu().numpy()
+            cc[i, close] = cc_max
+            cc[close, i] = cc_max
+        if cache_key is not None:
+            import h5py
+
+            with h5py.File(cache_file, "a") as f:
+                if cache_key in f:
+                    del f[cache_key]
+                f.create_dataset(cache_key, data=cc)
+        self._intertemplate_cc = cc
+        return self._intertemplate_cc
+
+    @property
+    def intertemplate_cc(self) -> np.ndarray:
+        """The cached inter-template CC table, computed on the default
+        device when there is none yet."""
+        if not hasattr(self, "_intertemplate_cc"):
+            self.compute_intertemplate_cc()
+        return self._intertemplate_cc
+
+    def remove_multiples(
+        self,
+        catalog: dict,
+        dt_criterion: float = 3.0,
+        distance_criterion: float = 5.0,
+        similarity_criterion: float = 0.33,
+        ranking_metric: str = "cc",
+        device=None,
+    ) -> dict:
+        """Flag multi-template detections of the same event, keeping the
+        detection with the highest `ranking_metric`.
+
+        `catalog` is a dict of equal-length columns with 'origin_time'
+        (epoch seconds), 'tid' and the ranking metric (the JAX package
+        takes a DataFrame).  Sequential scan over the time-sorted catalog
+        (a stable sort), as in the reference (BPMF/dataset.py:5130-5295).
+        Returns the sorted columns as numpy arrays plus a boolean
+        'unique_event'.  The CC criterion applies when the group holds a
+        CC table or can compute one from its waveforms (on `device`)."""
+        order = np.argsort(np.asarray(catalog["origin_time"], np.float64),
+                           kind="stable")
+        cat = {k: np.asarray(v)[order] for k, v in catalog.items()}
+        n = len(order)
+        unique = np.ones(n, dtype=bool)
+        ell = self.ellipsoid_distances
+        cc = getattr(self, "_intertemplate_cc", None)
+        if cc is None:
+            try:
+                cc = self.compute_intertemplate_cc(device=device)
+            except (OSError, KeyError):  # no waveforms to correlate
+                cc = None
+        times = cat["origin_time"].astype(np.float64)
+        tids = cat["tid"]
+        metric = cat[ranking_metric]
+        known = self.tindexes
+        i = 0
+        while i < n:
+            j = i + 1
+            group = [i]
+            while j < n and times[j] - times[group[-1]] <= dt_criterion:
+                tid_i, tid_j = tids[group[0]], tids[j]
+                both = tid_i in known and tid_j in known
+                close = (
+                    tid_i == tid_j
+                    or (both and self.table_at(ell, tid_i, tid_j)
+                        <= distance_criterion)
+                    or (both and cc is not None
+                        and self.table_at(cc, tid_i, tid_j)
+                        >= similarity_criterion)
+                )
+                if close:
+                    group.append(j)
+                j += 1
+            if len(group) > 1:
+                best = group[int(np.argmax(metric[group]))]
+                for g in group:
+                    if g != best:
+                        unique[g] = False
+            i = group[-1] + 1
+        cat["unique_event"] = unique
+        return cat

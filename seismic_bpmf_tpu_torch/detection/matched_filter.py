@@ -40,7 +40,8 @@ class MatchedFilter:
     `device` follows the package rule (CUDA unless 'cpu' is asked for);
     `rng` is the numpy Generator that draws the threshold zero-fill when
     no `white_noise` is passed.  `precision` keeps the JAX package's rung
-    names: 'highest', 'high' and 'default' scan in f32; 'screen' scans
+    names: 'highest' and 'default' scan in f32, 'high' with every product
+    split in bf16 parts on the tensor cores (`ops.mf`); 'screen' scans
     the bf16-rounded day, widens candidate extraction by `screen_margin`
     and recomputes every candidate's CC exactly (float64, host) before
     the threshold decision."""

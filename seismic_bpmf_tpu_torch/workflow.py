@@ -1,9 +1,14 @@
-"""High-level workflow API: the backprojection and matched-filter day
-scans and the multi-day campaign.
+"""High-level workflow API: the staged pipeline from a day of data to a
+catalog, and the multi-day campaign.
 
-Counterpart of `backproject_day`, `matched_filter_day` and `scan_days` of
-`seismic_bpmf_tpu.workflow` (notebooks 5-6 and 8 of the reference
-tutorial), with the same JSON resume contract and the same HDF5 outputs.
+Counterpart of `seismic_bpmf_tpu.workflow` (the reference tutorial's
+notebooks), with the same JSON resume contract and the same HDF5 outputs:
+
+  backproject_day(...)    notebooks 5-6: features -> beamform -> detections
+  build_templates(...)    notebook 7: detections -> template bank
+  matched_filter_day(...) notebook 8: template scan -> new detections
+  assemble_catalog(...)   notebook 9: per-template detections -> catalog
+  scan_days(...)          either day scan over many days, with resume
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import numpy as np
 import torch
 
 from .config import Config, DEFAULT_CONFIG
-from .data import Data, Network, TemplateGroup, TravelTimes
+from .data import (
+    Catalog, Data, Network, Template, TemplateGroup, TravelTimes,
+)
 from .detection import Beamformer, MatchedFilter
 from .ops.cf import saturated_envelopes
 from .utils.observe import GLOBAL_TIMER, logger
@@ -121,6 +128,62 @@ def phasenet_feature_fn(*args, **kwargs):
         "PhaseNet features are not ported yet (ROADMAP Queue 1 #15)")
 
 
+def build_templates(
+    detections,
+    network: Network,
+    cfg: Config = DEFAULT_CONFIG,
+    data_reader: Optional[Callable] = None,
+    offset_phase: Dict[str, float] = None,
+    dedup_distance_km: float = 1.0,
+    dedup_similarity: float = 0.9,
+    db_path: Optional[str] = None,
+    device=None,
+) -> TemplateGroup:
+    """Detections -> template bank with redundancy removal (notebook 7 /
+    BPMF/dataset.py:4690-4932): each detection's windows are read, the
+    bank's inter-template CC is computed on `device`, and of two templates
+    at CC >= `dedup_similarity` the later one goes.  With `db_path` the
+    kept templates are written there (h5py is imported then)."""
+    offset_phase = offset_phase or {"P": 1.0, "S": 4.0}
+    templates = []
+    for i, ev in enumerate(detections):
+        if not hasattr(ev, "traces"):
+            ev.read_waveforms(
+                cfg.template_len_sec,
+                offset_phase=offset_phase,
+                time_shifted=True,
+                data_reader=data_reader,
+            )
+        tp = Template.init_from_event(ev)
+        tp.set_aux_data({"tid": i})
+        tp.id = str(i)
+        templates.append(tp)
+    tg = TemplateGroup(templates, network)
+    if len(templates) > 1:
+        cc = tg.compute_intertemplate_cc(
+            distance_threshold=max(dedup_distance_km * 5, 5.0),
+            device=device,
+        )
+        keep = np.ones(len(templates), bool)
+        for i in range(len(templates)):
+            if not keep[i]:
+                continue
+            for j in range(i + 1, len(templates)):
+                if keep[j] and cc[i, j] >= dedup_similarity:
+                    keep[j] = False
+        tg = TemplateGroup(
+            [t for t, k in zip(templates, keep) if k], network
+        )
+        logger.info(
+            "template dedup: %d -> %d", len(templates), tg.n_templates
+        )
+    if db_path is not None:
+        os.makedirs(db_path, exist_ok=True)
+        for tp in tg.templates:
+            tp.write(f"template{tp.tid}.h5", db_path=db_path)
+    return tg
+
+
 def matched_filter_day(
     template_group: TemplateGroup,
     data: Data,
@@ -169,6 +232,40 @@ def matched_filter_day(
                     int(template_group.tindexes[tid])]
                 tp.write_detections(evs, db_path=db_path)
     return detections
+
+
+def assemble_catalog(
+    detections: Dict,
+    template_group: TemplateGroup,
+    dt_criterion: float = 3.0,
+    distance_criterion: float = 5.0,
+    similarity_criterion: float = 0.33,
+    device=None,
+) -> Catalog:
+    """Merge per-template detections, flag multiples, return the catalog
+    (notebook 9 / BPMF/dataset.py:5065-5295).  The bank's inter-template
+    CC, unless the group already holds it, is computed on `device`."""
+    all_events = [ev for evs in detections.values() for ev in evs]
+    if not all_events:
+        return Catalog([], [], [], [])
+    cat = Catalog.read_from_events(
+        all_events, extra_attributes=["cc", "tid"]
+    )
+    flagged = template_group.remove_multiples(
+        {
+            "origin_time": cat.origin_times_epoch,
+            "tid": cat["tid"].astype(str),
+            "cc": cat["cc"],
+        },
+        dt_criterion=dt_criterion,
+        distance_criterion=distance_criterion,
+        similarity_criterion=similarity_criterion,
+        device=device,
+    )
+    # both are stably sorted by origin time: the rows line up
+    columns = dict(cat.catalog)
+    columns["unique_event"] = flagged["unique_event"]
+    return Catalog.from_columns(columns)
 
 
 def scan_days(

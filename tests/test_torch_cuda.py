@@ -103,8 +103,77 @@ def test_kernel_step_matches_oracle(card):
                                rtol=RTOL, atol=ATOL)
 
 
+def _odd_moveouts_ragged(seed):
+    """Odd and even moveouts, L not a multiple of 16, a ragged last lag
+    tile and a ragged template tile."""
+    tp, mv, w, data = _bank(seed, n_tp=37, L=43, n_samp=2 * 512 + 301)
+    mv[0] = 2 * (mv[0] // 2)
+    mv[1] = 2 * (mv[1] // 2) + 1
+    return tp, mv, w, data
+
+
+SPLIT_CASES = dict(CASES, odd_moveouts_ragged_edges=_odd_moveouts_ragged,
+                   taps_fill_the_band=lambda s: _bank(s, L=41),
+                   long_template=lambda s: _bank(s, L=200, n_samp=5000))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["highest", "screen"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_kernel_matches_plain_on_card(card, case):
+    tp, mv, w, data = SPLIT_CASES[case](16)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
+                                device=card)
+    filt_hi, filt_lo = mf.split_rows_parts(plan.filt_rows, plan.L)
+    assert bool((filt_lo.float() != 0).any())
+    dp = plan.pad_data(data)
+    counts = (mf.mf_cc_split.launches, mf.mf_cc.launches,
+              mf.matched_filter_split_plain.calls)
+    got = plan(dp)
+    assert (mf.mf_cc_split.launches, mf.mf_cc.launches,
+            mf.matched_filter_split_plain.calls) == (
+        counts[0] + 1, counts[1], counts[2])
+    want = mf.matched_filter_split_plain(
+        dp, filt_hi, filt_lo, plan.mv_table, n_tp=plan.n_tp,
+        L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    # the JAX package's gate of this rung against the oracle
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tref.matched_filter(tp, mv, w, data),
+                               rtol=0, atol=5e-6)
+    # a real split: not the f32 kernel's bits, and the data's lo parts count
+    f32 = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device=card)(dp)
+    assert not torch.equal(got, f32)
+    hi_only = mf.matched_filter_split_plain(
+        mf.split_bf16(dp)[0].float(), filt_hi, filt_lo, plan.mv_table,
+        n_tp=plan.n_tp, L=plan.L, n_corr=plan.n_corr_unit,
+        lo_p=plan.lo_p, hi_p=plan.hi_p)
+    assert float((got - want).abs().max()) < float(
+        (got - hi_only).abs().max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        mf.mf_cc_split(dp, plan.filt_rows.float(), plan.mv_table,
+                       plan.tile_lo, n_tp=plan.n_tp, L=plan.L,
+                       n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
+                       hi_p=plan.hi_p, max_delta=plan.max_delta)
+
+
+@pytest.mark.cuda
+def test_plain_engine_on_card_matches_oracle(card):
+    from seismic_bpmf_tpu_torch.ops.matched_filter import matched_filter
+
+    tp, mv, w, data = _dead_channels(22)
+    for network_sum in (True, False):
+        got = matched_filter(tp, mv, w, data, step=2,
+                             network_sum=network_sum, device=card)
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            tref.matched_filter(tp, mv, w, data, step=2,
+                                network_sum=network_sum),
+            rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "screen"])
 def test_matched_filter_on_card_matches_cpu(card, precision):
     """The whole engine (kernel, device threshold and extraction, host
     refine) on the card gives the CPU run's detections."""
@@ -135,10 +204,11 @@ def test_matched_filter_on_card_matches_cpu(card, precision):
                             min_channels=3, min_stations=2, max_kurto=1e6)
         eng.set_data(day)
         eng.set_weights_channels(method="simple", normalize=True)
-        launches = mf.mf_cc.launches
+        wrapper = mf.mf_cc_split if precision == "high" else mf.mf_cc
+        launches = wrapper.launches
         dets = eng.run_matched_filter_search(
             5.0, threshold_window_dur=120.0, white_noise=noise, verbose=-1)
-        assert (mf.mf_cc.launches > launches) == (dev == "cuda")
+        assert (wrapper.launches > launches) == (dev == "cuda")
         found[dev] = {t: [(round(e.origin_time_epoch * sr),
                            e.aux_data["cc"]) for e in evs]
                       for t, evs in dets.items()}

@@ -11,13 +11,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from seismic_bpmf_tpu.ops import matched_filter as jmf_engine  # noqa: E402
 from seismic_bpmf_tpu.ops import reference as jref  # noqa: E402
-from seismic_bpmf_tpu.ops.pallas_mf import matched_filter_pallas  # noqa: E402
+from seismic_bpmf_tpu.ops.pallas_mf import (  # noqa: E402
+    PallasMatchedFilterPlan, _split_bf16, matched_filter_pallas,
+)
 
+from seismic_bpmf_tpu_torch.ops import matched_filter as tmf_engine  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import reference as tref  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5  # the f32 gate of the JAX package's kernel tests
+# the JAX package's gate of the `high` rung against the oracle
+# (tests/test_pallas.py): both sides sum the same three bf16 products in
+# f32, in different orders, and drop the lo*lo term (~2^-18 of a product)
+ATOL_HIGH = 5e-6
 
 
 def _bank(seed, n_tp=5, n_sta=3, n_comp=2, L=40, n_samp=1500,
@@ -94,14 +102,21 @@ def test_step(step):
 
 
 def test_template_chunks_and_rungs():
-    """Plans cut the bank into chunks; every precision rung runs the same
-    f32 computation."""
+    """Plans cut the bank into chunks; 'highest' and 'default' run the
+    same f32 computation, 'high' the bf16-split one: a real split, so its
+    result differs, inside its gate."""
     tp, mv, w, data = _bank(10, n_tp=9)
     full = mf.matched_filter(tp, mv, w, data, device="cpu").numpy()
-    for prec in ("highest", "high", "default"):
+    for prec in ("highest", "default"):
         got = mf.matched_filter(tp, mv, w, data, precision=prec,
                                 device="cpu").numpy()
         np.testing.assert_array_equal(got, full)
+    high = mf.matched_filter(tp, mv, w, data, precision="high",
+                             device="cpu").numpy()
+    assert np.abs(high - full).max() > 0
+    oracle = jref.matched_filter(tp, mv, w, data)
+    np.testing.assert_allclose(high, oracle, rtol=0, atol=ATOL_HIGH)
+    np.testing.assert_allclose(full, oracle, rtol=RTOL, atol=ATOL)
     chunked = mf.matched_filter(tp, mv, w, data, template_chunk=4,
                                 device="cpu").numpy()
     np.testing.assert_allclose(chunked, full, rtol=0, atol=1e-6)
@@ -191,3 +206,174 @@ def test_cuda_tensors_never_take_the_plain_version():
                  L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
                  hi_p=plan.hi_p, max_delta=plan.max_delta)
     assert mf.matched_filter_plain.calls == calls
+
+
+# --------------------------------------------------------------------------
+# the `high` rung: the bf16-split kernel's plain version
+def test_split_bf16_equals_the_jax_split_bit_for_bit():
+    rng = np.random.default_rng(21)
+    x = (rng.normal(size=8192)
+         * 10.0 ** rng.integers(-20, 20, size=8192)).astype(np.float32)
+    bits = x.view(np.uint32)
+    bits[:1024] = (bits[:1024] & 0xFFFF0000) | 0x8000   # exact ties, both
+    bits[:512] |= 0x00010000                            # parities of hi
+    x[-1] = 0.0
+    hi, lo = mf.split_bf16(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    jhi, jlo = _split_bf16(x)
+    for got, want in ((hi, jhi), (lo, jlo)):
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy(),
+            np.asarray(want).view(np.int16))
+    rest = x - hi.float().numpy() - lo.float().numpy()
+    assert np.all(np.abs(rest) <= 2.0 ** -17 * np.abs(x))
+    assert np.any(lo.float().numpy() != 0.0)
+
+
+def _odd_even_moveouts(seed):
+    tp, mv, w, data = _bank(seed, n_tp=6)
+    mv[0] = 2 * (mv[0] // 2)         # a template with even moveouts only
+    mv[1] = 2 * (mv[1] // 2) + 1     # and one with odd ones only
+    return tp, mv, w, data
+
+
+HIGH_CASES = dict(CASES, odd_and_even_moveouts=_odd_even_moveouts)
+
+
+@pytest.mark.parametrize("case", list(HIGH_CASES))
+def test_high_plain_matches_pallas_split_and_oracle(case):
+    tp, mv, w, data = HIGH_CASES[case](22)
+    n_samp = data.shape[-1]
+    plan = mf.MatchedFilterPlan(tp, mv, w, n_samp, precision="high",
+                                device="cpu")
+    calls = mf.matched_filter_split_plain.calls
+    got = plan(plan.pad_data(data)).numpy()
+    assert mf.matched_filter_split_plain.calls == calls + 1
+    jplan = PallasMatchedFilterPlan(tp, mv, w, n_samp, lag_block=512,
+                                    interpret=True, precision="high")
+    pallas = np.asarray(jplan(jplan.pad_data(data)))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL_HIGH)
+    np.testing.assert_allclose(got, jref.matched_filter(tp, mv, w, data),
+                               rtol=0, atol=ATOL_HIGH)
+
+
+def test_high_zero_gap_gives_exact_zero():
+    tp, mv, w, data = _zero_variance(23)
+    cc = mf.matched_filter(tp, mv, w, data, precision="high",
+                           device="cpu").numpy()
+    assert np.all(cc[:, 400:700 - 60 - tp.shape[-1]] == 0.0)
+
+
+@pytest.mark.parametrize("step", [2, 3])
+def test_high_step(step):
+    tp, mv, w, data = _bank(24, mv_range=(0, 40))
+    got = mf.matched_filter(tp, mv, w, data, step=step, precision="high",
+                            device="cpu").numpy()
+    pallas = np.asarray(matched_filter_pallas(
+        tp, mv, w, data, step=step, lag_block=512, interpret=True,
+        precision="high"))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL_HIGH)
+
+
+def test_high_shared_layout_overrides():
+    tp, mv, w, data = _bank(25)
+    n_samp = data.shape[-1]
+    pad_left, max_mv = int(-min(0, mv.min())), int(mv.max())
+    plan = mf.MatchedFilterPlan(tp[:2], mv[:2], w[:2], n_samp,
+                                pad_left=pad_left, max_moveout=max_mv,
+                                precision="high", device="cpu")
+    own = mf.MatchedFilterPlan(tp[:2], mv[:2], w[:2], n_samp,
+                               precision="high", device="cpu")
+    np.testing.assert_allclose(plan(plan.pad_data(data)).numpy(),
+                               own(own.pad_data(data)).numpy(),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        plan(plan.pad_data(data)).numpy(),
+        jref.matched_filter(tp[:2], mv[:2], w[:2], data),
+        rtol=0, atol=ATOL_HIGH)
+
+
+def test_split_wrapper_never_takes_the_plain_version_off_the_cpu():
+    tp, mv, w, data = _bank(26, n_tp=2)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
+                                device="cpu")
+    filt_hi, filt_lo = mf.split_rows_parts(plan.filt_rows, plan.L)
+    assert filt_hi.dtype == filt_lo.dtype == torch.bfloat16
+    assert bool((filt_lo.float() != 0).any())
+    meta = lambda t: t.to("meta")  # noqa: E731
+    calls = mf.matched_filter_split_plain.calls
+    with pytest.raises(ValueError, match="device"):
+        mf.mf_cc_split(meta(plan.pad_data(data)), meta(plan.filt_rows),
+                       meta(plan.mv_table),
+                       meta(plan.tile_lo), n_tp=plan.n_tp, L=plan.L,
+                       n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
+                       hi_p=plan.hi_p, max_delta=plan.max_delta)
+    assert mf.matched_filter_split_plain.calls == calls
+
+
+def test_staged_split_rows_layout():
+    """The rows as the kernel stages them: hi and lo, each as it is behind
+    8 zeros and shifted left by one element."""
+    tp, mv, w, data = _bank(29, n_tp=40, L=37)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
+                                device="cpu")
+    rows = plan.filt_rows
+    KP = 48 + 8                       # round_up(37 + 7, 16) + 8
+    assert rows.shape == (plan.n_ch, 2, 2, mf.TEMPLATE_TILE, 2, KP)
+    assert rows.dtype == torch.bfloat16 and rows.is_contiguous()
+    f32 = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu").filt
+    parts = mf.split_bf16(f32)
+    assert bool((parts[1].float() != 0).any())
+    for part, f in enumerate(parts):
+        f4 = f.reshape(plan.n_ch, 2, mf.TEMPLATE_TILE, -1).float()
+        as_is = rows[:, :, part, :, 0].float()
+        shifted = rows[:, :, part, :, 1].float()
+        assert torch.equal(as_is[..., 8 : 8 + f4.shape[-1]], f4)
+        assert bool((as_is[..., :8] == 0).all())
+        assert bool((as_is[..., 8 + 37 :] == 0).all())
+        assert torch.equal(shifted[..., :-1], as_is[..., 1:])
+        assert bool((shifted[..., -1] == 0).all())
+    hi, lo = mf.split_rows_parts(rows, plan.L)
+    assert torch.equal(hi, parts[0][..., : plan.L])
+    assert torch.equal(lo, parts[1][..., : plan.L])
+
+
+def test_split_smem_mirror_and_limit():
+    """The Python mirror of the split kernel's shared-memory size, at the
+    main path's shape, and the plan's refusal of a span that cannot fit."""
+    # 2 x (32 rows x 2 shifts x 216 bf16) + f32 (32 + 962 + 1172 + 2 x 1170)
+    # + 4 skewed bf16 spans of 586 + 8 * 36 + 8 words, for L = 200,
+    # max_delta = 450
+    assert mf._split_smem_bytes(200, 208, 450) == (
+        2 * 27648 + 4 * (32 + 962 + 1172 + 2 * 1170) + 16 * 882)
+    tp, mv, w, data = _bank(27, mv_range=(-30, 60))
+    mv[1, 0, 0] = 200000
+    with pytest.raises(ValueError, match="shared memory"):
+        mf.MatchedFilterPlan(tp, mv, w, 300000, precision="high",
+                             device="cpu")
+
+
+# --------------------------------------------------------------------------
+# the plain-ops engine (`ops.matched_filter`)
+@pytest.mark.parametrize("network_sum", [True, False])
+@pytest.mark.parametrize("step", [1, 3])
+def test_plain_engine_matches_jax(network_sum, step):
+    tp, mv, w, data = _dead_channels(28)
+    data[:, :, 500:640] = 0.0
+    want = np.asarray(jmf_engine(tp, mv, w, data, step=step,
+                                 network_sum=network_sum))
+    got = tmf_engine.matched_filter(tp, mv, w, data, step=step,
+                                    network_sum=network_sum, device="cpu")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(),
+        jref.matched_filter(tp, mv, w, data, step=step,
+                            network_sum=network_sum),
+        rtol=1e-4, atol=1e-5)
+    # the lag block is a memory knob only
+    blocked = tmf_engine.matched_filter(tp, mv, w, data, step=step,
+                                        network_sum=network_sum,
+                                        n_corr_block=200, device="cpu")
+    np.testing.assert_allclose(blocked.numpy(), got.numpy(), rtol=1e-6,
+                               atol=1e-7)

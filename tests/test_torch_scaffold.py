@@ -123,6 +123,36 @@ MAIN_PATH = textwrap.dedent("""
         assert any(abs(e.origin_time_epoch - t_ot) < 3 / SR
                    for e in out[key]), (key, out[key])
     assert bp.beamform_plain.calls > 0 and bp.bp_beam.launches == 0
+
+    # detections -> templates -> the `high` scan -> catalog
+    def tpl_reader(where, stations=None, channels=None, starttime=None,
+                   endtime=None, **kw):
+        st = Stream()
+        for s, sta in enumerate("ABCD"):
+            for c, comp in enumerate("NEZ"):
+                if ((stations is None or sta in stations)
+                        and (channels is None or channels.endswith(comp))):
+                    st += Trace(bp_days[where][s, c], station=sta,
+                                channel="HH" + comp, sampling_rate=SR,
+                                starttime=0.0)
+        return st.slice(starttime, endtime)
+
+    cfg_t = Config(data_buffer_sec=0.0, sampling_rate_hz=SR,
+                   template_len_sec=2.0)
+    bank = workflow.build_templates(out["d1"], net, cfg=cfg_t,
+                                    data_reader=tpl_reader, device="cpu")
+    assert bank.n_templates >= 1
+    day = Data("1970-01-01", "d1", bp_reader, duration=n_bp / SR,
+               sampling_rate=SR).read_waveforms()
+    dets = workflow.matched_filter_day(
+        bank, day, cfg=cfg_t, precision="high", device="cpu",
+        threshold_window_dur=120.0, min_channels=3, min_stations=2,
+        max_kurto=1e6, rng=np.random.default_rng(2))
+    assert mf.matched_filter_split_plain.calls > 0
+    assert mf.mf_cc_split.launches == 0
+    cat = workflow.assemble_catalog(dets, bank, device="cpu")
+    assert cat.n_events >= 1 and cat["unique_event"].any()
+    assert any(abs(t - 3000 / SR) < 3 / SR for t in cat.origin_times_epoch)
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not loaded, loaded
@@ -169,6 +199,9 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     )
     from seismic_bpmf_tpu_torch.detection import Beamformer, MatchedFilter
     from seismic_bpmf_tpu_torch.ops import bp, cf, mf, thresholds
+    from seismic_bpmf_tpu_torch.ops.matched_filter import (
+        matched_filter as mf_plain_engine,
+    )
 
     tp = np.ones((1, 1, 3, 8), np.float32)
     tp[..., ::2] = 2.0
@@ -198,6 +231,11 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
         lambda: Beamformer(network=net, phases=["P", "S"],
                            travel_times=tts),
         lambda: workflow.backproject_day(None, net, tts),
+        lambda: mf.MatchedFilterPlan(tp, mv, w, 64, precision="high"),
+        lambda: mf_plain_engine(tp, mv, w, data),
+        lambda: TemplateGroup.from_arrays(
+            np.concatenate([tp, tp]), np.concatenate([mv, mv]), ["0", "1"],
+            ["A"], locations=np.zeros((2, 3))).compute_intertemplate_cc(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -205,6 +243,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     # asked for the CPU, the same calls run
     assert mf.matched_filter(tp, mv, w, data, device="cpu").shape == (1, 57)
     assert MatchedFilter(tg, device="cpu").device.type == "cpu"
+    assert mf_plain_engine(tp, mv, w, data, network_sum=False,
+                           device="cpu").shape == (1, 57, 1, 3)
     assert bp.beamform(data, bmv, w_ph, w_src, device="cpu")[0].shape == (64,)
     assert Beamformer(network=net, travel_times=tts,
                       device="cpu").device.type == "cpu"
@@ -217,12 +257,12 @@ def test_nothing_is_compiled_at_import():
     from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: F401
 
     assert _build._LIBS == {}
-    assert _build.sources() == ["bp", "mf"]
+    assert _build.sources() == ["bp", "mf", "mf_split"]
     try:
         _build._nvcc()
     except RuntimeError:
         # no CUDA compiler: a kernel's first use raises, naming nvcc
-        for name in ("bp", "mf"):
+        for name in ("bp", "mf", "mf_split"):
             with pytest.raises(RuntimeError, match="nvcc"):
                 _build.load(name)
 

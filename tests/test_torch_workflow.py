@@ -1,10 +1,13 @@
-"""The PyTorch port's matched-filter day scan against the JAX package.
+"""The PyTorch port's matched-filter day scan, and the whole staged
+pipeline at the `high` rung, against the JAX package.
 
 The synthetic world of tests/test_workflow.py (the code that makes it is
 copied here): a template bank is made with the JAX package, carried across with
 `TemplateGroup.from_arrays`, and both packages' `MatchedFilter`s scan the
 same day on the CPU.  Detections must be identical (template ids and
 sample indexes) with CC within 1e-5; the campaign state files must match.
+The pipeline test walks backproject_day -> build_templates ->
+matched_filter_day(precision="high") -> assemble_catalog in both packages.
 """
 
 import json
@@ -18,8 +21,8 @@ torch = pytest.importorskip("torch")
 from seismic_bpmf_tpu import workflow as jwf  # noqa: E402
 from seismic_bpmf_tpu.config import Config  # noqa: E402
 from seismic_bpmf_tpu.data import (  # noqa: E402
-    Data, Event, Network, Template, TemplateGroup, data_reader_hdf5,
-    write_hdf5_continuous,
+    Data, Event, Network, Template, TemplateGroup, TravelTimes,
+    data_reader_hdf5, write_hdf5_continuous,
 )
 from seismic_bpmf_tpu.data.stream import Stream, Trace  # noqa: E402
 from seismic_bpmf_tpu.detection.matched_filter import (  # noqa: E402
@@ -58,6 +61,12 @@ def world(tmp_path_factory):
     tt_p = {f"S{i}": rng.uniform(1.0, 5.0, N_SRC).astype(np.float32)
             for i in range(N_STA)}
     tt_s = {k: (v * 1.7).astype(np.float32) for k, v in tt_p.items()}
+    TravelTimes.write_table(
+        str(tmp / "tts.h5"), {"P": tt_p, "S": tt_s},
+        {"longitude": np.linspace(30, 30.2, N_SRC),
+         "latitude": np.linspace(40, 40.2, N_SRC),
+         "depth": np.full(N_SRC, 8.0)},
+    )
     n = int(DAY * SR)
     n_w = int(1.5 * SR)
     wavelet = (np.sin(2 * np.pi * 4.0 * np.arange(n_w) / SR)
@@ -96,7 +105,15 @@ def world(tmp_path_factory):
     tg = TemplateGroup(templates, net)
     tdat = tdata.Data("2012-07-26", path, tdata.data_reader_hdf5,
                       duration=DAY, sampling_rate=SR).read_waveforms()
+    tts = TravelTimes("tts.h5", str(tmp)).read(
+        ["P", "S"], read_coords=True).convert_to_samples(SR)
+    tnet = tdata.Network.from_arrays(
+        md["stations"], networks=md["networks"], latitude=md["latitude"],
+        longitude=md["longitude"], elevation_m=md["elevation_m"])
+    ttts = tdata.TravelTimes("tts.h5", str(tmp)).read(
+        ["P", "S"], read_coords=True).convert_to_samples(SR)
     return dict(cfg=cfg, net=net, data=data, tg=tg, tdata=tdat, tmp=tmp,
+                tts=tts, tnet=tnet, ttts=ttts,
                 white_noise=rng.normal(size=500).astype(np.float32))
 
 
@@ -118,7 +135,7 @@ def carry_bank(tg):
 def _as_cfg(cfg):
     return tconfig.Config(**{k: getattr(cfg, k) for k in (
         "data_buffer_sec", "sampling_rate_hz", "template_len_sec",
-        "n_dev_mf_threshold")})
+        "n_dev_bp_threshold", "n_dev_mf_threshold")})
 
 
 def _summary(dets):
@@ -126,7 +143,7 @@ def _summary(dets):
             for tid, evs in dets.items()}
 
 
-@pytest.mark.parametrize("precision", ["highest", "screen"])
+@pytest.mark.parametrize("precision", ["highest", "high", "screen"])
 def test_matched_filter_matches_jax(world, precision):
     w = world
     kw = dict(min_channels=3, min_stations=2, max_kurto=1e6,
@@ -189,3 +206,62 @@ def test_scan_days_state_matches_jax(world, tmp_path):
     assert (tmp_path / "db" / "detections_tp0.h5").is_file()
     with pytest.raises(ValueError, match="stage='bp' requires"):
         twf.scan_days(["d1"], lambda d: w["tdata"], stage="bp")
+
+
+def test_full_workflow_at_high_matches_jax(world):
+    """The slice as a whole: BP detections -> templates -> `high` MF scan
+    -> catalog, through both packages on the same day.  The same kept
+    templates, identical {tid: [sample index]}, CC within 5e-6 (both sides
+    sum the same three bf16 products in f32, in different orders), the same
+    `unique_event` flags."""
+    w = world
+    bp_kw = dict(minimum_interevent_time=10.0, threshold_window_sec=150.0,
+                 num_closest_stations=N_STA)
+    _, jdets = jwf.backproject_day(w["data"], w["net"], w["tts"],
+                                   cfg=w["cfg"], **bp_kw)
+    _, tdets = twf.backproject_day(w["tdata"], w["tnet"], w["ttts"],
+                                   cfg=_as_cfg(w["cfg"]), device="cpu",
+                                   **bp_kw)
+    assert len(jdets) >= 2
+    assert [e.origin_time for e in tdets] == [e.origin_time for e in jdets]
+
+    jtg = jwf.build_templates(jdets, w["net"], cfg=w["cfg"],
+                              data_reader=data_reader_hdf5,
+                              dedup_similarity=0.95)
+    ttg = twf.build_templates(tdets, w["tnet"], cfg=_as_cfg(w["cfg"]),
+                              data_reader=tdata.data_reader_hdf5,
+                              dedup_similarity=0.95, device="cpu")
+    assert ttg.n_templates == jtg.n_templates >= 1
+    assert [str(t) for t in ttg.tids] == [str(t) for t in jtg.tids]
+    np.testing.assert_array_equal(ttg.moveouts_arr, jtg.moveouts_arr)
+    np.testing.assert_array_equal(ttg.waveforms_arr, jtg.waveforms_arr)
+
+    mf_kw = dict(minimum_interevent_time=5.0, threshold_window_dur=150.0,
+                 min_channels=3, min_stations=2, max_kurto=1e6,
+                 precision="high")
+    np.random.seed(5)  # the JAX engine draws its zero-fill from numpy's
+    jd = jwf.matched_filter_day(jtg, w["data"], cfg=w["cfg"],
+                                engine="pallas", **mf_kw)
+    td = twf.matched_filter_day(ttg, w["tdata"], cfg=_as_cfg(w["cfg"]),
+                                device="cpu",
+                                rng=np.random.default_rng(5), **mf_kw)
+    js, ts = _summary(jd), _summary(td)
+    assert set(js) == set(ts)
+    for tid in js:
+        assert [t for t, _ in js[tid]] == [t for t, _ in ts[tid]]
+        np.testing.assert_allclose([c for _, c in ts[tid]],
+                                   [c for _, c in js[tid]], rtol=0, atol=5e-6)
+    n_total = sum(len(v) for v in js.values())
+    assert n_total >= 2  # both injected occurrences found
+
+    jcat = jwf.assemble_catalog(jd, jtg).catalog
+    tcat = twf.assemble_catalog(td, ttg, device="cpu")
+    assert tcat.n_events == len(jcat) == n_total
+    # equal origin times may come in either order: compare as sorted rows
+    def rows(ot, tid, uniq):
+        return sorted(zip([str(t) for t in ot], [str(t) for t in tid],
+                          [bool(u) for u in uniq]))
+    assert rows(tcat["origin_time"], tcat["tid"], tcat["unique_event"]) == \
+        rows(jcat["origin_time"].values.astype("datetime64[ns]"),
+             jcat["tid"].values, jcat["unique_event"].values)
+    assert int(np.sum(tcat["unique_event"])) >= 2

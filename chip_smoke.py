@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught):
      a plain beam within 1e-5 of the maximum), seeded exact ties to the
      smallest index, the 3-chunk call equal to the single call bit for bit,
      and the fail-loud checks; then every station weighted (64 rows a
-     source tile, staged in more than one part) on a 2^13-sample window;
+     source tile, staged in more than one part) on a 2^13-sample window,
+     and a plan with one moveout 40,000 samples from its tile's others
+     (that station-phase staged as two rows) on 2^16; prints the seconds
+     the day plan's tables take to build on the host;
   8. the BP main path at full size: a two-day `scan_days(stage="bp")`
      campaign over 32 stations x 3 components x 2,160,000 samples built
      in memory from a seed, with Hann bursts (P on Z, S on N/E) injected
@@ -34,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught):
      found within 2 samples and one lattice spacing, through the kernel
      only; prints s/day of each stage and Gpoints/s;
   9. the BP kernel's numbers at day shape: ms per day (CUDA events, the
-     day's chunk launches), its bound, the plain version's time, the values
+     day's chunk launches), the multiply-adds per word loaded from shared
+     memory (counted from the plan's tables), its bound, the plain
+     version's time, the values
      and the first-max rule held against the plain version; then
      where a warm BP day's time goes (stage timers, torch.profiler);
  10. the split MF kernel (the `high` rung: bf16-split operands, tensor
@@ -92,6 +97,7 @@ from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
     Beamformer, MatchedFilter,
 )
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.beamform import _flatten_moveouts  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
 from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
@@ -446,10 +452,11 @@ def bp_bound_ms(tab, g_pad) -> tuple:
     (source, station-phase) pairs, against the padded features, the tables
     and the (max, argmax) output each moved once."""
     flops = 2.0 * tab.n_pairs * tab.n_samp
-    nbytes = (4.0 * g_pad.numel() + 8.0 * tab.n_pairs
-              + 4.0 * (tab.tile_stage.numel() + tab.stage_pp.numel()
+    nbytes = (4.0 * g_pad.numel()
+              + 4.0 * (tab.prog.numel() + tab.tile_stage.numel()
+                       + tab.stage_prog.numel() + tab.stage_row.numel()
                        + tab.lo.numel() + tab.hi.numel()
-                       + tab.stage_row.numel() + 3 * tab.ent_sp.numel())
+                       + 3 * tab.ent_sp.numel())
               + 8.0 * tab.n_samp)
     t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
@@ -569,6 +576,51 @@ print(f"bp kernel vs plain, every station weighted (100k x 64 pairs, "
       f"tiles, 2^13 samples): max|diff| {errs_bp[-1]:.3g}, {near7a} samples "
       f"with another source within {ATOL} of the maximum", flush=True)
 del g7a, plan7a
+# a wide row: one source's moveout on one station-phase tens of thousands
+# of samples from its tile's others, so that station-phase is staged as
+# two rows of that tile
+mv_wide, n7w = mv_bp.copy(), 2**16
+src_w = 4321
+sta_w = int(np.flatnonzero(w_src_bp[src_w])[0])
+mv_wide[src_w, sta_w, 1] += 40_000
+plan7w = bp.BeamformPlan(mv_wide, w_ph_bp, w_src_bp, n7w)
+tab7w = plan7w.tables
+tile_w = src_w // bp.SRC_TILE
+rows_w = tab7w.ent_sp[int(tab7w.stage_row[tab7w.tile_stage[tile_w]]):
+                      int(tab7w.stage_row[tab7w.tile_stage[tile_w + 1]])]
+if (int((rows_w == 2 * sta_w + 1).sum()) != 2
+        or int(tab7w.ent_span.max()) >= bp.ROW_CAP):
+    raise AssertionError("the wide row was not staged as two rows")
+feat7w = brng.uniform(0, 1, size=(N_STA_BP, 3, n7w)).astype(np.float32)
+g7w = plan7w.fold_and_pad(feat7w)
+kv, ki = plan7w.call_folded(g7w)
+pv, pi = bp.beamform_plain(g7w, tab7w)
+errs_bp.append(float((kv - pv[:n7w]).abs().max()))
+near7w = check_first_max(tab7w, g7w, kv, ki, pv[:n7w], pi[:n7w],
+                         "a wide row")
+# the full beam of that tile and its neighbours
+s_w = slice((tile_w - 1) * bp.SRC_TILE, (tile_w + 2) * bp.SRC_TILE)
+none7w = bp.BeamformPlan(mv_wide[s_w], w_ph_bp, w_src_bp[s_w], n7w,
+                         reduce="none")
+g7wn = none7w.fold_and_pad(feat7w)
+kb = none7w.call_folded(g7wn)
+pb = bp.beamform_plain(g7wn, none7w.tables, reduce="none")
+torch.cuda.synchronize()
+if (not torch.allclose(kb, pb, rtol=RTOL, atol=ATOL)
+        or float(kb[src_w - s_w.start, :20_000].abs().min()) == 0.0):
+    raise AssertionError("bp kernel != plain (a wide row, none)")
+print(f"bp kernel vs plain, a wide row (source {src_w}'s S moveout at "
+      f"station {sta_w} moved by 40,000 samples: {tab7w.ent_sp.numel()} "
+      f"staged rows, spread at most {int(tab7w.ent_span.max())}): max|diff| "
+      f"{errs_bp[-1]:.3g}, {near7w} samples with another source within "
+      f"{ATOL} of the maximum", flush=True)
+del g7w, g7wn, plan7w, none7w, kb, pb
+t0p = time.perf_counter()
+bp.build_tables(*_flatten_moveouts(mv_bp, w_ph_bp, w_src_bp), N_SAMP, True,
+                "cpu")
+plan_build_s = time.perf_counter() - t0p
+print(f"bp plan tables of the day (100k sources, 2,160,000 samples) built "
+      f"on the host in {plan_build_s:.2f} s", flush=True)
 bad = mv_bp.copy()
 bad[7, 3, 1] = -2
 try:
@@ -697,7 +749,9 @@ print(f"bp kernel, one day: {ms_bp:.2f} ms ({pts / ms_bp / 1e6:.0f} "
       f"Gpoints/s, {plan9.tables.n_pairs * N_SAMP / ms_bp / 1e9:.2f} T "
       f"multiply-adds/s) in {plan9.n_t_blocks} tiles x "
       f"{plan9.tables.n_tiles} source tiles ({plan9.tables.n_stages} "
-      f"stages), bound {bound_bp:.2f} ms ({bound_by_bp}), plain "
+      f"stages, {plan9.tables.fma_per_word:.2f} multiply-adds per word "
+      f"loaded from shared memory, {plan9.tables.n_pairs / plan9.tables.n_items:.2f} "
+      f"sources per item), bound {bound_bp:.2f} ms ({bound_by_bp}), plain "
       f"{plain_ms_bp:.0f} ms; max|diff| {errs_bp[-1]:.3g}, first-max rule "
       f"held, indices differ at {near9} samples, each a tie within {ATOL} "
       f"[{CARD}]",

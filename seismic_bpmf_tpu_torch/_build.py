@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels at first use and loads them.
 
 Each ``csrc/<name>.cu`` has a plain C interface (the ``csrc/*.cuh`` headers
-are what the sources share) and is compiled by ``nvcc``
+are what the sources share; ``bp.cu`` also includes a header that
+`_bp_items.py` writes for its sizes) and is compiled by ``nvcc``
 into ``build/seismic_bpmf_tpu_torch/lib<name>-<hash>.so`` beside the
 package, then loaded with ctypes.  Nothing is compiled when this module is
 imported: a kernel's library is built when a CUDA tensor first reaches its
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,10 +44,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _generated(name: str, src: str, defines) -> tuple:
+    """Writes the header that ``csrc/<name>.cu`` has generated for its
+    sizes, if it has one (bp: the item loop's PTX, `_bp_items.py`), from
+    the source's ``#define`` defaults under `defines`; returns nvcc's flags
+    for it and the header's text."""
+    if name != "bp":
+        return (), ""
+    from . import _bp_items
+
+    with open(src) as f:
+        sizes = dict(re.findall(r"^#define (BP_[RD]) (\d+)", f.read(),
+                                re.M))
+    sizes.update(d.split("=") for d in defines if "=" in d)
+    r, d = int(sizes["BP_R"]), int(sizes["BP_D"])
+    text = _bp_items.header(r, d)
+    gen = os.path.join(BUILD_DIR, f"bp_items-{r}-{d}")
+    os.makedirs(gen, exist_ok=True)
+    path = os.path.join(gen, "bp_items.cuh")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+    return ("-I", gen), text
+
+
 def _target(name: str, defines=(), extra_flags=()) -> tuple:
     src = os.path.join(CSRC, f"{name}.cu")
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), *extra_flags]
-    digest = hashlib.sha1(" ".join(flags).encode())
+    include, generated = _generated(name, src, defines)
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines), *include,
+             *extra_flags]
+    digest = hashlib.sha1((" ".join(flags) + generated).encode())
     headers = sorted(os.path.join(CSRC, fn) for fn in os.listdir(CSRC)
                      if fn.endswith(".cuh"))
     for path in (src, *headers):

@@ -11,13 +11,17 @@ beam wherever a used station-phase points outside the day and
 source index that reaches it.
 
 The CUDA kernel (`csrc/bp.cu`, wrapped by `bp_beam`) reads a moveout as an
-address offset into a shared-memory time tile, so the plan keeps, per tile
-of `SRC_TILE` sources, the station-phases that the tile uses (each with its
-lowest used moveout and spread), cut into stages that fit a block's shared
-memory, and, per stage and source, the compact list of the source's used
-(station-phase, offset, weight) pairs.  `beamform_plain` is the same
-function in plain PyTorch, a gather per station-phase; `bp_beam` uses it
-only for tensors on the CPU.
+address offset into a shared-memory time tile.  A lane owns `LANE_COLS`
+neighbouring samples and a warp two neighbouring sources, and a window of
+a staged row, once in a lane's registers, serves both sources where their
+moveouts on that row lie less than `WIN_D` apart.  So the plan keeps, per
+tile of `SRC_TILE` sources, the rows to stage (a station-phase, or a part
+of one whose moveouts spread wide, each with its lowest used moveout and
+spread), cut into stages that fit one slot of the kernel's staging ring,
+and per stage a program: for each warp its items (which row, where the
+window starts in it, how far apart the two sources are, their weights).
+`beamform_plain` is the same function in plain PyTorch, a gather per
+station-phase; `bp_beam` uses it only for tensors on the CPU.
 
 Padded feature layout: ``(n_sp, n_t_blocks * TIME_TILE + M)`` f32, the day
 at column 0 and zeros after it, M > the largest moveout.  Moveouts must be
@@ -36,10 +40,16 @@ import torch
 from .._device import resolve_device
 from .beamform import _flatten_moveouts, fold_components
 
-TIME_TILE = 512      # samples per kernel block (BP_T in csrc/bp.cu)
-SRC_TILE = 32        # sources per source tile (BP_S)
+# the kernel's compile-time sizes (csrc/bp.cu), checked at first load
+LANE_COLS = 15       # samples per lane (BP_R, odd)
+GROUP = 2            # sources per warp: a pair
+WARPS = 15           # computing warps of a block (BP_WARPS)
+WIN_D = 8            # a pair's moveouts on a row lie less apart (BP_D)
+RING = 3             # slots of the staging ring (BP_NSTAGE)
+TIME_TILE = 32 * LANE_COLS   # samples per kernel block (BP_T)
+SRC_TILE = WARPS * GROUP     # sources per source tile (BP_S)
+ROW_CAP = 2048       # a staged row's used moveouts spread over less
 SMEM_LIMIT = 232448       # dynamic shared memory one block may use on sm_90
-PP_WORDS = 34             # stage_pp words of a stage (BP_PP)
 PLAIN_POINTS = 2**26      # beam points per source chunk of the plain version
 TARGET_BLOCKS = 2048      # the grid is cut along sources to about this many
 
@@ -67,16 +77,18 @@ def _lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bp_launch.argtypes = ([vp, i64] + [vp] * 9
                                   + [i32, i32, i32, i64, i64, i64, i32, i32,
-                                     i32, i32] + [vp] * 5)
+                                     i32, i32, i32] + [vp] * 5)
         lib.bp_launch.restype = i32
         lib.bp_smem_bytes.argtypes = [i32, i32, i32]
         lib.bp_smem_bytes.restype = i64
         lib.bp_error_string.argtypes = [i32]
         lib.bp_error_string.restype = ctypes.c_char_p
-        for fn in (lib.bp_tile_samples, lib.bp_tile_sources):
+        sizes = (lib.bp_tile_samples, lib.bp_tile_sources, lib.bp_window,
+                 lib.bp_ring)
+        for fn in sizes:
             fn.argtypes, fn.restype = [], i32
-        if (lib.bp_tile_samples() != TIME_TILE
-                or lib.bp_tile_sources() != SRC_TILE
+        if (tuple(fn() for fn in sizes)
+                != (TIME_TILE, SRC_TILE, WIN_D, RING)
                 or lib.bp_smem_bytes(TIME_TILE, 1, 64)
                 != _smem_bytes(TIME_TILE, 1, 64)):
             raise RuntimeError("csrc/bp.cu and ops/bp.py disagree on the "
@@ -85,35 +97,60 @@ def _lib():
     return lib
 
 
-def _smem_bytes(stride: int, max_rows: int, max_pairs: int) -> int:
-    """Mirror of `bp_smem_bytes` in csrc/bp.cu: the argmax keys and two
-    staging buffers (a stage's pairs, stage_pp words and rows)."""
-    buf = 8 * max_pairs + 4 * PP_WORDS + 4 * max_rows * stride
-    return 8 * TIME_TILE + 2 * _round_up(buf, 16)
+def _head_words() -> int:
+    """Words of a stage program's head: where each warp's items start
+    (WARPS + 1 words), the stage's flags and its source tile, to a
+    multiple of 4 (BP_HW)."""
+    return (WARPS + 6) & ~3
+
+
+def _smem_bytes(stride: int, max_rows: int, prog_bytes: int) -> int:
+    """Mirror of `bp_smem_bytes` in csrc/bp.cu: the argmax keys, the ring's
+    barriers and its RING slots (a stage's program and its rows)."""
+    return (8 * TIME_TILE + 16 * RING
+            + RING * (prog_bytes + 4 * max_rows * stride))
 
 
 @dataclass
 class BPTables:
     """Device tables of one plan, shared by the kernel and its plain
-    version.  Dense (plain version): mv, w (n_sp, n_src).  Compact
-    (kernel): source tiles of SRC_TILE consecutive sources, each cut into
-    one or more stages, the CSR bounds `tile_stage`; per stage the CSR list
-    `stage_row` of its staged rows (station-phase `ent_sp`, lowest used
-    moveout `ent_lo`, spread `ent_span`, in ascending station-phase order)
-    and `stage_pp` (n_stages, PP_WORDS): where each of the tile's sources'
-    pairs of the stage start in `pairs` (the last words repeat the end).
-    A pair is (row * stride + offset, weight bits) as int32, the row
-    counted within its stage.  lo, hi: per-source used-moveout bounds of
-    the strict policy."""
+    version.  Dense (plain version): mv, w (n_sp, n_src); lo, hi: per-source
+    used-moveout bounds of the strict policy, `hi_max` the largest.
+
+    Compact (kernel): source tiles of SRC_TILE consecutive sources, each cut
+    into one or more stages, the CSR bounds `tile_stage`.  Per stage the CSR
+    list `stage_row` of its staged rows, in ascending station-phase order:
+    station-phase `ent_sp` (it repeats where a station-phase's used
+    moveouts spread over ROW_CAP samples or more: each part is a row),
+    `ent_lo` the row's first staged moveout (a multiple of 4) and `ent_span`
+    the largest used moveout less `ent_lo` (< ROW_CAP); a row lies at
+    `stride` words times its number within the stage.  `stage_prog` are the
+    CSR bounds, in units of 4 words, of each stage's program in `prog`:
+
+        head    WARPS + 1 words: where each warp's part starts, in 4-word
+                elements after the head; flags (1: the tile's first stage,
+                2: its last); the tile; padding to `_head_words()`
+        item    (code, row * stride + base, weight bits of the warp's
+                first source, of its second).  code = delta + WIN_D - 1:
+                both sources use the row, the second's moveout `delta`
+                after the first's, |delta| < WIN_D; a lane loads
+                LANE_COLS + |delta| words from `base + lane * LANE_COLS`
+                on, base being the smaller of the two offsets.  code =
+                2 WIN_D - 1 or 2 WIN_D: the first or the second source
+                alone.  code = 2 WIN_D + 1 ends a warp's part.
+
+    Warp g takes the tile's sources 2 g and 2 g + 1.  Each used (source,
+    station-phase) pair is in one item; a source's items come in ascending
+    station-phase order (the sum order)."""
 
     mv: torch.Tensor
     w: torch.Tensor
     lo: torch.Tensor
     hi: torch.Tensor
     tile_stage: torch.Tensor
-    stage_pp: torch.Tensor
-    pairs: torch.Tensor
     stage_row: torch.Tensor
+    stage_prog: torch.Tensor
+    prog: torch.Tensor
     ent_sp: torch.Tensor
     ent_lo: torch.Tensor
     ent_span: torch.Tensor
@@ -121,9 +158,13 @@ class BPTables:
     n_t_blocks: int
     ext: int
     strict: bool
+    hi_max: int
     stride: int
     max_rows: int
-    max_pairs: int
+    prog_bytes: int
+    n_pairs: int
+    n_items: int
+    window_words: int
 
     @property
     def n_src(self) -> int:
@@ -142,73 +183,149 @@ class BPTables:
         return self.stage_row.shape[0] - 1
 
     @property
-    def n_pairs(self) -> int:
-        return self.pairs.shape[0]
+    def fma_per_word(self) -> float:
+        """Multiply-adds per word a lane loads from a staged row: the
+        design's own ratio (1 when every source loads its own samples, 2
+        when the two sources of every warp read the same ones)."""
+        return self.n_pairs * LANE_COLS / max(1, self.window_words)
+
+
+def _starts(key: np.ndarray) -> np.ndarray:
+    """Boolean mark of each run's first element in a sorted key."""
+    first = np.ones(len(key), bool)
+    first[1:] = key[1:] != key[:-1]
+    return first
 
 
 def build_tables(mv_flat, w_flat, mv_lo, mv_hi, n_samp: int, strict: bool,
                  device) -> BPTables:
-    """Host build of a plan's tables from `_flatten_moveouts` output.
+    """Host build of a plan's tables from `_flatten_moveouts` output, in
+    numpy sorts and cumulative sums over the used pairs.
 
     A tile's rows are cut, in ascending station-phase order, into as few
-    stages of as even a size as fit one of the kernel's two staging
-    buffers.  Raises ValueError when a moveout is negative or when a single
-    row (the time tile plus the spread of one station-phase's used
-    moveouts within a tile) does not fit."""
+    stages of as even a size as fit one slot of the kernel's staging ring.
+    Raises ValueError when a moveout is negative."""
     n_src, n_sp = mv_flat.shape
     if int(mv_flat.min(initial=0)) < 0:
         raise ValueError("moveouts must be non-negative")
     mv = np.ascontiguousarray(mv_flat, np.int32)
     w = np.ascontiguousarray(w_flat, np.float32)
     used = w != 0.0
-    big = np.iinfo(np.int32).max
-    starts = np.arange(0, n_src, SRC_TILE)
-    n_tiles = len(starts)
+    n_tiles = max(1, -(-n_src // SRC_TILE))
+    head = _head_words()
 
-    # staged rows: the station-phases each tile uses
-    lo_t = np.minimum.reduceat(np.where(used, mv, big), starts, axis=0)
-    row_used = lo_t != big                                      # (tiles, sp)
-    hi_t = np.maximum.reduceat(np.where(used, mv, -1), starts, axis=0)
-    span_t = np.where(row_used, hi_t - lo_t, 0)
-    stride = _round_up(int(span_t.max(initial=0)) + TIME_TILE, 32)
-    max_tile_pairs = int(np.add.reduceat(used.sum(axis=1), starts).max())
-    rows_max = ((SMEM_LIMIT - _smem_bytes(0, 0, max_tile_pairs) - 32)
-                // (8 * stride))
-    if rows_max < 1:
-        raise ValueError(
-            f"a station-phase's used moveouts spread over "
-            f"{int(span_t.max())} samples within a tile of {SRC_TILE} "
-            f"sources: its row of {stride} samples does not fit one kernel "
-            f"block's shared memory")
-    # stages: each tile's rows in ascending station-phase order, cut into
-    # n_st even parts; a tile with no used row still has one stage
-    rows = row_used.sum(axis=1)
-    n_st = np.maximum(1, -(-rows // rows_max))
-    per = np.maximum(1, -(-rows // n_st))[:, None]
-    tile_stage = np.concatenate([[0], np.cumsum(n_st)])
-    n_stages = int(tile_stage[-1])
-    k_of = np.cumsum(row_used, axis=1) - 1        # row of (tile, sp) in tile
-    stage_of = tile_stage[:-1, None] + k_of // per
-    ent_tile, ent_sp = np.nonzero(row_used)      # by stage, then sp
-    ent_lo = lo_t[ent_tile, ent_sp]
-    ent_span = hi_t[ent_tile, ent_sp] - ent_lo
-    stage_row = np.concatenate([[0], np.cumsum(np.bincount(
-        stage_of[ent_tile, ent_sp], minlength=n_stages))])
-
-    # pairs by stage, then source, then station-phase (the sum order)
+    # the used pairs, by source then station-phase
     src, sp = np.nonzero(used)
+    m = mv[src, sp].astype(np.int64)
     tile = src // SRC_TILE
-    order = np.argsort(stage_of[tile, sp], kind="stable")
-    src, sp, tile = src[order], sp[order], tile[order]
-    stage = stage_of[tile, sp]
-    counts = np.bincount(stage * SRC_TILE + src % SRC_TILE,
-                         minlength=n_stages * SRC_TILE).reshape(
-                             n_stages, SRC_TILE)
-    first = np.concatenate([[0], np.cumsum(counts.sum(axis=1))[:-1]])
-    stage_pp = np.empty((n_stages, PP_WORDS), np.int64)
-    stage_pp[:, 0] = first
-    stage_pp[:, 1:SRC_TILE + 1] = first[:, None] + np.cumsum(counts, axis=1)
-    stage_pp[:, SRC_TILE + 1:] = stage_pp[:, SRC_TILE:SRC_TILE + 1]
+    grp = (src % SRC_TILE) // GROUP
+
+    # rows: a (tile, station-phase) in parts whose moveouts spread < ROW_CAP
+    ts = tile * n_sp + sp
+    lo_ts = np.full(n_tiles * n_sp, np.iinfo(np.int64).max)
+    np.minimum.at(lo_ts, ts, m)
+    part = (m - lo_ts[ts]) // (ROW_CAP - 3)
+    n_part = int(part.max(initial=0)) + 1
+    ent_key, ent = np.unique(ts * n_part + part, return_inverse=True)
+    ent = ent.reshape(-1)
+    n_ent = len(ent_key)
+    ent_tile = ent_key // (n_sp * n_part)
+    ent_sp = (ent_key // n_part) % n_sp
+    ent_lo = np.full(n_ent, np.iinfo(np.int64).max)
+    np.minimum.at(ent_lo, ent, m)
+    ent_lo &= ~3                     # a row's copy starts at 16 bytes
+    off = m - ent_lo[ent]
+    ent_span = np.zeros(n_ent, np.int64)
+    np.maximum.at(ent_span, ent, off)
+    stride = _round_up(int(ent_span.max(initial=0)), 4) + TIME_TILE
+
+    # items: a (row, warp) whose two sources both use the row, less than
+    # WIN_D apart, is one item; else each source is an item of its own
+    key = ent * WARPS + grp
+    order = np.argsort(2 * key + src % 2, kind="stable")
+    o_key, o_off, o_b = key[order], off[order], (src % 2)[order]
+    o_w = w[src[order], sp[order]].view(np.int32).astype(np.int64)
+    first = _starts(o_key)
+    both = np.zeros(len(order), bool)            # marks a pair's first
+    both[:-1] = (first[:-1] & ~first[1:]
+                 & (np.abs(o_off[1:] - o_off[:-1]) < WIN_D))
+    second = np.concatenate([[False], both[:-1]])
+    at_item = np.flatnonzero(~second)            # an item's first source
+    n_items = len(at_item)
+    paired = both[at_item]
+    nxt = np.minimum(at_item + 1, max(0, len(order) - 1))
+    delta = np.where(paired, o_off[nxt] - o_off[at_item], 0)
+    it_code = np.where(paired, delta + WIN_D - 1,
+                       2 * WIN_D - 1 + o_b[at_item])
+    it_base = o_off[at_item] + np.minimum(delta, 0)
+    it_wa = np.where(o_b[at_item] == 0, o_w[at_item], 0)
+    it_wb = np.where(paired, o_w[nxt], np.where(o_b[at_item] == 1,
+                                                o_w[at_item], 0))
+    it_ent, it_grp = o_key[at_item] // WARPS, o_key[at_item] % WARPS
+    window_words = int((LANE_COLS + np.abs(delta)).sum())
+
+    # stages: each tile's rows in ascending station-phase order, cut into
+    # n_st even parts that fit a slot with their program; a tile with no
+    # used row still has one stage
+    rows = np.bincount(ent_tile, minlength=n_tiles)
+    ent_first = np.concatenate([[0], np.cumsum(rows)])[:-1]
+    k_of = np.arange(n_ent) - ent_first[ent_tile]     # row within its tile
+    ent_items = np.bincount(it_ent, minlength=n_ent)
+    slot = (SMEM_LIMIT - _smem_bytes(0, 0, 0)) // RING // 16 * 16
+    rows_max = max(1, (slot - 4 * head - 16 * (WARPS + 2)) // (4 * stride))
+    while True:
+        n_st = np.maximum(1, -(-rows // rows_max))
+        per = np.maximum(1, -(-rows // n_st))
+        tile_stage = np.concatenate([[0], np.cumsum(n_st)])
+        n_stages = int(tile_stage[-1])
+        stage_of = tile_stage[ent_tile] + k_of // per[ent_tile]
+        # a stage's items, an end mark per warp, two elements of padding
+        # (the loop loads two elements ahead)
+        elems = WARPS + 2 + np.bincount(stage_of, weights=ent_items,
+                                        minlength=n_stages).astype(np.int64)
+        prog_words = head + 4 * elems
+        prog_bytes = 4 * int(prog_words.max())
+        fit = (slot - prog_bytes) // (4 * stride)
+        if fit >= int(per.max()) or rows_max == 1:
+            break
+        rows_max = max(1, min(rows_max - 1, fit))
+    stage_row = np.concatenate([[0], np.cumsum(np.bincount(
+        stage_of, minlength=n_stages))])
+    stage_prog = np.concatenate([[0], np.cumsum(prog_words)])
+
+    # the programs: items by stage, warp, row; each warp's part ends with
+    # an end mark
+    it_stage = stage_of[it_ent]
+    it_order = np.argsort((it_stage * WARPS + it_grp) * n_ent + it_ent,
+                          kind="stable")
+    part_items = np.bincount(it_stage * WARPS + it_grp,
+                             minlength=n_stages * WARPS).reshape(
+                                 n_stages, WARPS)
+    heads = np.zeros((n_stages, head), np.int64)
+    heads[:, 1:WARPS + 1] = np.cumsum(part_items + 1, axis=1)
+    stage_tile = np.repeat(np.arange(n_tiles), n_st)
+    j = np.arange(n_stages)
+    heads[:, WARPS + 1] = ((j == tile_stage[stage_tile])
+                           + 2 * (j + 1 == tile_stage[stage_tile + 1]))
+    heads[:, WARPS + 2] = stage_tile
+    prog = np.zeros(int(stage_prog[-1]), np.int32)
+    prog[(stage_prog[:-1, None] + np.arange(head)[None, :]).ravel()] = (
+        heads.ravel())
+    # an item's place: its part's start, then its rank within the part
+    part0 = np.concatenate([[0], np.cumsum(part_items.ravel())])[:-1]
+    rank = np.empty(n_items, np.int64)
+    rank[it_order] = np.arange(n_items) - part0[
+        (it_stage * WARPS + it_grp)[it_order]]
+    at = (stage_prog[:-1][it_stage] + head
+          + 4 * (heads[it_stage, it_grp] + rank))
+    prog[at] = it_code
+    prog[at + 1] = ((k_of[it_ent] % per[ent_tile[it_ent]]) * stride
+                    + it_base)
+    prog[at + 2] = it_wa
+    prog[at + 3] = it_wb
+    end = (stage_prog[:-1, None] + head
+           + 4 * (heads[:, 1:WARPS + 1] - 1)).ravel()
+    prog[end] = 2 * WIN_D + 1
 
     max_mv = int(mv_flat.max(initial=0))
     n_t_blocks = max(1, math.ceil(n_samp / TIME_TILE))
@@ -218,15 +335,16 @@ def build_tables(mv_flat, w_flat, mv_lo, mv_hi, n_samp: int, strict: bool,
 
     return BPTables(
         mv=t(mv.T), w=t(w.T, np.float32), lo=t(mv_lo), hi=t(mv_hi),
-        tile_stage=t(tile_stage), stage_pp=t(stage_pp), pairs=t(np.stack(
-            [(k_of[tile, sp] % per[tile, 0]) * stride + mv[src, sp]
-             - lo_t[tile, sp], w[src, sp].view(np.int32)], axis=1)),
-        stage_row=t(stage_row), ent_sp=t(ent_sp), ent_lo=t(ent_lo),
-        ent_span=t(ent_span), n_samp=int(n_samp), n_t_blocks=n_t_blocks,
+        tile_stage=t(tile_stage), stage_row=t(stage_row),
+        stage_prog=t(stage_prog // 4), prog=t(prog), ent_sp=t(ent_sp),
+        ent_lo=t(ent_lo), ent_span=t(ent_span), n_samp=int(n_samp),
+        n_t_blocks=n_t_blocks,
         ext=n_t_blocks * TIME_TILE + _round_up(max_mv + 1, 128),
-        strict=bool(strict), stride=stride,
+        strict=bool(strict), hi_max=int(np.max(mv_hi, initial=0)),
+        stride=stride,
         max_rows=int(np.diff(stage_row).max(initial=0)),
-        max_pairs=int(counts.sum(axis=1).max(initial=0)),
+        prog_bytes=prog_bytes, n_pairs=len(src), n_items=n_items,
+        window_words=window_words,
     )
 
 
@@ -314,7 +432,7 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
     if g_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {g_pad.device}")
     tile0, n_tt = _range(tab, reduce, tile0, n_tt)
-    for name in ("tile_stage", "stage_pp", "pairs", "lo", "hi", "stage_row",
+    for name in ("tile_stage", "stage_row", "stage_prog", "prog", "lo", "hi",
                  "ent_sp", "ent_lo", "ent_span"):
         t = getattr(tab, name)
         if t.device != g_pad.device:
@@ -322,12 +440,18 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
                              f"{g_pad.device}")
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32")
-    if (tab.n_tiles != -(-tab.n_src // SRC_TILE)
-            or tuple(tab.stage_pp.shape) != (tab.n_stages, PP_WORDS)
-            or tuple(tab.pairs.shape) != (tab.n_pairs, 2)
-            or _smem_bytes(tab.stride, tab.max_rows, tab.max_pairs)
+    if (tab.n_tiles != max(1, -(-tab.n_src // SRC_TILE))
+            or tab.stage_prog.shape[0] != tab.n_stages + 1
+            or tab.ent_sp.shape != tab.ent_lo.shape
+            or tab.ent_sp.shape != tab.ent_span.shape
+            or tab.stride % 4 or tab.prog_bytes % 16 or tab.ext % 4
+            or _smem_bytes(tab.stride, tab.max_rows, tab.prog_bytes)
             > SMEM_LIMIT):
         raise ValueError("inconsistent beamforming plan tables")
+    if g_pad.data_ptr() % 16 or tab.prog.data_ptr() % 16:
+        raise ValueError("the kernel copies rows and programs in units of "
+                         "16 bytes: the features and `prog` must start at "
+                         "a multiple of 16 bytes")
     dev = g_pad.device
     n_splits = min(tab.n_tiles, max(1, -(-TARGET_BLOCKS // n_tt)))
     if reduce == "none":
@@ -348,12 +472,13 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bp_launch(
             g_pad.data_ptr(), tab.ext, ptr(tab.tile_stage),
-            ptr(tab.stage_pp), ptr(tab.pairs), ptr(tab.lo), ptr(tab.hi),
-            ptr(tab.stage_row), ptr(tab.ent_sp), ptr(tab.ent_lo),
-            ptr(tab.ent_span), tab.n_src, tab.n_tiles, n_splits, tile0, n_tt,
-            tab.n_samp, int(tab.strict), tab.stride, tab.max_rows,
-            tab.max_pairs, ptr(keys),
-            ptr(val), ptr(idx), ptr(beam), stream,
+            ptr(tab.stage_row), ptr(tab.stage_prog), ptr(tab.prog),
+            ptr(tab.ent_sp), ptr(tab.ent_lo), ptr(tab.ent_span),
+            ptr(tab.lo), ptr(tab.hi), tab.n_src, tab.n_tiles, n_splits,
+            tile0, n_tt, tab.n_samp, int(tab.strict),
+            tab.hi_max, tab.stride,
+            tab.max_rows, tab.prog_bytes, ptr(keys), ptr(val), ptr(idx),
+            ptr(beam), stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -132,14 +132,14 @@ def test_plan_tables_and_fail_loud_checks():
     plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1], device="cpu")
     tab = plan.tables
     used = (w_src != 0).sum()
-    assert tab.n_pairs == 2 * used and tab.n_tiles == 3
-    assert tab.n_stages == 3                  # few rows: a stage per tile
-    assert tab.stage_pp[-1, -1].item() == tab.n_pairs
-    # every pair's offset lies inside its staged row
-    off = tab.pairs[:, 0] % tab.stride
-    rows = tab.pairs[:, 0] // tab.stride
-    assert bool((off >= 0).all()) and bool((rows >= 0).all())
-    assert int((off.max() + bp.TIME_TILE)) <= tab.stride
+    assert tab.n_pairs == 2 * used
+    assert tab.n_tiles == -(-75 // bp.SRC_TILE)
+    assert tab.n_stages == tab.n_tiles        # few rows: a stage per tile
+    assert tab.stage_prog[-1].item() * 4 == tab.prog.numel()
+    # every row's used moveouts lie inside its staged words
+    assert bool((tab.ent_lo % 4 == 0).all())
+    assert int(tab.ent_span.max()) + bp.TIME_TILE < tab.stride
+    assert 1.0 <= tab.fma_per_word <= 2.0
     bad = mv.copy()
     bad[2, 1, 0] = -1
     with pytest.raises(ValueError, match="non-negative"):
@@ -159,35 +159,60 @@ def test_plan_tables_and_fail_loud_checks():
 
 def _walk_tables(tab, g):
     """The kernel's walk over a plan's compact tables, in numpy over the
-    whole day: source tiles, their stages, a stage's staged rows and each
-    source's pairs.  Returns the 'none' beam (float64 sums, strict mask)
-    and, per source, the station-phases in the order they are summed."""
+    whole day: source tiles, their stages, a stage's staged rows and, per
+    warp, the items of its program.  Returns the 'none' beam (float64
+    sums, strict mask) and, per source, the station-phases in the order
+    they are summed."""
     g = g.numpy().astype(np.float64)
     n_src, n_samp = tab.n_src, tab.n_samp
     tile_stage, stage_row = tab.tile_stage.numpy(), tab.stage_row.numpy()
-    stage_pp, pairs = tab.stage_pp.numpy(), tab.pairs.numpy()
+    stage_prog, prog = tab.stage_prog.numpy(), tab.prog.numpy()
     ent_sp, ent_lo = tab.ent_sp.numpy(), tab.ent_lo.numpy()
     ent_span = tab.ent_span.numpy()
     mv = tab.mv.numpy()
+    head, D = bp._head_words(), bp.WIN_D
     beam = np.zeros((n_src, n_samp))
     order = [[] for _ in range(n_src)]
+    words = items = 0
     for tile in range(tab.n_tiles):
-        s0 = tile * bp.SRC_TILE
-        n_s = min(bp.SRC_TILE, n_src - s0)
         for j in range(tile_stage[tile], tile_stage[tile + 1]):
             assert stage_row[j + 1] - stage_row[j] <= tab.max_rows
-            pp = stage_pp[j]
-            assert pp[-1] - pp[0] <= tab.max_pairs
-            for s in range(n_s):
-                for x, wb in pairs[pp[s]:pp[s + 1]]:
+            p = prog[4 * stage_prog[j]:4 * stage_prog[j + 1]]
+            assert 4 * len(p) <= tab.prog_bytes
+            assert p[0] == 0 and p[bp.WARPS + 2] == tile
+            assert p[bp.WARPS + 1] == ((j == tile_stage[tile])
+                                       + 2 * (j + 1 == tile_stage[tile + 1]))
+            el = p[head:].reshape(-1, 4)
+            # the loop loads two elements past a part's end mark
+            assert p[bp.WARPS] + 2 <= len(el)
+            for warp in range(bp.WARPS):
+                assert el[p[warp + 1] - 1, 0] == 2 * D + 1    # the end mark
+                for code, x, wa, wb in el[p[warp]:p[warp + 1] - 1]:
                     e = stage_row[j] + x // tab.stride
-                    off = x % tab.stride
-                    assert e < stage_row[j + 1] and off <= ent_span[e]
-                    sp, m = ent_sp[e], ent_lo[e] + off
-                    assert m == mv[sp, s0 + s]
-                    w = np.int32(wb).view(np.float32)
-                    beam[s0 + s] += w * g[sp, m:m + n_samp]
-                    order[s0 + s].append(sp)
+                    base = x % tab.stride
+                    assert e < stage_row[j + 1] and 0 <= code <= 2 * D
+                    assert ent_lo[e] % 4 == 0 and ent_span[e] < bp.ROW_CAP
+                    # (source of the pair, its offset from the window's
+                    # start, its weight)
+                    delta = code - (D - 1)
+                    took = {2 * D - 1: [(0, 0, wa)], 2 * D: [(1, 0, wb)]}.get(
+                        code, [(0, max(-delta, 0), wa),
+                               (1, max(delta, 0), wb)])
+                    for k, d, wbits in took:
+                        # the window lies inside its row's staged words
+                        assert base + d <= ent_span[e]
+                        s = tile * bp.SRC_TILE + 2 * warp + k
+                        sp, m = ent_sp[e], ent_lo[e] + base + d
+                        assert s < n_src and m == mv[sp, s]
+                        w = np.int32(wbits).view(np.float32)
+                        assert w != 0.0
+                        beam[s] += w * g[sp, m:m + n_samp]
+                        order[s].append(sp)
+                    assert (wa == 0) == (code == 2 * D)
+                    assert (wb == 0) == (code == 2 * D - 1)
+                    words += bp.LANE_COLS + max(d for _, d, _ in took)
+                    items += 1
+    assert words == tab.window_words and items == tab.n_items
     if tab.strict:
         t = np.arange(n_samp)
         lo, hi = tab.lo.numpy()[:, None], tab.hi.numpy()[:, None]
@@ -196,32 +221,56 @@ def _walk_tables(tab, g):
 
 
 @pytest.mark.parametrize("case", ["sparse", "all_weighted",
-                                  "small_buffers", "dead_tile"])
+                                  "small_buffers", "dead_tile", "wide_rows",
+                                  "every_delta"])
 def test_stage_tables_walk_to_the_dense_beam(case, monkeypatch):
     """Every used (source, station-phase) pair is summed once, in ascending
-    station-phase order, however a tile's rows are cut into stages: with
-    every one of 32 stations weighted (64 rows a tile, more than one
-    staging buffer holds) and with buffers cut small on purpose."""
-    kw = dict(n_src=75, n_samp=900, max_mv=120)
+    station-phase order, however a tile's rows are cut into stages and
+    whether a warp's two sources share a window: with every one of 32
+    stations weighted (64
+    rows a tile, more than one slot of the ring holds), with slots cut
+    small on purpose, and with station-phases whose moveouts spread over
+    more than one staged row."""
+    kw = dict(n_src=150, n_samp=900, max_mv=120)
     if case == "sparse":
         kw.update(sparse=True)
     else:
         kw.update(n_sta=32)
     if case == "small_buffers":
-        # room for about 5 rows of (120 + 512) samples a stage
+        # room for about 5 rows of (120 + TIME_TILE) samples a slot
         monkeypatch.setattr(bp, "SMEM_LIMIT", 60_000)
     feats, mv, w_ph, w_src = _problem(14, **kw)
     if case == "dead_tile":
-        w_src[32:64] = 0.0            # a tile with no used pair: beam 0
+        # a tile with no used pair: beam 0
+        w_src[bp.SRC_TILE:2 * bp.SRC_TILE] = 0.0
+    if case == "wide_rows":
+        mv[1, 0, 0] = 60_000          # two rows, far apart
+        mv[70, 3, 1] = 3 * bp.ROW_CAP
+        mv[5:9, 4, 0] += np.arange(4, dtype=np.int32) * (bp.ROW_CAP - 3)
+    if case == "every_delta":
+        # a warp's second source at -WIN_D - 1 ... WIN_D + 1 from its first
+        mv = mv + 2 * bp.WIN_D
+        pair = np.arange(mv.shape[0] // 2)
+        mv[1::2] = mv[::2] + (pair % (2 * bp.WIN_D + 3)
+                              - bp.WIN_D - 1)[:, None, None].astype(np.int32)
     plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1],
                            reduce="none", device="cpu")
     tab = plan.tables
+    if case == "every_delta":
+        codes = np.concatenate([
+            tab.prog.numpy()[4 * a + bp._head_words():4 * b].reshape(-1, 4)
+            for a, b in zip(tab.stage_prog[:-1], tab.stage_prog[1:])])[:, 0]
+        assert set(codes.tolist()) >= set(range(2 * bp.WIN_D + 2))
     n_st = np.diff(tab.tile_stage.numpy())
     assert (n_st >= 1).all()
     if case in ("all_weighted", "small_buffers"):
         assert n_st.max() >= (2 if case == "all_weighted" else 10)
+    if case == "wide_rows":
+        assert _rows_of_first_tile(tab, 0) == 2
+        assert _rows_of_first_tile(tab, 8) == 4
+        assert int(tab.ent_span.max()) < bp.ROW_CAP
     assert bp._smem_bytes(tab.stride, tab.max_rows,
-                          tab.max_pairs) <= bp.SMEM_LIMIT
+                          tab.prog_bytes) <= bp.SMEM_LIMIT
     g = plan.fold_and_pad(feats)
     beam, order = _walk_tables(tab, g)
     w = tab.w.numpy()
@@ -230,14 +279,55 @@ def test_stage_tables_walk_to_the_dense_beam(case, monkeypatch):
     np.testing.assert_allclose(beam, plan.call_folded(g).numpy(), rtol=RTOL,
                                atol=ATOL)
     if case == "dead_tile":
-        assert np.all(beam[32:64] == 0.0)
+        assert np.all(beam[bp.SRC_TILE:2 * bp.SRC_TILE] == 0.0)
+
+
+def _rows_of_first_tile(tab, sp):
+    """How many staged rows the first source tile has for a station-phase."""
+    n = int(tab.stage_row[tab.tile_stage[1]])
+    return int((tab.ent_sp[:n] == sp).sum())
 
 
 def test_a_row_too_wide_for_shared_memory_raises():
+    """One moveout 60,000 samples from its tile's others: the plan stages
+    that station-phase as two rows (nothing raises any more) and the beam
+    is the JAX package's."""
     feats, mv, w_ph, w_src = _problem(15, n_src=40, n_samp=600, max_mv=60)
     mv[1, 0, 0] = 60_000              # one row spread over 60,000 samples
-    with pytest.raises(ValueError, match="does not fit"):
-        bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1], device="cpu")
+    plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1], device="cpu")
+    assert _rows_of_first_tile(plan.tables, 0) == 2
+    assert int(plan.tables.ent_span.max()) < bp.ROW_CAP
+    for oob in ("strict", "flexible"):
+        want_v, want_i = jref.beamform(feats, mv, w_ph, w_src, reduce="max",
+                                       out_of_bounds=oob)
+        got_v, got_i = bp.beamform(feats, mv, w_ph, w_src, reduce="max",
+                                   out_of_bounds=oob, device="cpu")
+        np.testing.assert_allclose(got_v.numpy(), want_v, rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_array_equal(got_i.numpy(), want_i)
+        want = jref.beamform(feats, mv, w_ph, w_src, reduce="none",
+                             out_of_bounds=oob)
+        got = bp.beamform(feats, mv, w_ph, w_src, reduce="none",
+                          out_of_bounds=oob, device="cpu").numpy()
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("oob", ["strict", "flexible"])
+def test_a_wide_row_matches_pallas_in_interpret_mode(oob):
+    """The same at a spread the Pallas kernel bears in interpret mode."""
+    feats, mv, w_ph, w_src = _problem(15, n_src=40, n_samp=600, max_mv=60)
+    mv[1, 0, 0] = 3_000
+    plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1],
+                           out_of_bounds=oob, device="cpu")
+    assert _rows_of_first_tile(plan.tables, 0) == 2
+    got_v, got_i = plan(feats)
+    pal_v, pal_i = beamform_pallas(feats, mv, w_ph, w_src, reduce="max",
+                                   out_of_bounds=oob, time_block=256,
+                                   src_block=16, interpret=True,
+                                   precision="highest")
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(pal_v), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(pal_i))
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():

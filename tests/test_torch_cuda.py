@@ -264,22 +264,17 @@ def test_bp_kernel_matches_plain_on_card(card, oob):
             bp.bp_beam(g.double(), plan.tables)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["all_weighted", "small_buffers"])
-def test_bp_kernel_with_staged_rows_matches_plain_on_card(card, case,
-                                                          monkeypatch):
-    """Every one of 32 stations weighted: a tile's 64 rows are staged in
-    parts, and with buffers cut small on purpose in many parts."""
-    feats, mv, w_ph, w_src = _bp_problem(21, n_sta=32, max_mv=120)
-    w_src[:] = 1.0 / 32
-    if case == "small_buffers":
-        monkeypatch.setattr(bp, "SMEM_LIMIT", 60_000)
-    for reduce in ("max", "none"):
+def _hold_bp_to_plain(card, feats, mv, w_ph, w_src, **kw):
+    """The kernel against the plain version on the card, 'max' (values,
+    argmax, the 3-chunk call bit for bit) and 'none'; returns the 'max'
+    plan."""
+    for reduce in ("none", "max"):
         plan = bp.BeamformPlan(mv, w_ph, w_src, feats.shape[-1],
-                               reduce=reduce, device=card)
-        assert plan.tables.n_stages > plan.tables.n_tiles
+                               reduce=reduce, device=card, **kw)
         g = plan.fold_and_pad(feats)
+        launches = bp.bp_beam.launches
         got = plan.call_folded(g)
+        assert bp.bp_beam.launches == launches + 1
         want = bp.beamform_plain(g, plan.tables, reduce=reduce)
         torch.cuda.synchronize()
         if reduce == "none":
@@ -290,6 +285,77 @@ def test_bp_kernel_with_staged_rows_matches_plain_on_card(card, case,
         assert torch.equal(got[1], want[1][: plan.n_samp])
         v2, i2 = plan.call_folded_chunked(g, 3)
         assert torch.equal(v2, got[0]) and torch.equal(i2, got[1])
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_weighted", "small_buffers"])
+def test_bp_kernel_with_staged_rows_matches_plain_on_card(card, case,
+                                                          monkeypatch):
+    """Every one of 32 stations weighted: a tile's 64 rows are staged in
+    parts, and with the ring's slots cut small on purpose in many parts."""
+    feats, mv, w_ph, w_src = _bp_problem(21, n_src=150, n_sta=32, max_mv=120)
+    w_src[:] = 1.0 / 32
+    if case == "small_buffers":
+        monkeypatch.setattr(bp, "SMEM_LIMIT", 60_000)
+    plan = _hold_bp_to_plain(card, feats, mv, w_ph, w_src)
+    n_st = plan.tables.tile_stage.diff()
+    assert int(n_st.max()) >= (2 if case == "all_weighted" else 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oob", ["strict", "flexible"])
+@pytest.mark.parametrize("case", ["wide_rows", "equal_moveouts",
+                                  "widest_row", "far_apart_in_a_warp",
+                                  "every_delta"])
+def test_bp_kernel_rows_and_windows_on_card(card, case, oob):
+    """The shapes a row and a warp's window of it can take: a
+    station-phase staged as several rows (one moveout 60,000 samples from
+    its tile's others), every source of a tile at the same moveouts (the
+    two sources of a warp read one window, and their equal beams tie), a
+    row at the largest spread one staged row may have, a warp's two
+    sources far apart on every row (each an item of its own), and every
+    difference between a warp's two sources from -WIN_D - 1 to WIN_D + 1
+    (every block of the kernel's item loop)."""
+    feats, mv, w_ph, w_src = _bp_problem(23, n_src=150, n_sta=6, max_mv=90)
+    if case == "wide_rows":
+        mv[1, 1, 0] = 60_000
+        mv[5:9, 3, 1] += np.arange(4, dtype=np.int32) * (bp.ROW_CAP - 3)
+    elif case == "equal_moveouts":
+        mv[: bp.SRC_TILE] = mv[0]
+        w_src[: bp.SRC_TILE] = w_src[0]
+        mv[bp.SRC_TILE:, 3] = mv[bp.SRC_TILE, 3]
+    elif case == "widest_row":
+        mv[:, 1, 0] = np.maximum(mv[:, 1, 0], 3)
+        mv[2, 1, 0], mv[11, 1, 0] = 3, 3 + bp.ROW_CAP - 4
+    elif case == "far_apart_in_a_warp":
+        mv[:, 1::2] += (120 * np.arange(mv.shape[0], dtype=np.int32)
+                        % 1999)[:, None, None]
+    else:
+        mv = mv + 2 * bp.WIN_D
+        pair = np.arange(mv.shape[0] // 2)
+        mv[1::2] = mv[::2] + (pair % (2 * bp.WIN_D + 3)
+                              - bp.WIN_D - 1)[:, None, None].astype(np.int32)
+    plan = _hold_bp_to_plain(card, feats, mv, w_ph, w_src, out_of_bounds=oob)
+    tab = plan.tables
+    if case == "wide_rows":
+        first = tab.ent_sp[: int(tab.stage_row[tab.tile_stage[1]])]
+        assert int((first == 2).sum()) == 2 and int((first == 7).sum()) == 4
+    elif case == "equal_moveouts":
+        assert tab.n_items < 0.8 * tab.n_pairs
+    elif case == "widest_row":
+        assert int(tab.ent_span.max()) == bp.ROW_CAP - 1
+        assert int((tab.ent_sp[: int(tab.stage_row[tab.tile_stage[1]])]
+                    == 2).sum()) == 1
+    elif case == "far_apart_in_a_warp":
+        assert tab.n_items > 0.9 * tab.n_pairs
+    else:
+        codes = tab.prog.cpu().numpy()
+        seen = set()
+        for j in range(tab.n_stages):
+            p = codes[4 * int(tab.stage_prog[j]):4 * int(tab.stage_prog[j + 1])]
+            seen |= set(p[bp._head_words():].reshape(-1, 4)[:, 0].tolist())
+        assert seen >= set(range(2 * bp.WIN_D + 2))
 
 
 def _bp_world(seed=20, n_samp=12000, sr=25.0):

@@ -5,17 +5,21 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles every kernel of seismic_bpmf_tpu_torch/csrc with nvcc;
-  3. the fused MF kernel against its plain PyTorch version on the card, at
-     full bank width (128 templates x 10 stations x 3 components, L = 200,
-     moveouts in [-50, 400)) on a 2^17-sample window with a zero-filled
-     gap, f32 gate rtol=1e-4, atol=1e-5; step=2 and the fail-loud checks;
+  3. the fused MF kernel (f32-class: TF32-split operands, tensor cores)
+     against its plain PyTorch version on the card, at full bank width (128
+     templates x 10 stations x 3 components, L = 200, moveouts in
+     [-50, 400)) on a 2^17-sample window with a zero-filled gap, f32 gate
+     rtol=1e-4, atol=1e-5; against the float64 oracle at sampled lags
+     within 1e-5; step=2 and the fail-loud checks;
   4. the main path at full size: a two-day `scan_days(stage="mf")`
      campaign at the default 'screen' precision over 10 stations x 3
      components x 2,160,000 samples (25 Hz) with 128 templates of 8 s,
      built in memory from a seed; every re-injected repeat must be found
      at its sample index with CC >= 0.99, through the kernel only;
   5. exactness: one day at 'highest', each detection's CC within 1e-5 of
-     the float64 oracle `ops.reference.matched_filter_at`;
+     the float64 oracle `ops.reference.matched_filter_at`; the kernel's
+     day against its plain version, its time and its bound (three TF32
+     products on the tensor cores, beside the f32 FMA figure);
   6. where a warm 'screen' day's time goes (host clock, torch.profiler);
   7. the BP kernel against its plain PyTorch version on the card at the
      BP configuration's width (100,000 lattice sources x 32 stations x 2
@@ -63,9 +67,10 @@ Phases (any failure exits non-zero; nothing is caught):
      channels, wide moveout spans) is held to the plain version over the
      whole day, rtol=1e-4, atol=1e-5, and every detection's CC to the
      float64 oracle within 5e-6;
- 13. the split kernel's numbers at day shape beside the f32 kernel's on the
-     same bank and day: ms per day (CUDA events), its bound, the plain
-     version's time and the day-size compare with the plain version.
+ 13. the split kernel's numbers at day shape beside the f32-class kernel's
+     on the same bank and day: ms per day (CUDA events), its bound, the
+     plain version's time and the day-size compare with the plain version;
+     the f32-class kernel's day held again to its plain version of phase 5.
 It then prints the card line, one JSON line of per-kernel numbers, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -114,6 +119,7 @@ N_SAMP = int(DAY_SEC * SR)          # 2,160,000
 T0_EPOCH = 1343260800.0             # 2012-07-26T00:00:00
 DATES = {"d1": "2012-07-26", "d2": "2012-07-27"}
 F32_PEAK_FLOPS = 67e12              # H100 SXM, f32 outside tensor cores
+TF32_PEAK_FLOPS = 495e12            # H100 SXM, dense TF32 on tensor cores
 BF16_PEAK_FLOPS = 989e12            # H100 SXM, dense bf16 on tensor cores
 ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
 HBM_BYTES_PER_S = 3.35e12
@@ -151,7 +157,9 @@ def plain_of(plan, data_pad):
         return mf.matched_filter_split_plain(
             data_pad, *mf.split_rows_parts(plan.filt_rows, plan.L),
             plan.mv_table, **kw)
-    return mf.matched_filter_plain(data_pad, plan.filt, plan.mv_table, **kw)
+    return mf.matched_filter_plain(
+        data_pad, *mf.tf32_rows_parts(plan.filt_rows, plan.L), plan.mv_table,
+        **kw)
 
 
 def device_profile(prof, name: str) -> tuple:
@@ -183,24 +191,23 @@ def zero_counts():
 
 def kernel_bound_ms(plan, data_pad) -> tuple:
     """Least time for one plan call: the multiply-adds of the (template,
-    channel) pairs that add something (f32 at the FMA rate; for a 'high'
-    plan three bf16 products each at the tensor cores' dense rate),
-    against each input read and the output written once."""
+    channel) pairs that add something, as three products of split operands
+    each at the tensor cores' dense rate (bf16 for a 'high' plan, TF32 for
+    'highest'/'default'), against each input read and the output written
+    once (the rows' hi and lo parts, L taps each).  Also returns the
+    multiply-adds and the time they would take at the f32 FMA rate."""
     pairs = int((plan.mv_table[:, : plan.n_tp] >= 0).sum())
     flops = 2.0 * pairs * plan.L * plan.n_corr_unit
-    if plan.precision_name == "high":
-        t_ops = 3.0 * flops / BF16_PEAK_FLOPS
-        # the rows' hi and lo parts, L bf16 taps each
-        filt_bytes = 2.0 * 2 * plan.n_ch * plan.n_tp * plan.L
-    else:
-        t_ops = flops / F32_PEAK_FLOPS
-        filt_bytes = 4.0 * plan.filt.numel()
+    high = plan.precision_name == "high"
+    t_ops = 3.0 * flops / (BF16_PEAK_FLOPS if high else TF32_PEAK_FLOPS)
+    filt_bytes = (2.0 if high else 4.0) * 2 * plan.n_ch * plan.n_tp * plan.L
     nbytes = filt_bytes + 4.0 * (data_pad.numel() + plan.mv_table.numel()
                                  + plan.tile_lo.numel()
                                  + plan.n_tp * plan.n_corr_unit)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops / 2.0)
+            "operations" if t_ops >= t_bytes else "bytes", flops / 2.0,
+            1e3 * flops / F32_PEAK_FLOPS)
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +243,15 @@ if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
     raise AssertionError(f"kernel != plain version: max|diff| {err3:.3g}")
 if float(got[:, 40050:49400].abs().max()) != 0.0:
     raise AssertionError("the zero-filled gap does not give CC = 0")
+lags3 = rng.integers(0, n_win - L, size=64)
+lags3[:4] = (0, n_win - L, 39990, 50003)        # the edges, the gap's rim
+worst3 = 0.0
+for t3 in (0, 1, N_TP // 2, N_TP - 1):
+    exact = matched_filter_at(tpl[t3], mv[t3], wts[t3], win, lags3)
+    worst3 = max(worst3, float(np.abs(
+        exact - got[t3, lags3].cpu().numpy()).max()))
+if worst3 > ATOL:
+    raise AssertionError(f"kernel: max|CC - oracle| {worst3:.3g}")
 got2 = mf.matched_filter(tpl, mv, wts, win, step=2)
 if not torch.allclose(got2, ref[:, ::2][:, : (n_win - L) // 2 + 1],
                       rtol=RTOL, atol=ATOL):
@@ -258,8 +274,9 @@ plain_of(plan3, dp3)
 torch.cuda.synchronize()
 plain3 = 1e3 * (time.perf_counter() - t0)
 print(f"kernel vs plain (128 x 30 x L=200, 2^17 samples): max|diff| "
-      f"{err3:.3g} (rtol={RTOL}, atol={ATOL}); kernel {ms3:.3f} ms, "
-      f"plain {plain3:.1f} ms [{CARD}]", flush=True)
+      f"{err3:.3g} (rtol={RTOL}, atol={ATOL}), max|CC - oracle| "
+      f"{worst3:.3g} at {4 * len(lags3)} lags (atol={ATOL}); kernel "
+      f"{ms3:.3f} ms, plain {plain3:.1f} ms [{CARD}]", flush=True)
 
 
 # 4. the main path at full size
@@ -393,7 +410,7 @@ print(f"highest: {n_checked} detections within {worst:.3g} of the float64 "
 
 plan = next(iter(engine._plans.values()))[0]
 dp = engine._data_pad
-bound_ms, bound_by, macs = kernel_bound_ms(plan, dp)
+bound_ms, bound_by, macs, fma_ms = kernel_bound_ms(plan, dp)
 got = plan(dp)
 t0 = time.perf_counter()
 ref = plain_of(plan, dp)
@@ -402,11 +419,14 @@ plain_ms = 1e3 * (time.perf_counter() - t0)
 err = float((got - ref).abs().max())
 if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
     raise AssertionError(f"day-size kernel != plain: max|diff| {err:.3g}")
+ref5 = ref                  # held against the kernel again in phase 13
 del got, ref
 ms = cuda_ms(lambda: plan(dp), 5)
 print(f"mf kernel, one day: {ms:.2f} ms ({macs / ms / 1e6:.0f} GMAC/s), "
-      f"bound {bound_ms:.2f} ms ({bound_by}), plain {plain_ms:.0f} ms "
-      f"[{CARD}]", flush=True)
+      f"bound {bound_ms:.2f} ms ({bound_by}: 3 TF32 products at "
+      f"{TF32_PEAK_FLOPS / 1e12:.0f} TFLOP/s; the f32 FMA figure "
+      f"{fma_ms:.2f} ms), plain {plain_ms:.0f} ms; max|diff| from plain "
+      f"{err:.3g} [{CARD}]", flush=True)
 
 
 # 6. where a warm 'screen' day's time goes: the host clock around each step
@@ -1028,7 +1048,7 @@ workflow.matched_filter_day(tg, day1, cfg=cfg, mf=engine11,
                             minimum_interevent_time=5.0)
 plan13 = next(iter(engine11._plans.values()))[0]
 dp13 = engine11._data_pad
-bound13, bound_by13, _ = kernel_bound_ms(plan13, dp13)
+bound13, bound_by13, _, _ = kernel_bound_ms(plan13, dp13)
 got13 = plan13(dp13)
 t0 = time.perf_counter()
 ref13 = plain_of(plan13, dp13)
@@ -1041,11 +1061,16 @@ if not torch.allclose(got13, ref13, rtol=RTOL, atol=ATOL):
 del ref13
 f32_13 = plan(dp)
 diff13 = float((got13 - f32_13).abs().max())
-del got13, f32_13
+err13_f32 = float((f32_13 - ref5).abs().max())
+if not torch.allclose(f32_13, ref5, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"day-size f32-class kernel != plain: max|diff| "
+                         f"{err13_f32:.3g}")
+del got13, f32_13, ref5
 ms13 = cuda_ms(lambda: plan13(dp13), 5)
 ms13_f32 = cuda_ms(lambda: plan(dp), 5)
 print(f"mf split kernel, one day: {ms13:.2f} ms ({macs / ms13 / 1e6:.0f} "
-      f"GMAC/s; the f32 kernel on the same bank and day {ms13_f32:.2f} ms), "
+      f"GMAC/s; the f32-class kernel on the same bank and day "
+      f"{ms13_f32:.2f} ms), "
       f"bound {bound13:.2f} ms ({bound_by13}: 3 bf16 products at "
       f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s), plain {plain13:.0f} ms; "
       f"max|diff| from plain {err13:.3g}, from the f32 kernel {diff13:.3g} "
@@ -1058,7 +1083,7 @@ print(json.dumps({"kernels": [{
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
     "launches": launches,
-    "max_abs_err": max(err, err3),
+    "max_abs_err": max(err, err3, err13_f32),
     "ms": ms,
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,

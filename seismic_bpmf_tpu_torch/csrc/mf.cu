@@ -1,92 +1,195 @@
-// Fused normalized, network-summed matched filter (CUDA C++, sm_90a).
+// Fused normalized, network-summed matched filter at f32-class accuracy:
+// every product operand split in two TF32 parts, the products on the
+// tensor cores (CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel `seismic_bpmf_tpu/ops/pallas_mf.py::_mf_kernel`
-// (its `high` twin `_mf_kernel_split` is csrc/mf_split.cu).  Same
-// semantics as `ops.reference.matched_filter(network_sum=True)`:
+// (its `high` twin `_mf_kernel_split` is csrc/mf_split.cu).  It computes
 //
-//   out[t, b] = sum_c mask(t, c, b) * y_c(b + mv[c, t]) *
-//               sum_j f[c, t, j] * d_c(b + mv[c, t] + j)
+//   fh = tf32(f),  fl = tf32(f - fh)                (host, once per plan)
+//   dh = tf32(d),  dl = tf32(d - dh)                (here, per staged span)
+//   corr[t, c, b] = sum_j fh*dh + (fh*dl + fl*dh)   at d index b+mv[c,t]+j
+//   out[t, b] = sum_c mask(t, c, b) * y_c(b + mv[c, t]) * corr[t, c, b]
 //
-// with f the demeaned, weight-over-norm scaled template rows, d the padded
-// data, y_c(p) = rsqrt(r2 - r1^2 / L) from the L-sample window sums r1, r2
-// at padded position p (0 where the window variance is <= 1e-10, which is
-// how zero-filled gaps give CC = 0), and mask = p in [lo_p, hi_p], i.e.
-// the template's window lies inside the unpadded data.
+// with tf32 = cvt.rna.tf32.f32 (round to nearest, ties away from zero, the
+// low 13 bits cleared; `ops.mf.split_tf32` is the same on the host), f the
+// demeaned, weight-over-norm scaled template rows, d the padded data,
+// y_c(p) = rsqrt(r2 - r1^2 / L) from the L-sample window sums of the
+// UNSPLIT f32 data at padded position p (0 where the window variance is
+// <= 1e-10, so zero-filled gaps give CC = 0), mask = p in [lo_p, hi_p], i.e.
+// the template's window lies inside the unpadded data, and channels with
+// mv = -1 skipped: y, the mask and the skip are those of csrc/mf_split.cu.
+// A TF32 value has 11 significant bits, so each product of two parts is
+// exact in f32; the sums are f32.  The dropped parts (fl*dl and the
+// residuals of the lo parts) are ~2^-21 of a product: f32-class.
 //
-// What bounds it on an H100: operations.  One day of the main path is
-// 128 templates x 30 channels x 200 taps x 2.16 M lags = 1.66e12 FMAs,
-// against ~1.4 GB of data in and CC out, so the f32 FMA rate (67 TFLOP/s,
-// 33.5 T FMA/s at 700 W) sets the floor, ~50 ms, not memory (~0.4 ms).
+// What bounds it on an H100: operations on the tensor cores.  One day of
+// the main path (128 templates x 30 channels x 200 taps x 2.16 M lags) is
+// 3 x 3.32e12 TF32 operations against ~1.4 GB of data in and CC out:
+// ~20 ms at 495 TFLOP/s dense TF32, memory ~0.4 ms.  (The f32 FMA rate,
+// 67 TFLOP/s, would allow no less than ~50 ms.)
 //
-// Design.  One block computes a tile of MF_T = 512 lags x MF_TP = 32
-// templates.  Per channel it stages in shared memory the tile's template
-// rows (32 x L_pad f32), the data span the tile's moveouts reach
-// (MF_T + max_delta + L_pad samples, read once from global memory) and y
-// for every window start of that span (csrc/mf_window.cuh: local f32
-// L-sums, summed as MF_YG-sample partials).
-// Each warp owns 4 templates, each lane MF_R = 16 consecutive lags of one
-// template at a time: a rolling register window of 16 data samples turns
-// every shared-memory read of data into 16 FMAs, and the template taps are
-// warp-wide broadcasts read as float4.  The data span is stored skewed
-// (one pad word per 32) so the lanes' stride-16 reads hit distinct banks.
-// Template rows are zero-padded to a multiple of MF_R taps (L = 200 ->
-// 208: 4% of the FMAs are on zeros).  The register budget is set for two
-// blocks per SM (128 registers, no spills).  On an H100 SXM at 700 W
-// this choice ran a main-path day about 30% faster than MF_R = 8 with
-// direct window sums (tools/mf_tile_sweep.py; the times are in PERF.md).
-// Moveouts are pointer offsets into the span, so none of the zero taps of
-// the TPU's L + max_moveout filter fold are computed.  The network sum is
-// kept in registers and each output is written once, with 64-bit offsets.
+// Design.  A moveout is a pointer offset into a shared-memory data span,
+// so none of the zero taps of the TPU's L + max_moveout wide filters are
+// computed.  For one (template, channel) and 128 lags the correlation is a
+// small matrix product,
 //
-// Precision.  The rungs highest and default and the screen scan run this
-// kernel, in f32, which lies inside each of these rungs' error classes;
-// `screen` keeps its margin-widened candidate extraction and exact
-// float64 host refine, so its detection decisions do not change.  The
-// rung high runs csrc/mf_split.cu.
+//   out[o(i) + n] = sum_k A[i, k] * B[k, n],   i < 16, n < 8, k < K
+//   A[i, k] = d[base + o(i) + k]    (16 rows that overlap in the span)
+//   B[k, n] = f[k - n]              (the template row as a K x 8 band)
+//
+// with K = L + 7 rounded up to 8 (208 for L = 200: 96% useful), run as a
+// chain of K / 8 `mma.sync.m16n8k8` TF32 instructions with f32
+// accumulation, three per k-step into one accumulator, in the order dh*fh,
+// dl*fh, dh*fl.  The plain version `ops.mf.matched_filter_plain` sums each
+// product over all taps first and then adds hh + (lh + hl): the same
+// products (each exact in f32), equal up to f32 reassociation.
+//   What paces such a chain is shared memory, not the `mma`s: A is 128 new
+// elements per part and product, and loading it took longer than the
+// `mma`s themselves (PERF.md).  So a lane's rows are chosen to overlap.  A
+// block's MF_T = 128 MF_NSUB lags are MF_NSUB products ("sub-tiles") per
+// template; thread (g, q) of a warp holds rows g and g + 8 of each, and
+// sub-tile u's rows lie at o_u(g) = 16 MF_NSUB g + 16 u and o_u(g) + 8.  So
+// lane group g owns 16 MF_NSUB consecutive lags, and the A registers of all
+// its rows at k-step s are the window positions s .. s + 2 MF_NSUB - 1 of
+// one stream, position m being span elements e0 + 8 m and e0 + 8 m + 4 of
+// each part (k = q and q + 4).  The window lives in registers, position m
+// in slot m % (2 MF_NSUB + 1); a k-step runs every sub-tile from it and
+// then loads ONE new position (4 words) into the slot just freed, a step
+// before its first use: 4 A loads and 4 B loads per 3 MF_NSUB `mma`s, where
+// rows 128 lags apart would need 4 MF_NSUB + 4.  The loop is unrolled in
+// rounds of 2 MF_NSUB + 1 steps, with no test inside a round, so that every
+// slot is a fixed register and a round is one block of straight-line code.  A fragment register holds one 32-bit element,
+// so every address is aligned and each part of the span is stored once
+// (csrc/mf_split.cu's bf16 pairs need a second, shifted copy).
+//   The spans and y are stored skewed, 4 pad words after every 16 MF_NSUB
+// elements (MF_SK): a warp's A loads (elements 16 MF_NSUB g + q past a
+// common one) then hit 32 distinct banks for every alignment, its y loads
+// no bank more than twice (tests/test_torch_mf.py counts them).  The B
+// loads of a warp read 11 distinct words of one row: no conflict.
+//   Per channel a block stages the 32 template rows (hi and lo, with 8 zeros
+// in front: the host lays them out so, `ops.mf.stage_tf32_rows`, and a
+// (channel, tile) block is one 16-byte-wide copy), the f32 data span MF_T +
+// max_delta + K samples, y for every window start of the span
+// (csrc/mf_window.cuh, shared with csrc/mf_split.cu) and the span's two
+// TF32 parts.  Each warp owns 4 templates; for one template it loads a
+// k-step's B fragments once and runs the block's sub-tiles on them.  The
+// fragment of thread (g, q) holds lags o_u(g) + 2 q + {0, 1} and 8 more: y
+// and the mask are applied there and the network sum stays in registers
+// across channels; each output is written once, with 64-bit offsets.
+//   Two blocks share an SM (MF_MINB), so that one block's staging and
+// window sums overlap the other's products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mf_window.cuh"
 
-#ifndef MF_R
-#define MF_R 16         // consecutive lags per thread (a multiple of 4)
+#ifndef MF_NSUB
+#define MF_NSUB 4       // 128-lag sub-tiles per block: 1, 2, 4 or 8
 #endif
 #ifndef MF_MINB
 #define MF_MINB 2       // blocks per SM the register budget must allow
 #endif
-#ifndef MF_YG
-#define MF_YG 16        // samples per partial of the window sums (1: direct)
-#endif
-#define MF_T (32 * MF_R)
+#define MF_YG 16        // samples per partial of the window sums
+#define MF_T (128 * MF_NSUB)
 #define MF_TP 32
 #define MF_THREADS 256
 #define MF_TPW (MF_TP / (MF_THREADS / 32))  // templates per warp
-#define SK(i) ((i) + ((i) >> 5))
+#define MF_FRONT 8      // zeros in front of a staged template row
+// window slots per lane: a step reads 2 MF_NSUB positions, and one more
+// slot lets each load be issued a step before the step that first reads it
+#define MF_WS (2 * MF_NSUB + 1)
+#define MF_RUN (16 * MF_NSUB)               // lags of a lane group
 
-struct MfSkew {
-    __device__ static __forceinline__ int at(int i) { return SK(i); }
+#if MF_NSUB == 1
+#define MF_SKS 4
+#elif MF_NSUB == 2
+#define MF_SKS 5
+#elif MF_NSUB == 4
+#define MF_SKS 6
+#elif MF_NSUB == 8
+#define MF_SKS 7
+#else
+#error "MF_NSUB must be 1, 2, 4 or 8"
+#endif
+
+// element index of a span -> its skewed place (4 pad words per MF_RUN)
+#define MF_SK(e) ((e) + (((e) >> MF_SKS) << 2))
+
+// the f32 span is stored as it is; y and the TF32 parts skewed
+struct MfFlat {
+    __device__ static __forceinline__ int at(int i) { return i; }
 };
+struct MfSkew {
+    __device__ static __forceinline__ int at(int i) { return MF_SK(i); }
+};
+
+struct MfLayout {
+    int K, KP, n_y, span, n_sum, skw, yw;
+    long long rows_bytes, total;
+};
+
+__host__ __device__ inline MfLayout mf_layout(int L, int max_delta)
+{
+    MfLayout s;
+    s.K = ((L + 7 + 7) / 8) * 8;
+    s.KP = s.K + MF_FRONT;
+    s.n_y = MF_T + max_delta;
+    s.span = s.n_y + s.K + 8;             // + 8: the loads issued ahead
+    s.n_sum = s.n_y + L;
+    s.skw = MF_SK(s.span) + 4;            // words of one skewed span
+    s.yw = MF_SK(s.n_y) + 4;              // words of the skewed y
+    // the hi and lo rows: 2 x MF_TP x KP f32
+    s.rows_bytes = 4LL * 2 * MF_TP * s.KP;
+    s.total = s.rows_bytes
+              + 4LL * (MF_TP + s.yw + s.span + 2 * s.n_sum + 2 * s.skw);
+    return s;
+}
+
+__device__ __forceinline__ float tf32_rna(float x)
+{
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
 __global__ void __launch_bounds__(MF_THREADS, MF_MINB)
 mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
           long long ext,
-          const float* __restrict__ filt,     // (n_ch, n_tp_pad, L_pad)
+          // (n_ch, n_tiles, hi/lo, MF_TP, KP) staged TF32 rows
+          const float* __restrict__ rows,
           const int* __restrict__ mvf,        // (n_ch, n_tp_pad); -1 = skip
           const int* __restrict__ tile_lo,    // (n_ch, n_tiles); -1 = skip
           float* __restrict__ out,            // (n_tp, n_corr)
-          int n_ch, int n_tp, int n_tp_pad, int L, int L_pad,
+          int n_ch, int n_tp, int n_tp_pad, int L,
           long long n_corr, long long lo_p, long long hi_p, int max_delta)
 {
-    extern __shared__ float smem[];
-    float* f_s = smem;                               // MF_TP * L_pad
-    int* mv_s = reinterpret_cast<int*>(f_s + MF_TP * L_pad);
-    float* y_s = reinterpret_cast<float*>(mv_s + MF_TP);
-    const int n_y = MF_T + max_delta;
-    float* d_s = y_s + n_y;
-    const int span = n_y + L_pad;
-    float* s1_s = d_s + SK(span) + 1;                // n_y + L_pad each
-    float* s2_s = s1_s + n_y + L_pad;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const MfLayout s = mf_layout(L, max_delta);
+    const int KP = s.KP, n_y = s.n_y, span = s.span;
+    const uint32_t* fh_s = reinterpret_cast<const uint32_t*>(smem_raw);
+    const uint32_t* fl_s = fh_s + MF_TP * KP;
+    int* mv_s = reinterpret_cast<int*>(smem_raw + s.rows_bytes);
+    float* y_s = reinterpret_cast<float*>(mv_s + MF_TP);  // yw, skewed
+    float* d_s = y_s + s.yw;                         // span
+    float* s1_s = d_s + span;                        // n_sum each
+    float* s2_s = s1_s + s.n_sum;
+    float* dh_s = s2_s + s.n_sum;                    // skw each, skewed
+    float* dl_s = dh_s + s.skw;
+    const uint32_t* ah = reinterpret_cast<const uint32_t*>(dh_s);
+    const uint32_t* al = reinterpret_cast<const uint32_t*>(dl_s);
+    const int n_ks = s.K / 8;
 
     const long long b0 = (long long)blockIdx.x * MF_T;
     const int tile = blockIdx.y;
@@ -95,73 +198,125 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
+    const int g = lane >> 2, q = lane & 3;
+    // first lag of this thread's C fragments: sub-tile u adds 16 u, the
+    // fragment's second row 8 more
+    const int row_lag = MF_RUN * g + 2 * q;
 
-    float tot[MF_TPW][MF_R];
+    float tot[MF_TPW][MF_NSUB][4];
 #pragma unroll
     for (int ti = 0; ti < MF_TPW; ++ti)
 #pragma unroll
-        for (int r = 0; r < MF_R; ++r) tot[ti][r] = 0.0f;
+        for (int u = 0; u < MF_NSUB; ++u)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) tot[ti][u][r] = 0.0f;
 
     for (int c = 0; c < n_ch; ++c) {
         const int lo = tile_lo[(long long)c * n_tiles + tile];
         if (lo < 0) continue;  // no template of this tile uses channel c
         __syncthreads();       // the previous channel is done with smem
 
-        const float* fsrc = filt + ((long long)c * n_tp_pad + t0) * L_pad;
-        for (int i = tid; i < MF_TP * L_pad; i += MF_THREADS)
-            f_s[i] = fsrc[i];
+        // template rows, hi then lo, as the host laid them out
+        const int n16 = (int)(s.rows_bytes / 16);
+        const uint4* rsrc = reinterpret_cast<const uint4*>(rows)
+                            + ((long long)c * n_tiles + tile) * n16;
+        uint4* rdst = reinterpret_cast<uint4*>(smem_raw);
+        for (int i = tid; i < n16; i += MF_THREADS) rdst[i] = rsrc[i];
         if (tid < MF_TP) mv_s[tid] = mvf[(long long)c * n_tp_pad + t0 + tid];
+
+        // the data span: f32 for y, and its TF32 split, skewed
         const float* drow = data + (long long)c * ext;
         const long long g0 = b0 + lo;
         for (int i = tid; i < span; i += MF_THREADS) {
-            const long long g = g0 + i;
-            d_s[SK(i)] = (g < ext) ? drow[g] : 0.0f;
+            const long long gi = g0 + i;
+            const float v = (gi < ext) ? drow[gi] : 0.0f;
+            d_s[i] = v;
+            const float h = tf32_rna(v);
+            dh_s[MF_SK(i)] = h;
+            dl_s[MF_SK(i)] = tf32_rna(v - h);
         }
         __syncthreads();
 
-        mf_window_y<MF_YG, MfSkew>(d_s, s1_s, s2_s, y_s, n_y, L, tid,
-                                   MF_THREADS);
+        mf_window_y<MF_YG, MfFlat, MfSkew>(d_s, s1_s, s2_s, y_s, n_y, L,
+                                           tid, MF_THREADS);
 
 #pragma unroll
         for (int ti = 0; ti < MF_TPW; ++ti) {
             const int t = warp + (MF_THREADS / 32) * ti;
             const int mv = mv_s[t];
             if (mv < 0) continue;  // warp-uniform: zero weight or zero norm
-            const int base = lane * MF_R + (mv - lo);
-            float acc[MF_R], win[MF_R];
+            const int base = mv - lo;
+            // window position m of this thread: span elements e0 + 8 m and
+            // e0 + 8 m + 4 (k = q and q + 4) of each part
+            const int e0 = base + MF_RUN * g + q;
+            // B[k, n = g] = row[k - g + 8]
+            const uint32_t* bh = fh_s + t * KP + MF_FRONT + q - g;
+            const uint32_t* bl = fl_s + t * KP + MF_FRONT + q - g;
+
+            float acc[MF_NSUB][4];
+            uint32_t wh[MF_WS][2], wl[MF_WS][2];
 #pragma unroll
-            for (int r = 0; r < MF_R; ++r) {
-                acc[r] = 0.0f;
-                win[r] = d_s[SK(base + r)];
+            for (int u = 0; u < MF_NSUB; ++u)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) acc[u][r] = 0.0f;
+#pragma unroll
+            for (int m = 0; m < MF_WS; ++m) {
+                const int i0 = MF_SK(e0 + 8 * m), i4 = MF_SK(e0 + 8 * m + 4);
+                wh[m][0] = ah[i0];
+                wh[m][1] = ah[i4];
+                wl[m][0] = al[i0];
+                wl[m][1] = al[i4];
             }
-            const float* fr = f_s + t * L_pad;
-            for (int j0 = 0; j0 < L_pad; j0 += MF_R) {
-                float fv[MF_R];
+            // k-step s: sub-tile u's rows are window positions s + 2 u and
+            // s + 2 u + 1, position m kept in slot m % MF_WS; after the step,
+            // slot s % MF_WS takes position s + MF_WS, first read two steps
+            // later.  The rounds are unrolled so that every slot is a fixed
+            // register.
+#define MF_STEP(i, ks)                                                      \
+            {                                                               \
+                const uint32_t bh0 = bh[8 * (ks)], bh1 = bh[8 * (ks) + 4];  \
+                const uint32_t bl0 = bl[8 * (ks)], bl1 = bl[8 * (ks) + 4];  \
+                _Pragma("unroll")                                           \
+                for (int u = 0; u < MF_NSUB; ++u) {                        \
+                    const int p = ((i) + 2 * u) % MF_WS;                   \
+                    const int n = ((i) + 2 * u + 1) % MF_WS;               \
+                    mma_tf32(acc[u], wh[p][0], wh[n][0], wh[p][1],         \
+                             wh[n][1], bh0, bh1);       /* dh * fh */      \
+                    mma_tf32(acc[u], wl[p][0], wl[n][0], wl[p][1],         \
+                             wl[n][1], bh0, bh1);       /* dl * fh */      \
+                    mma_tf32(acc[u], wh[p][0], wh[n][0], wh[p][1],         \
+                             wh[n][1], bl0, bl1);       /* dh * fl */      \
+                }                                                           \
+                const int e = e0 + 8 * ((ks) + MF_WS);                     \
+                const int i0 = MF_SK(e), i4 = MF_SK(e + 4);                \
+                wh[i][0] = ah[i0];                                          \
+                wh[i][1] = ah[i4];                                          \
+                wl[i][0] = al[i0];                                          \
+                wl[i][1] = al[i4];                                          \
+            }
+            // whole rounds of MF_WS steps, then the rest one by one
+            int s0 = 0;
+            for (; s0 + MF_WS <= n_ks; s0 += MF_WS) {
 #pragma unroll
-                for (int u = 0; u < MF_R / 4; ++u) {
-                    const float4 f4 =
-                        *reinterpret_cast<const float4*>(fr + j0 + 4 * u);
-                    fv[4 * u] = f4.x;
-                    fv[4 * u + 1] = f4.y;
-                    fv[4 * u + 2] = f4.z;
-                    fv[4 * u + 3] = f4.w;
+                for (int i = 0; i < MF_WS; ++i) MF_STEP(i, s0 + i)
+            }
+#pragma unroll
+            for (int i = 0; i < MF_WS - 1; ++i)
+                if (s0 + i < n_ks) MF_STEP(i, s0 + i)  // warp-uniform
+#undef MF_STEP
+            // lags of this block whose window lies inside the data
+            const long long rel = b0 + mv;
+            const int lag_lo = (int)max(lo_p - rel, -1LL);
+            const int lag_hi = (int)min(hi_p - rel, (long long)MF_T);
+#pragma unroll
+            for (int u = 0; u < MF_NSUB; ++u)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int lag = row_lag + 16 * u + 8 * (r >> 1) + (r & 1);
+                    const float v = acc[u][r] * y_s[MF_SK(base + lag)];
+                    tot[ti][u][r] += (lag >= lag_lo && lag <= lag_hi) ? v
+                                                                      : 0.0f;
                 }
-#pragma unroll
-                for (int jj = 0; jj < MF_R; ++jj) {
-#pragma unroll
-                    for (int r = 0; r < MF_R; ++r)
-                        acc[r] = fmaf(fv[jj], win[(r + jj) % MF_R], acc[r]);
-                    // the oldest sample leaves, the next one enters
-                    win[jj] = d_s[SK(base + j0 + jj + MF_R)];
-                }
-            }
-            const long long p0 = b0 + lane * MF_R + mv;
-#pragma unroll
-            for (int r = 0; r < MF_R; ++r) {
-                const long long p = p0 + r;
-                const float v = acc[r] * y_s[base + r];
-                tot[ti][r] += (p >= lo_p && p <= hi_p) ? v : 0.0f;
-            }
         }
     }
 
@@ -170,22 +325,22 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
         const int t = t0 + warp + (MF_THREADS / 32) * ti;
         if (t >= n_tp) continue;
 #pragma unroll
-        for (int r = 0; r < MF_R; ++r) {
-            const long long b = b0 + lane * MF_R + r;
-            if (b < n_corr) out[(long long)t * n_corr + b] = tot[ti][r];
-        }
+        for (int u = 0; u < MF_NSUB; ++u)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const long long b = b0 + row_lag + 16 * u + 8 * (r >> 1)
+                                    + (r & 1);
+                if (b < n_corr) out[(long long)t * n_corr + b] = tot[ti][u][r];
+            }
     }
 }
 
 extern "C" {
 
 // Dynamic shared memory (bytes) one block needs for these sizes.
-long long mf_smem_bytes(int L_pad, int max_delta)
+long long mf_smem_bytes(int L, int max_delta)
 {
-    const long long n_y = MF_T + max_delta;
-    const long long span = n_y + L_pad;
-    return 4LL * (MF_TP * (long long)L_pad + MF_TP + n_y + SK(span) + 1
-                  + 2 * (n_y + L_pad));
+    return mf_layout(L, max_delta).total;
 }
 
 int mf_tile_templates(void) { return MF_TP; }
@@ -193,23 +348,23 @@ int mf_tile_templates(void) { return MF_TP; }
 int mf_tile_lags(void) { return MF_T; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-int mf_launch(const void* data, long long ext, const void* filt,
+int mf_launch(const void* data, long long ext, const void* rows,
               const void* mvf, const void* tile_lo, void* out,
-              int n_ch, int n_tp, int n_tp_pad, int L, int L_pad,
+              int n_ch, int n_tp, int n_tp_pad, int L,
               long long n_corr, long long lo_p, long long hi_p,
               int max_delta, void* stream)
 {
     if (n_corr <= 0 || n_tp <= 0) return 0;
-    const long long smem = mf_smem_bytes(L_pad, max_delta);
+    const long long smem = mf_smem_bytes(L, max_delta);
     cudaError_t e = cudaFuncSetAttribute(
         mf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((unsigned)((n_corr + MF_T - 1) / MF_T),
               (unsigned)(n_tp_pad / MF_TP));
     mf_kernel<<<grid, MF_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-        (const float*)data, ext, (const float*)filt, (const int*)mvf,
-        (const int*)tile_lo, (float*)out, n_ch, n_tp, n_tp_pad, L, L_pad,
-        n_corr, lo_p, hi_p, max_delta);
+        (const float*)data, ext, (const float*)rows, (const int*)mvf,
+        (const int*)tile_lo, (float*)out, n_ch, n_tp, n_tp_pad, L, n_corr,
+        lo_p, hi_p, max_delta);
     return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,9 @@
 // scan), summed as YG-sample partials in s1_s, s2_s (n_y + L each) so that
 // each sample is read ~YG + L / YG times instead of L times (YG = 1:
 // direct).  Every thread of the block calls it, after the span is staged
-// and synchronized; y_s is synchronized on return.
-template <int YG, typename Skew>
+// and synchronized; y_s is synchronized on return, y(p) at
+// y_s[YSkew::at(p)].
+template <int YG, typename Skew, typename YSkew = Skew>
 __device__ __forceinline__ void mf_window_y(const float* d_s, float* s1_s,
                                             float* s2_s, float* y_s,
                                             int n_y, int L, int tid,
@@ -45,7 +46,7 @@ __device__ __forceinline__ void mf_window_y(const float* d_s, float* s1_s,
             r2 = fmaf(v, v, r2);
         }
         const float var = r2 - r1 * r1 * inv_l;
-        y_s[p] = (var > 1e-10f) ? rsqrtf(fabsf(var) + 1e-30f) : 0.0f;
+        y_s[YSkew::at(p)] = (var > 1e-10f) ? rsqrtf(fabsf(var) + 1e-30f) : 0.0f;
     }
     __syncthreads();
 }

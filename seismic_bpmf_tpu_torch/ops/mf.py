@@ -8,18 +8,24 @@ data window that starts at ``lag + moveout``; zero-variance windows
 
 The CUDA kernels read each template channel at its moveout as a pointer
 offset, so the plan keeps the demeaned, weight-over-norm scaled template
-rows as they are, plus a per-(channel, template) moveout table.  There are
-two kernels, one per arithmetic:
+rows as they are, plus a per-(channel, template) moveout table.  Both
+kernels split every product operand in two parts and run the three
+products fh*dh + (fh*dl + fl*dh) on the tensor cores with f32
+accumulation; the window normalization comes from the unsplit f32 data.
+There is one kernel per split:
 
-  `mf_cc` (`csrc/mf.cu`): f32 multiply-adds; the rungs 'highest' and
-  'default' (and the 'screen' scan, which runs 'default' on a bf16-rounded
-  day).  `matched_filter_plain` is the same function in plain PyTorch.
+  `mf_cc` (`csrc/mf.cu`): TF32 parts (`split_tf32`, 11 significant bits
+  each, f32-class accuracy); the rungs 'highest' and 'default' (and the
+  'screen' scan, which runs 'default' on a bf16-rounded day).
+  `matched_filter_plain` is the same function in plain PyTorch.
 
-  `mf_cc_split` (`csrc/mf_split.cu`): the rung 'high'.  Every product
-  operand is split in two bf16 parts (`split_bf16`) and the three products
-  fh*dh + fh*dl + fl*dh run on the tensor cores with f32 accumulation; the
-  window normalization comes from the unsplit f32 data.
-  `matched_filter_split_plain` is the same function in plain PyTorch.
+  `mf_cc_split` (`csrc/mf_split.cu`): bf16 parts (`split_bf16`); the rung
+  'high'.  `matched_filter_split_plain` is the same function in plain
+  PyTorch.
+
+The plan splits the template rows once and lays them out as the kernel
+stages them (`stage_tf32_rows`, `stage_split_rows`); each kernel splits
+the day span by span.
 
 A wrapper uses its plain version only for tensors on the CPU.
 
@@ -40,9 +46,10 @@ from .._device import resolve_device
 
 LAG_TILE = 512       # lags per kernel block (MF_T in csrc/mf.cu)
 TEMPLATE_TILE = 32   # templates per kernel block (MF_TP, MFS_TP)
+TF32_K_STEP = 8      # taps per k-step of csrc/mf.cu: K = round_up(L + 7, 8)
 SPLIT_LAG_TILE = 512  # lags per block of the split kernel (MFS_T)
-SPLIT_ROW_FRONT = 8  # zeros in front of a staged split row (MFS_FRONT)
-TAP_MULTIPLE = 16    # template rows are zero-padded to a multiple (MF_R)
+SPLIT_ROW_FRONT = 8  # zeros in front of a staged row (MF_FRONT, MFS_FRONT)
+TAP_MULTIPLE = 16    # the split kernel's L_pad is L rounded up to this
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 _BOUND: set = set()
@@ -52,12 +59,26 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _smem_bytes(L_pad: int, max_delta: int) -> int:
+def _tf32_row_width(L: int) -> int:
+    """KP of csrc/mf.cu: K = round_up(L + 7, 8) taps and 8 zeros in front."""
+    return _round_up(L + 7, TF32_K_STEP) + SPLIT_ROW_FRONT
+
+
+def _skewed_words(n: int) -> int:
+    """Words a span of n elements takes in csrc/mf.cu's skewed layout
+    (MF_SK(n) + 4: 4 pad words after every LAG_TILE / 8)."""
+    return n + 4 * (n // (LAG_TILE // 8)) + 4
+
+
+def _smem_bytes(L: int, max_delta: int) -> int:
     """Mirror of `mf_smem_bytes` in csrc/mf.cu."""
+    KP = _tf32_row_width(L)
     n_y = LAG_TILE + max_delta
-    span = n_y + L_pad
-    return 4 * (TEMPLATE_TILE * L_pad + TEMPLATE_TILE + n_y
-                + span + (span >> 5) + 1 + 2 * (n_y + L_pad))
+    span = n_y + KP - SPLIT_ROW_FRONT + 8     # + 8: the loads issued ahead
+    n_sum = n_y + L
+    return (4 * 2 * TEMPLATE_TILE * KP
+            + 4 * (TEMPLATE_TILE + _skewed_words(n_y) + span + 2 * n_sum
+                   + 2 * _skewed_words(span)))
 
 
 def _split_smem_bytes(L: int, L_pad: int, max_delta: int) -> int:
@@ -107,7 +128,7 @@ def _lib():
     if "mf" not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mf_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32, i32,
-                                  i32, i32, i64, i64, i64, i32, vp]
+                                  i32, i64, i64, i64, i32, vp]
         lib.mf_launch.restype = i32
         lib.mf_smem_bytes.argtypes = [i32, i32]
         lib.mf_smem_bytes.restype = i64
@@ -117,8 +138,8 @@ def _lib():
             fn.argtypes, fn.restype = [], i32
         if (lib.mf_tile_lags() != LAG_TILE
                 or lib.mf_tile_templates() != TEMPLATE_TILE
-                or lib.mf_smem_bytes(TAP_MULTIPLE, 0)
-                != _smem_bytes(TAP_MULTIPLE, 0)):
+                or lib.mf_smem_bytes(200, 450) != _smem_bytes(200, 450)
+                or lib.mf_smem_bytes(37, 3) != _smem_bytes(37, 3)):
             raise RuntimeError("csrc/mf.cu and ops/mf.py disagree on the "
                                "kernel's tile sizes")
         _BOUND.add("mf")
@@ -154,14 +175,107 @@ def _check_plan_tensors(data_pad, named) -> None:
             raise ValueError(f"{name} must be contiguous {dtype}")
 
 
-def _plain_scan(data_pad, mv_table, channel_corr, *, n_tp: int, L: int,
-                n_corr: int, lo_p: int, hi_p: int,
-                lag_block: int) -> torch.Tensor:
-    """The scan both plain versions share.  ``channel_corr(c, act)``
-    returns, for channel c and its active templates, a function from
-    clamped window positions (n_act, nb) to the raw correlations there;
-    this loop normalizes by y, masks and sums over channels.  Chunked over
-    `lag_block` lags: one unfolded day would not fit in memory."""
+def split_tf32(x: torch.Tensor) -> tuple:
+    """f32 tensor -> (hi, lo) f32 tensors of TF32 values: hi is x rounded to
+    TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero:
+    add 0x1000 to the bits, clear the low 13), lo the same rounding of the
+    f32 residual x - hi (exact), so |x - hi - lo| <= 2^-22 |x|.  Bit for
+    bit the kernel's split, on finite inputs."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def split_bf16(x: torch.Tensor) -> tuple:
+    """f32 tensor -> (hi, lo) bf16 pair: hi is the round-to-nearest-even
+    bf16 of x, lo the bf16 of the f32 residual x - hi, so
+    |x - hi - lo| <= 2^-17 |x|.  Finite inputs only."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo
+
+
+def _stage_rows(filt_hi, filt_lo, L: int, dtype, row_width: int,
+                shifted: bool) -> torch.Tensor:
+    """Rows of the parts as a kernel stages them: (n_ch, n_tiles, 2,
+    TEMPLATE_TILE[, 2], row_width), axis 2 (hi, lo), each row behind
+    SPLIT_ROW_FRONT zeros; with `shifted`, axis 4 holds it as it is and
+    shifted left by one element."""
+    n_ch, n_tp_pad = filt_hi.shape[:2]
+    n_tiles = n_tp_pad // TEMPLATE_TILE
+    copies = (2,) if shifted else ()
+    rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, *copies, row_width),
+                       dtype=dtype, device=filt_hi.device)
+    a = SPLIT_ROW_FRONT
+    for part, f in enumerate((filt_hi, filt_lo)):
+        f4 = f[..., :L].reshape(n_ch, n_tiles, TEMPLATE_TILE, L)
+        if shifted:
+            rows[:, :, part, :, 0, a : a + L] = f4
+            rows[:, :, part, :, 1, a - 1 : a - 1 + L] = f4
+        else:
+            rows[:, :, part, :, a : a + L] = f4
+    return rows
+
+
+def stage_tf32_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
+                    L: int) -> torch.Tensor:
+    """The f32-class kernel's template rows as it stages them in shared
+    memory: (n_ch, n_tiles, 2, TEMPLATE_TILE, KP) f32 with KP =
+    round_up(L + 7, 8) + 8.  Axis 2 is (hi, lo), the TF32 parts; each row
+    is 8 zeros, the L taps, zeros.  One (channel, tile) block is one
+    contiguous copy into the kernel's shared memory."""
+    return _stage_rows(filt_hi, filt_lo, L, torch.float32,
+                       _tf32_row_width(L), shifted=False)
+
+
+def _rows_parts(rows: torch.Tensor, L: int) -> tuple:
+    """(hi, lo), each (n_ch, n_tp_pad, L), of (n_ch, n_tiles, 2,
+    TEMPLATE_TILE, row width) staged rows."""
+    n_ch, n_tiles = rows.shape[:2]
+    a = SPLIT_ROW_FRONT
+    return tuple(rows[:, :, part, :, a : a + L].reshape(
+        n_ch, n_tiles * TEMPLATE_TILE, L) for part in (0, 1))
+
+
+def tf32_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
+    """(filt_hi, filt_lo), each (n_ch, n_tp_pad, L) f32, read back out of
+    staged TF32 rows."""
+    return _rows_parts(filt_rows, L)
+
+
+def stage_split_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
+                     L: int) -> torch.Tensor:
+    """The split kernel's template rows as it stages them in shared
+    memory: (n_ch, n_tiles, 2, TEMPLATE_TILE, 2, KP) bf16 with KP =
+    round_up(L + 7, 16) + 8.  Axis 2 is (hi, lo); axis 4 is the row as it is
+    (8 zeros, the taps, zeros) and the same row shifted left by one
+    element, so that a pair of taps starting at an odd index is an aligned
+    32-bit word of the second copy.  One (channel, tile) block is one
+    contiguous copy into the kernel's shared memory."""
+    return _stage_rows(filt_hi, filt_lo, L, torch.bfloat16,
+                       _round_up(L + 7, 16) + SPLIT_ROW_FRONT, shifted=True)
+
+
+def split_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
+    """(filt_hi, filt_lo), each (n_ch, n_tp_pad, L) bf16, read back out of
+    staged rows."""
+    return _rows_parts(filt_rows[:, :, :, :, 0], L)
+
+
+def _parts_plain(split, data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
+                 L: int, n_corr: int, lo_p: int, hi_p: int,
+                 lag_block: int) -> torch.Tensor:
+    """The scan of both plain versions: the day split as the kernel splits
+    it (`split`), the three products fh*dh + (fh*dl + fl*dh) as f32 matrix
+    products of the parts (each product exact in f32; needs
+    ``torch.backends.cuda.matmul.allow_tf32`` False, the default), the
+    normalization y from the unsplit f32 day, the mask, and the sum over
+    channels.  Chunked over `lag_block` lags: one unfolded day would not
+    fit in memory."""
     n_ch, ext = data_pad.shape
     dev = data_pad.device
     out = torch.zeros((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
@@ -175,68 +289,82 @@ def _plain_scan(data_pad, mv_table, channel_corr, *, n_tp: int, L: int,
         if act.numel() == 0:
             continue
         y = _window_rsqrt_var(data_pad[c], L, lag_block)
-        corr_at = channel_corr(c, act)
+        d_hi, d_lo = split(data_pad[c])
+        w_hi = d_hi.to(torch.float32).unfold(0, L, 1)
+        w_lo = d_lo.to(torch.float32).unfold(0, L, 1)
+        f_hi = filt_hi[c, act, :L, None].to(torch.float32)
+        f_lo = filt_lo[c, act, :L, None].to(torch.float32)
         mva = mv[act]
         for b0 in range(0, n_corr, lag_block):
             b = torch.arange(b0, min(b0 + lag_block, n_corr), device=dev)
             p = b[None, :] + mva[:, None]       # (n_act, nb) positions
             ok = (p >= lo_p) & (p <= hi_p)
             pc = p.clamp(0, n_pos - 1)
-            corr = corr_at(pc)
+            wh, wl = w_hi[pc], w_lo[pc]
+            corr = (torch.matmul(wh, f_hi)
+                    + (torch.matmul(wl, f_hi) + torch.matmul(wh, f_lo))
+                    )[..., 0]
             val = torch.where(ok, corr * y[pc], torch.zeros_like(corr))
             out[act, b0 : b0 + b.numel()] += val
     return out
 
 
-def matched_filter_plain(data_pad, filt, mv_table, *, n_tp: int, L: int,
-                         n_corr: int, lo_p: int, hi_p: int,
+def matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
+                         L: int, n_corr: int, lo_p: int, hi_p: int,
                          lag_block: int = 4096) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on the tensors' device.
+    """Plain PyTorch version of the f32-class kernel, on the tensors'
+    device.
 
-    data_pad (n_ch, ext) f32; filt (n_ch, n_tp_pad, L_pad) f32 scaled
-    template rows; mv_table (n_ch, n_tp_pad) int32 padded moveouts, -1 for
-    a channel that adds nothing.  Its matrix products run in f32 (needs
-    ``torch.backends.cuda.matmul.allow_tf32`` False, the default)."""
+    data_pad (n_ch, ext) f32; filt_hi, filt_lo (n_ch, n_tp_pad, >= L) f32,
+    the two TF32 parts of the scaled template rows (`split_tf32`); mv_table
+    (n_ch, n_tp_pad) int32 padded moveouts, -1 for a channel that adds
+    nothing.  The day is split with `split_tf32`."""
     matched_filter_plain.calls += 1
-
-    def channel_corr(c, act):
-        windows = data_pad[c].unfold(0, L, 1)  # (n_pos, L) view
-        f = filt[c, act, :L, None]             # (n_act, L, 1)
-        return lambda pc: torch.matmul(windows[pc], f)[..., 0]
-
-    return _plain_scan(data_pad, mv_table, channel_corr, n_tp=n_tp, L=L,
-                       n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                       lag_block=lag_block)
+    return _parts_plain(split_tf32, data_pad, filt_hi, filt_lo, mv_table,
+                        n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                        lag_block=lag_block)
 
 
 matched_filter_plain.calls = 0
 
 
-def mf_cc(data_pad, filt, mv_table, tile_lo, *, n_tp: int, L: int,
+def _check_launch(lib, prefix: str, rc: int) -> None:
+    if rc != 0:
+        err = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{prefix} kernel launch failed: {err}")
+
+
+def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
           n_corr: int, lo_p: int, hi_p: int, max_delta: int,
           lag_block: int = 4096) -> torch.Tensor:
-    """(n_tp, n_corr) f32 network CC of a plan's tensors on padded data.
+    """(n_tp, n_corr) f32 network CC of a 'highest'/'default' plan's
+    tensors on padded data, every product split in TF32 parts.
+    `filt_rows` are the rows' two TF32 parts as `stage_tf32_rows` lays them
+    out.
 
     On CPU tensors this is `matched_filter_plain`; on CUDA tensors it
     launches the kernel of csrc/mf.cu or raises."""
     if data_pad.device.type == "cpu":
-        return matched_filter_plain(data_pad, filt, mv_table, n_tp=n_tp,
-                                    L=L, n_corr=n_corr, lo_p=lo_p,
+        filt_hi, filt_lo = tf32_rows_parts(filt_rows, L)
+        return matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table,
+                                    n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
                                     hi_p=hi_p, lag_block=lag_block)
     if data_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {data_pad.device}")
     n_ch, ext = data_pad.shape
-    n_tp_pad, L_pad = filt.shape[1], filt.shape[2]
     _check_plan_tensors(data_pad, (("data_pad", data_pad, torch.float32),
-                                   ("filt", filt, torch.float32),
+                                   ("filt_rows", filt_rows, torch.float32),
                                    ("mv_table", mv_table, torch.int32),
                                    ("tile_lo", tile_lo, torch.int32)))
-    if (filt.shape[0] != n_ch or tuple(mv_table.shape) != (n_ch, n_tp_pad)
-            or n_tp_pad % TEMPLATE_TILE or L_pad % TAP_MULTIPLE
-            or L_pad < L or n_tp > n_tp_pad
+    n_tp_pad = mv_table.shape[1]
+    if (tuple(filt_rows.shape) != (
+            n_ch, n_tp_pad // TEMPLATE_TILE, 2, TEMPLATE_TILE,
+            _tf32_row_width(L))
+            or mv_table.shape[0] != n_ch or n_tp_pad % TEMPLATE_TILE
+            or n_tp > n_tp_pad
             or tuple(tile_lo.shape) != (n_ch, n_tp_pad // TEMPLATE_TILE)):
         raise ValueError("inconsistent matched-filter plan shapes")
-    if _smem_bytes(L_pad, max_delta) > SMEM_LIMIT:
+    if _smem_bytes(L, max_delta) > SMEM_LIMIT:
         raise ValueError("moveout span too wide for one kernel tile")
     out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
                       device=data_pad.device)
@@ -246,60 +374,17 @@ def mf_cc(data_pad, filt, mv_table, tile_lo, *, n_tp: int, L: int,
     with torch.cuda.device(data_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mf_launch(
-            data_pad.data_ptr(), ext, filt.data_ptr(), mv_table.data_ptr(),
-            tile_lo.data_ptr(), out.data_ptr(), n_ch, n_tp, n_tp_pad, L,
-            L_pad, int(n_corr), int(lo_p), int(hi_p), int(max_delta),
-            stream,
+            data_pad.data_ptr(), ext, filt_rows.data_ptr(),
+            mv_table.data_ptr(), tile_lo.data_ptr(), out.data_ptr(), n_ch,
+            n_tp, n_tp_pad, L, int(n_corr), int(lo_p), int(hi_p),
+            int(max_delta), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"mf kernel launch failed: {lib.mf_error_string(rc).decode()}"
-        )
+    _check_launch(lib, "mf", rc)
     mf_cc.launches += 1
     return out
 
 
 mf_cc.launches = 0
-
-
-def split_bf16(x: torch.Tensor) -> tuple:
-    """f32 tensor -> (hi, lo) bf16 pair: hi is the round-to-nearest-even
-    bf16 of x, lo the bf16 of the f32 residual x - hi, so
-    |x - hi - lo| <= 2^-17 |x|.  Finite inputs only."""
-    hi = x.to(torch.bfloat16)
-    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
-    return hi, lo
-
-
-def stage_split_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
-                     L: int) -> torch.Tensor:
-    """The split kernel's template rows as it stages them in shared
-    memory: (n_ch, n_tiles, 2, TEMPLATE_TILE, 2, KP) bf16 with KP =
-    round_up(L + 7, 16) + 8.  Axis 2 is (hi, lo); axis 4 is the row as it is
-    (8 zeros, the taps, zeros) and the same row shifted left by one
-    element, so that a pair of taps starting at an odd index is an aligned
-    32-bit word of the second copy.  One (channel, tile) block is one
-    contiguous copy into the kernel's shared memory."""
-    n_ch, n_tp_pad, L_pad = filt_hi.shape
-    KP = _round_up(L + 7, 16) + SPLIT_ROW_FRONT
-    n_tiles = n_tp_pad // TEMPLATE_TILE
-    rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, 2, KP),
-                       dtype=torch.bfloat16, device=filt_hi.device)
-    for part, f in enumerate((filt_hi, filt_lo)):
-        f4 = f.reshape(n_ch, n_tiles, TEMPLATE_TILE, L_pad)
-        a = SPLIT_ROW_FRONT
-        rows[:, :, part, :, 0, a : a + L_pad] = f4
-        rows[:, :, part, :, 1, a - 1 : a - 1 + L_pad] = f4
-    return rows
-
-
-def split_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
-    """(filt_hi, filt_lo), each (n_ch, n_tp_pad, L) bf16, read back out of
-    staged rows (views, nothing is copied)."""
-    n_ch, n_tiles = filt_rows.shape[:2]
-    a = SPLIT_ROW_FRONT
-    return tuple(filt_rows[:, :, part, :, 0, a : a + L].reshape(
-        n_ch, n_tiles * TEMPLATE_TILE, L) for part in (0, 1))
 
 
 def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
@@ -310,31 +395,11 @@ def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
 
     data_pad (n_ch, ext) f32; filt_hi, filt_lo (n_ch, n_tp_pad, >= L)
     bf16, the two parts of the scaled template rows; mv_table as for
-    `matched_filter_plain`.  The day is split as the kernel splits it
-    (`split_bf16`), the three products fh*dh + (fh*dl + fl*dh) are f32
-    matrix products of bf16-valued operands (each product is exact in f32;
-    needs ``torch.backends.cuda.matmul.allow_tf32`` False, the default),
-    and the normalization y comes from the unsplit f32 day."""
+    `matched_filter_plain`.  The day is split with `split_bf16`."""
     matched_filter_split_plain.calls += 1
-
-    def channel_corr(c, act):
-        d_hi, d_lo = split_bf16(data_pad[c])
-        w_hi = d_hi.to(torch.float32).unfold(0, L, 1)
-        w_lo = d_lo.to(torch.float32).unfold(0, L, 1)
-        f_hi = filt_hi[c, act, :L, None].to(torch.float32)
-        f_lo = filt_lo[c, act, :L, None].to(torch.float32)
-
-        def corr_at(pc):
-            wh, wl = w_hi[pc], w_lo[pc]
-            return (torch.matmul(wh, f_hi)
-                    + (torch.matmul(wl, f_hi) + torch.matmul(wh, f_lo))
-                    )[..., 0]
-
-        return corr_at
-
-    return _plain_scan(data_pad, mv_table, channel_corr, n_tp=n_tp, L=L,
-                       n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                       lag_block=lag_block)
+    return _parts_plain(split_bf16, data_pad, filt_hi, filt_lo, mv_table,
+                        n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                        lag_block=lag_block)
 
 
 matched_filter_split_plain.calls = 0
@@ -386,11 +451,7 @@ def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
             out.data_ptr(), n_ch, n_tp, n_tp_pad, L, L_pad, int(n_corr),
             int(lo_p), int(hi_p), int(max_delta), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "mf_split kernel launch failed: "
-            f"{lib.mf_split_error_string(rc).decode()}"
-        )
+    _check_launch(lib, "mf_split", rc)
     mf_cc_split.launches += 1
     return out
 
@@ -429,12 +490,13 @@ class MatchedFilterPlan:
     padded days.
 
     `precision` keeps the JAX package's rung names.  'highest' and
-    'default' run the f32 kernel (`mf_cc`).  'high' runs the split kernel
-    (`mf_cc_split`): the plan splits the rows in two bf16 parts once
-    (`split_bf16`) and keeps them laid out as the kernel stages them
-    (`filt_rows`, `stage_split_rows`; `split_rows_parts` reads the parts
-    back), and the kernel splits each day.  `lag_block` is the plain
-    versions' lag chunk."""
+    'default' run the f32-class kernel (`mf_cc`): the plan splits the rows
+    in two TF32 parts once (`split_tf32`) and keeps them laid out as the
+    kernel stages them (`filt_rows`, `stage_tf32_rows`; `tf32_rows_parts`
+    reads the parts back).  'high' runs the split kernel (`mf_cc_split`)
+    on bf16 parts (`split_bf16`, `stage_split_rows`, `split_rows_parts`).
+    Each kernel splits the day itself.  `lag_block` is the plain versions'
+    lag chunk."""
 
     def __init__(self, templates, moveouts, weights, n_samp: int,
                  lag_block: int = 4096, precision: str = "highest",
@@ -487,10 +549,9 @@ class MatchedFilterPlan:
         scale = np.where(x_norm > 0, w_flat / np.maximum(x_norm, 1e-30), 0.0)
         active = scale > 0
 
-        self.L_pad = L_pad = _round_up(L, TAP_MULTIPLE)
         self.n_tp_pad = n_tp_pad = _round_up(max(n_tp, 1), TEMPLATE_TILE)
-        filt = np.zeros((n_ch, n_tp_pad, L_pad), np.float32)
-        filt[:, :n_tp, :L] = np.transpose(
+        filt = np.zeros((n_ch, n_tp_pad, L), np.float32)
+        filt[:, :n_tp] = np.transpose(
             (tp_dm * scale[:, :, None]).astype(np.float32), (1, 0, 2)
         )
         mv_t = np.full((n_ch, n_tp_pad), -1, np.int32)
@@ -504,9 +565,10 @@ class MatchedFilterPlan:
         t_hi = np.where(used, tiles, -1).max(-1)
         any_used = used.any(-1)
         self.max_delta = int((t_hi - t_lo)[any_used].max(initial=0))
-        smem = (_split_smem_bytes(L, L_pad, self.max_delta)
+        smem = (_split_smem_bytes(L, _round_up(L, TAP_MULTIPLE),
+                                  self.max_delta)
                 if precision == "high"
-                else _smem_bytes(L_pad, self.max_delta))
+                else _smem_bytes(L, self.max_delta))
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"moveout span {self.max_delta} samples within a "
@@ -517,12 +579,11 @@ class MatchedFilterPlan:
 
         self.lo_p = self.pad_left
         self.hi_p = self.pad_left + self.n_samp - L
-        if precision == "high":
-            self.filt_rows = stage_split_rows(
-                *(t.to(self.device)
-                  for t in split_bf16(torch.from_numpy(filt))), L)
-        else:
-            self.filt = torch.from_numpy(filt).to(self.device)
+        split, stage = ((split_bf16, stage_split_rows)
+                        if precision == "high"
+                        else (split_tf32, stage_tf32_rows))
+        self.filt_rows = stage(*(t.to(self.device)
+                                 for t in split(torch.from_numpy(filt))), L)
         self.mv_table = torch.from_numpy(mv_t).to(self.device)
         self.tile_lo = torch.from_numpy(
             np.ascontiguousarray(tile_lo)).to(self.device)
@@ -555,10 +616,9 @@ class MatchedFilterPlan:
         kw = dict(n_tp=self.n_tp, L=self.L, n_corr=self.n_corr_unit,
                   lo_p=self.lo_p, hi_p=self.hi_p, max_delta=self.max_delta,
                   lag_block=self.lag_block)
-        if self.precision_name == "high":
-            return mf_cc_split(data_pad, self.filt_rows, self.mv_table,
-                               self.tile_lo, **kw)
-        return mf_cc(data_pad, self.filt, self.mv_table, self.tile_lo, **kw)
+        wrapper = mf_cc_split if self.precision_name == "high" else mf_cc
+        return wrapper(data_pad, self.filt_rows, self.mv_table, self.tile_lo,
+                       **kw)
 
 
 def matched_filter(templates, moveouts, weights, data, step: int = 1,

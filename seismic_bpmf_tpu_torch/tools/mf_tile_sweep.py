@@ -1,25 +1,37 @@
 """Times a fused MF kernel's compile-time tile choices on one day.
 
-    python -m seismic_bpmf_tpu_torch.tools.mf_tile_sweep [mf | mf_split]
+    python -m seismic_bpmf_tpu_torch.tools.mf_tile_sweep [mf | mf_split] \
+        [--variants A,B ...] [--reference-tree DIR]
 
-Builds the kernel's source once per variant of its compile-time sizes,
-runs each on the main path's shapes (128 templates x 30 channels x L = 200
-x 2,160,000 samples, moveouts in [-50, 400)) and prints ptxas's register
-and spill report, its time (CUDA events, 2 x 3 launches) and its largest
-difference from the first variant, with the card's name and power limit.
+Builds the kernel's source once per variant of its compile-time sizes (all
+nvcc processes at once), runs each on the main path's shapes (128
+templates x 30 channels x L = 200 x 2,160,000 samples, moveouts in
+[-50, 400)) and prints ptxas's register and spill report, its time (CUDA
+events, the best of 2 x 3 launches) and its largest difference from the
+first variant, with the card's name and power limit.
 
-  mf        csrc/mf.cu: (MF_R lags per thread, MF_MINB blocks per SM for
-            the register budget, MF_YG samples per partial of the window
-            sums), at precision 'highest';
+  mf        csrc/mf.cu: (MF_NSUB 128-lag sub-tiles per block: 1, 2, 4
+            or 8; MF_MINB blocks per SM for the register budget), at
+            precision 'highest';
   mf_split  csrc/mf_split.cu: (MFS_NSUB 128-lag sub-tiles per block,
             MFS_MINB), at precision 'high'.
+
+--reference-tree names a directory that holds another version of this
+package (say, the parent commit unpacked by `git archive`): the same day
+then runs there too, in a process of its own through that tree's
+`MatchedFilterPlan` at the same precision, and its time is printed with
+the largest difference between its CC and the first variant's, and
+whether the two agree within rtol 1e-4, atol 1e-5.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -30,23 +42,72 @@ from ..ops import mf
 KERNELS = {
     # name: (define names, precision, variants; the first is the source's
     # default)
-    "mf": (("MF_R", "MF_MINB", "MF_YG"), "highest",
-           [(16, 2, 16), (8, 1, 1), (16, 2, 1), (16, 2, 8), (16, 1, 16)]),
+    "mf": (("MF_NSUB", "MF_MINB"), "highest",
+           [(4, 2), (4, 1), (2, 2), (2, 3), (8, 1)]),
     "mf_split": (("MFS_NSUB", "MFS_MINB"), "high",
                  [(4, 2), (4, 1), (3, 2), (2, 2), (2, 3)]),
 }
+RTOL, ATOL = 1e-4, 1e-5
+
+# runs in the reference tree: the same day through that tree's plan
+_REFERENCE = """
+import sys, numpy as np, torch
+from seismic_bpmf_tpu_torch.ops import mf
+src, precision, out = sys.argv[1:4]
+z = np.load(src)
+plan = mf.MatchedFilterPlan(z["tp"], z["mv"], z["w"], z["d"].shape[-1],
+                            precision=precision)
+dp = plan.pad_data(z["d"])
+cc = plan(dp)
+torch.cuda.synchronize()
+e0 = torch.cuda.Event(enable_timing=True)
+e1 = torch.cuda.Event(enable_timing=True)
+times = []
+for _ in range(2):
+    e0.record()
+    for _ in range(3):
+        plan(dp)
+    e1.record()
+    torch.cuda.synchronize()
+    times.append(e0.elapsed_time(e1) / 3)
+torch.save({"cc": cc.cpu(), "times": times}, out)
+"""
 
 
 def _set_tiles(name: str, variant) -> None:
     """Point ops.mf's mirrors of the kernel's tile sizes at a variant."""
     if name == "mf":
-        mf.TAP_MULTIPLE, mf.LAG_TILE = variant[0], 32 * variant[0]
+        mf.LAG_TILE = 128 * variant[0]
     else:
         mf.SPLIT_LAG_TILE = 128 * variant[0]
 
 
-def main(name: str = "mf"):
+def _day_ms(plan, dp) -> tuple:
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        e0.record()
+        for _ in range(3):
+            plan(dp)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 3)
+    return min(times), times
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("kernel", nargs="?", default="mf", choices=list(KERNELS))
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="the compile-time sizes of each variant, A,B")
+    ap.add_argument("--reference-tree", default=None)
+    args = ap.parse_args()
+    name = args.kernel
     defines, precision, variants = KERNELS[name]
+    if args.variants is not None:
+        variants = [tuple(int(v) for v in s.split(","))
+                    for s in args.variants]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -79,22 +140,29 @@ def main(name: str = "mf"):
         if first is None:
             first = out
         err = float((out - first).abs().max())
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        times = []
-        for _ in range(2):
-            e0.record()
-            for _ in range(3):
-                plan(dp)
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1) / 3)
-        ms = min(times)
+        ms, times = _day_ms(plan, dp)
         print(f"{name} {lab}: {ms:.2f} ms/day "
               f"({macs / ms / 1e6:.0f} GMAC/s; runs {times}), max|diff| vs "
               f"first {err:.3g} [{card}]", flush=True)
         del out, dp, plan
+    if args.reference_tree is None:
+        return
+    first = first.cpu()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "day.npz")
+        np.savez(src, tp=tp, mv=mv, w=w, d=d)
+        out = os.path.join(tmp, "reference_day.pt")
+        subprocess.run([sys.executable, "-c", _REFERENCE, src, precision,
+                        out],
+                       cwd=os.path.abspath(args.reference_tree), check=True)
+        ref = torch.load(out)
+    err = float((first - ref["cc"]).abs().max())
+    agree = bool(torch.allclose(first, ref["cc"], rtol=RTOL, atol=ATOL))
+    print(f"reference tree {args.reference_tree}: {min(ref['times']):.2f} "
+          f"ms/day (runs {ref['times']}); {label[0]} max|diff| {err:.3g}, "
+          f"within rtol={RTOL}, atol={ATOL}: {agree} [{card}]", flush=True)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main()

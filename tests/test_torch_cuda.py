@@ -74,18 +74,34 @@ CASES = {
 }
 
 
+def _odd_moveouts_ragged(seed):
+    """Odd and even moveouts, L not a multiple of 16 (an odd number of
+    k-steps in csrc/mf.cu), a ragged last lag tile and a ragged template
+    tile."""
+    tp, mv, w, data = _bank(seed, n_tp=37, L=43, n_samp=2 * 512 + 301)
+    mv[0] = 2 * (mv[0] // 2)
+    mv[1] = 2 * (mv[1] // 2) + 1
+    return tp, mv, w, data
+
+
+SPLIT_CASES = dict(CASES, odd_moveouts_ragged_edges=_odd_moveouts_ragged,
+                   taps_fill_the_band=lambda s: _bank(s, L=41),
+                   long_template=lambda s: _bank(s, L=200, n_samp=5000))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
 def test_kernel_matches_plain_on_card(card, case):
-    tp, mv, w, data = CASES[case](16)
+    tp, mv, w, data = SPLIT_CASES[case](16)
     plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device=card)
     dp = plan.pad_data(data)
     launches, plain_calls = mf.mf_cc.launches, mf.matched_filter_plain.calls
     got = plan(dp)
     assert mf.mf_cc.launches == launches + 1
     assert mf.matched_filter_plain.calls == plain_calls
+    filt_hi, filt_lo = mf.tf32_rows_parts(plan.filt_rows, plan.L)
     want = mf.matched_filter_plain(
-        dp, plan.filt, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
+        dp, filt_hi, filt_lo, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
         n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
@@ -101,20 +117,6 @@ def test_kernel_step_matches_oracle(card):
     np.testing.assert_allclose(got.cpu().numpy(),
                                tref.matched_filter(tp, mv, w, data, step=3),
                                rtol=RTOL, atol=ATOL)
-
-
-def _odd_moveouts_ragged(seed):
-    """Odd and even moveouts, L not a multiple of 16, a ragged last lag
-    tile and a ragged template tile."""
-    tp, mv, w, data = _bank(seed, n_tp=37, L=43, n_samp=2 * 512 + 301)
-    mv[0] = 2 * (mv[0] // 2)
-    mv[1] = 2 * (mv[1] // 2) + 1
-    return tp, mv, w, data
-
-
-SPLIT_CASES = dict(CASES, odd_moveouts_ragged_edges=_odd_moveouts_ragged,
-                   taps_fill_the_band=lambda s: _bank(s, L=41),
-                   long_template=lambda s: _bank(s, L=200, n_samp=5000))
 
 
 @pytest.mark.cuda

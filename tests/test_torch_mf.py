@@ -39,6 +39,21 @@ def _bank(seed, n_tp=5, n_sta=3, n_comp=2, L=40, n_samp=1500,
     return tp, mv, w, data
 
 
+def _scaled_rows(tp, w, n_tp_pad, width):
+    """The plan's f32 rows, (n_ch, n_tp_pad, width): each template channel
+    demeaned and scaled by weight over norm, zero-padded."""
+    n_tp, n_sta, n_comp, L = tp.shape
+    flat = tp.reshape(n_tp, n_sta * n_comp, L)
+    dm = flat - flat.mean(-1, keepdims=True)
+    norm = np.sqrt((dm.astype(np.float64) ** 2).sum(-1)).astype(np.float32)
+    wf = w.reshape(n_tp, -1)
+    scale = np.where(norm > 0, wf / np.maximum(norm, 1e-30), 0.0)
+    rows = np.zeros((n_sta * n_comp, n_tp_pad, width), np.float32)
+    rows[:, :n_tp, :L] = np.transpose(
+        (dm * scale[:, :, None]).astype(np.float32), (1, 0, 2))
+    return rows
+
+
 def _negative_moveouts(seed):
     return _bank(seed)
 
@@ -103,8 +118,8 @@ def test_step(step):
 
 def test_template_chunks_and_rungs():
     """Plans cut the bank into chunks; 'highest' and 'default' run the
-    same f32 computation, 'high' the bf16-split one: a real split, so its
-    result differs, inside its gate."""
+    same f32-class computation (TF32 parts), 'high' the bf16-split one: a
+    coarser split, so its result differs, inside its gate."""
     tp, mv, w, data = _bank(10, n_tp=9)
     full = mf.matched_filter(tp, mv, w, data, device="cpu").numpy()
     for prec in ("highest", "default"):
@@ -201,11 +216,218 @@ def test_cuda_tensors_never_take_the_plain_version():
     meta = lambda t: t.to("meta")  # noqa: E731
     calls = mf.matched_filter_plain.calls
     with pytest.raises(ValueError, match="device"):
-        mf.mf_cc(meta(plan.pad_data(data)), meta(plan.filt),
+        mf.mf_cc(meta(plan.pad_data(data)), meta(plan.filt_rows),
                  meta(plan.mv_table), meta(plan.tile_lo), n_tp=plan.n_tp,
                  L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
                  hi_p=plan.hi_p, max_delta=plan.max_delta)
     assert mf.matched_filter_plain.calls == calls
+
+
+# --------------------------------------------------------------------------
+# the f32-class kernel (csrc/mf.cu): TF32 parts, its layouts and index maps
+def _tf32_rna_reference(x):
+    """Round to TF32 (10 stored mantissa bits), to nearest with ties away
+    from zero, computed in float64 from the value, not from its bits."""
+    x = np.asarray(x, np.float32).astype(np.float64)
+    _, e = np.frexp(x)                       # |x| = m 2^e, m in [0.5, 1)
+    ulp = np.ldexp(1.0, np.maximum(e - 1, -126) - 10)
+    r = np.floor(np.abs(x) / ulp + 0.5) * ulp
+    return np.copysign(r, x).astype(np.float32)
+
+
+def test_split_tf32_rounds_like_cvt_rna_bit_for_bit():
+    rng = np.random.default_rng(31)
+    x = (rng.normal(size=8192)
+         * 10.0 ** rng.integers(-30, 30, size=8192)).astype(np.float32)
+    bits = x.view(np.uint32)
+    bits[:1024] = (bits[:1024] & 0xFFFFE000) | 0x1000   # exact ties, both
+    bits[:512] |= 0x2000                                # parities of hi
+    bits[1024:1280] = rng.integers(1, 1 << 23, 256)     # subnormals
+    bits[1280:1408] |= 0x80000000                       # negatives
+    bits[1408:1536] = (rng.integers(0x7E800000, 0x7F000000, 128)
+                       .astype(np.uint32))              # exponents near max
+    x[-2:] = (0.0, -0.0)
+    hi, lo = mf.split_tf32(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.float32
+    h, lo_ = hi.numpy(), lo.numpy()
+    np.testing.assert_array_equal(h.view(np.uint32),
+                                  _tf32_rna_reference(x).view(np.uint32))
+    np.testing.assert_array_equal(
+        lo_.view(np.uint32),
+        _tf32_rna_reference(x - h).view(np.uint32))
+    assert np.all(h.view(np.uint32) & 0x1FFF == 0)
+    assert np.all(lo_.view(np.uint32) & 0x1FFF == 0)
+    # ties go away from zero
+    tie = np.float32(1.0 + 2.0**-11)
+    got = mf.split_tf32(torch.tensor([tie, -tie]))[0].numpy()
+    np.testing.assert_array_equal(got, [1.0 + 2.0**-10, -1.0 - 2.0**-10])
+    normal = np.abs(x) >= 2.0**-100
+    rest = x.astype(np.float64) - h - lo_.astype(np.float64)
+    assert np.all(np.abs(rest[normal])
+                  <= 2.0**-22 * np.abs(x[normal].astype(np.float64)))
+    assert np.any(lo_ != 0.0)
+
+
+def test_tf32_plain_is_a_real_split():
+    """The f32 rungs' plain version keeps the lo parts: dropping the day's
+    lo part costs ~2^-11 of a product, far outside the f32 gate the full
+    split meets."""
+    tp, mv, w, data = _bank(32)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu")
+    filt_hi, filt_lo = mf.tf32_rows_parts(plan.filt_rows, plan.L)
+    assert bool((filt_lo != 0).any())
+    dp = plan.pad_data(data)
+    kw = dict(n_tp=plan.n_tp, L=plan.L, n_corr=plan.n_corr_unit,
+              lo_p=plan.lo_p, hi_p=plan.hi_p)
+    full = mf.matched_filter_plain(dp, filt_hi, filt_lo, plan.mv_table,
+                                   **kw).numpy()
+    hi_only = mf.matched_filter_plain(mf.split_tf32(dp)[0], filt_hi,
+                                      filt_lo, plan.mv_table, **kw).numpy()
+    oracle = jref.matched_filter(tp, mv, w, data)
+    err = np.abs(full - oracle).max()
+    assert err < 1e-6
+    assert np.abs(hi_only - oracle).max() > 10 * err
+    np.testing.assert_array_equal(plan(dp).numpy(), full)
+
+
+def test_staged_tf32_rows_layout():
+    """The rows as the kernel stages them: hi and lo behind 8 zeros, each
+    (channel, tile) block contiguous."""
+    tp, mv, w, data = _bank(33, n_tp=40, L=37)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu")
+    rows = plan.filt_rows
+    KP = 48 + 8                       # round_up(37 + 7, 8) + 8
+    assert rows.shape == (plan.n_ch, 2, 2, mf.TEMPLATE_TILE, KP)
+    assert rows.dtype == torch.float32 and rows.is_contiguous()
+    parts = mf.split_tf32(torch.from_numpy(_scaled_rows(tp, w, 64, 37)))
+    assert bool((parts[1] != 0).any())
+    for part, f in enumerate(parts):
+        f4 = f.reshape(plan.n_ch, 2, mf.TEMPLATE_TILE, 37)
+        staged = rows[:, :, part]
+        assert torch.equal(staged[..., 8 : 8 + 37], f4)
+        assert bool((staged[..., :8] == 0).all())
+        assert bool((staged[..., 8 + 37 :] == 0).all())
+    hi, lo = mf.tf32_rows_parts(rows, plan.L)
+    assert torch.equal(hi, parts[0]) and torch.equal(lo, parts[1])
+    # L = 49: the plan's 64-wide f32 rows are wider than K = 56
+    tp, mv, w, data = _bank(34, L=49)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu")
+    assert plan.filt_rows.shape[-1] == 56 + 8
+    np.testing.assert_allclose(plan(plan.pad_data(data)).numpy(),
+                               jref.matched_filter(tp, mv, w, data),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_smem_mirror_and_limit():
+    """The Python mirror of the kernel's shared-memory size at the main
+    path's shape, two blocks of it on one SM, and the plan's refusal of a
+    span that cannot fit."""
+    # 2 x 32 rows x 216 f32 + f32 (32 + skewed y of 962 + 1178 + 2 x 1162)
+    # + two skewed spans of 1178 elements, for L = 200, max_delta = 450:
+    # a skewed span of n takes n + 4 (n // 64) + 4 words
+    assert mf._smem_bytes(200, 450) == (
+        4 * 2 * 32 * 216 + 4 * (32 + 1026 + 1178 + 2 * 1162 + 2 * 1254))
+    assert 2 * (mf._smem_bytes(200, 450) + 1024) <= 228 * 1024
+    tp, mv, w, data = _bank(35, mv_range=(-30, 60))
+    mv[1, 0, 0] = 200000
+    with pytest.raises(ValueError, match="shared memory"):
+        mf.MatchedFilterPlan(tp, mv, w, 300000, device="cpu")
+
+
+NSUB = mf.LAG_TILE // 128         # MF_NSUB of csrc/mf.cu
+RUN = 16 * NSUB                   # lags of a lane group (MF_RUN)
+
+
+def _sk(e, run=RUN):
+    """MF_SK of csrc/mf.cu: 4 pad words after every `run` elements."""
+    return e + 4 * (e // run)
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane >> 2, lane & 3            # (g, q) of each lane
+
+
+@pytest.mark.parametrize("nsub", [1, 2, 4, 8])
+def test_kernel_loads_hit_32_banks(nsub):
+    """A warp's A loads (window position m of each lane: elements
+    base + 16 NSUB g + q + 8 m, and + 4) land on 32 distinct banks for
+    every moveout offset; its y loads (lags 16 NSUB g + 2 q + ...) on no
+    bank more than twice; its B loads read distinct words from distinct
+    banks."""
+    g, q = _lanes()
+    run = 16 * nsub
+    for base in range(2 * run):
+        for m in range(3):
+            for c in (0, 4):
+                words = _sk(base + run * g + q + 8 * m + c, run)
+                assert len(set(words % 32)) == 32, (base, m, c)
+        for lag in (0, 1, 8, 9, 16 * (nsub - 1)):
+            words = _sk(base + run * g + 2 * q + lag, run)
+            assert np.bincount(words % 32).max() <= 2, (base, lag)
+    for t, ks in ((0, 0), (5, 3), (31, 25)):
+        for c in (0, 4):
+            words = t * 216 + 8 + q - g + 8 * ks + c
+            uniq = np.unique(words)
+            assert len(uniq) == len(set(uniq % 32)) == 11
+
+
+@pytest.mark.parametrize("nsub, L", [(NSUB, 45), (NSUB, 200), (2, 43)])
+def test_kernel_index_map_reproduces_the_correlation(nsub, L):
+    """The kernel's fragments, loaded with its index maps (a sliding window
+    of 2 NSUB + 1 slots per lane, position m in slot m % that) from the
+    skewed span and the staged row, and multiplied as `mma.m16n8k8`
+    multiplies them, give each lag's correlation once; no load leaves the
+    span."""
+    rng = np.random.default_rng(36)
+    base, run, W = 13, 16 * nsub, 2 * nsub + 1
+    K = -(-(L + 7) // 8) * 8
+    KP = K + 8
+    n_ks = K // 8
+    span = 128 * nsub + base + K + 8          # as mf_layout sizes it
+    d = rng.normal(size=span)
+    f = rng.normal(size=L)
+    skewed = np.zeros(_sk(span, run) + 4)
+    skewed[_sk(np.arange(span), run)] = d
+    row = np.zeros(KP)
+    row[8 : 8 + L] = f
+    g, q = _lanes()
+    e0 = base + run * g + q
+
+    def load(m):
+        assert np.all(e0 + 8 * m + 4 < span)
+        return (skewed[_sk(e0 + 8 * m, run)], skewed[_sk(e0 + 8 * m + 4, run)])
+
+    slots = [load(m) for m in range(W)]
+    acc = np.zeros((nsub, 32, 4))
+    for s0 in range(0, n_ks, W):
+        for i in range(W):
+            ks = s0 + i
+            if ks >= n_ks:
+                continue
+            b = (row[8 + q - g + 8 * ks], row[8 + q - g + 8 * ks + 4])
+            B = np.zeros((8, 8))
+            B[q, g] = b[0]
+            B[q + 4, g] = b[1]
+            for u in range(nsub):
+                p, n = slots[(i + 2 * u) % W], slots[(i + 2 * u + 1) % W]
+                A = np.zeros((16, 8))
+                for reg, (dr, dk) in zip((p[0], n[0], p[1], n[1]),
+                                         ((0, 0), (8, 0), (0, 4), (8, 4))):
+                    A[g + dr, q + dk] = reg
+                C = A @ B
+                for r in range(4):
+                    acc[u, :, r] += C[g + 8 * (r >> 1), 2 * q + (r & 1)]
+            slots[i] = load(ks + W)
+    out = np.full(128 * nsub, np.nan)
+    for u in range(nsub):
+        for r in range(4):
+            lag = run * g + 2 * q + 16 * u + 8 * (r >> 1) + (r & 1)
+            assert np.all(np.isnan(out[lag]))
+            out[lag] = acc[u, :, r]
+    want = np.array([d[base + b : base + b + L] @ f
+                     for b in range(128 * nsub)])
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
 
 
 # --------------------------------------------------------------------------
@@ -321,8 +543,7 @@ def test_staged_split_rows_layout():
     KP = 48 + 8                       # round_up(37 + 7, 16) + 8
     assert rows.shape == (plan.n_ch, 2, 2, mf.TEMPLATE_TILE, 2, KP)
     assert rows.dtype == torch.bfloat16 and rows.is_contiguous()
-    f32 = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu").filt
-    parts = mf.split_bf16(f32)
+    parts = mf.split_bf16(torch.from_numpy(_scaled_rows(tp, w, 64, 48)))
     assert bool((parts[1].float() != 0).any())
     for part, f in enumerate(parts):
         f4 = f.reshape(plan.n_ch, 2, mf.TEMPLATE_TILE, -1).float()

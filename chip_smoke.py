@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles every kernel of seismic_bpmf_tpu_torch/csrc with nvcc;
-  3. the fused MF kernel (f32-class: TF32-split operands, tensor cores)
+  3. the fused MF kernel (f32-class: TF32-split operands, tensor cores),
+     its 'highest' build and its default build ('default', 'screen'),
      against its plain PyTorch version on the card, at full bank width (128
      templates x 10 stations x 3 components, L = 200, moveouts in
      [-50, 400)) on a 2^17-sample window with a zero-filled gap, f32 gate
@@ -16,10 +17,12 @@ Phases (any failure exits non-zero; nothing is caught):
      components x 2,160,000 samples (25 Hz) with 128 templates of 8 s,
      built in memory from a seed; every re-injected repeat must be found
      at its sample index with CC >= 0.99, through the kernel only;
-  5. exactness: one day at 'highest', each detection's CC within 1e-5 of
-     the float64 oracle `ops.reference.matched_filter_at`; the kernel's
-     day against its plain version, its time and its bound (three TF32
-     products on the tensor cores, beside the f32 FMA figure);
+  5. exactness: one day at 'highest' through `matched_filter_day`, whose
+     plans launch the 'highest' build only, each detection's CC within
+     1e-6 of the float64 oracle `ops.reference.matched_filter_at` (and,
+     checked after phase 11, closer than the `high` rung's); both builds'
+     day against the plain version, their times and their bound (three
+     TF32 products on the tensor cores, beside the f32 FMA figure);
   6. where a warm 'screen' day's time goes (host clock, torch.profiler);
   7. the BP kernel against its plain PyTorch version on the card at the
      BP configuration's width (100,000 lattice sources x 32 stations x 2
@@ -122,6 +125,7 @@ F32_PEAK_FLOPS = 67e12              # H100 SXM, f32 outside tensor cores
 TF32_PEAK_FLOPS = 495e12            # H100 SXM, dense TF32 on tensor cores
 BF16_PEAK_FLOPS = 989e12            # H100 SXM, dense bf16 on tensor cores
 ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
+ATOL_HIGHEST = 1e-6                 # the `highest` rung against the oracle
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -185,6 +189,7 @@ def zero_counts():
     """Every kernel's launch count and plain version's call count to 0,
     just before a main path is driven."""
     mf.mf_cc.launches = mf.matched_filter_plain.calls = 0
+    mf.mf_cc_highest.launches = 0
     mf.mf_cc_split.launches = mf.matched_filter_split_plain.calls = 0
     bp.bp_beam.launches = bp.beamform_plain.calls = 0
 
@@ -237,12 +242,23 @@ plan3 = mf.MatchedFilterPlan(tpl, mv, wts, n_win, precision="highest")
 dp3 = plan3.pad_data(win)
 got = plan3(dp3)
 ref = plain_of(plan3, dp3)
+call3 = dict(n_tp=plan3.n_tp, L=L, n_corr=plan3.n_corr_unit,
+             lo_p=plan3.lo_p, hi_p=plan3.hi_p, max_delta=plan3.max_delta)
+got3d = mf.mf_cc(dp3, plan3.filt_rows, plan3.mv_table, plan3.tile_lo,
+                 **call3)
 torch.cuda.synchronize()
 err3 = float((got - ref).abs().max())
+err3d = float((got3d - ref).abs().max())
 if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
     raise AssertionError(f"kernel != plain version: max|diff| {err3:.3g}")
-if float(got[:, 40050:49400].abs().max()) != 0.0:
-    raise AssertionError("the zero-filled gap does not give CC = 0")
+if not torch.allclose(got3d, ref, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"default build != plain version: max|diff| "
+                         f"{err3d:.3g}")
+for what, cc in (("highest", got), ("default", got3d)):
+    if float(cc[:, 40050:49400].abs().max()) != 0.0:
+        raise AssertionError(f"{what}: the zero-filled gap does not give "
+                             f"CC = 0")
+del got3d
 lags3 = rng.integers(0, n_win - L, size=64)
 lags3[:4] = (0, n_win - L, 39990, 50003)        # the edges, the gap's rim
 worst3 = 0.0
@@ -274,7 +290,8 @@ plain_of(plan3, dp3)
 torch.cuda.synchronize()
 plain3 = 1e3 * (time.perf_counter() - t0)
 print(f"kernel vs plain (128 x 30 x L=200, 2^17 samples): max|diff| "
-      f"{err3:.3g} (rtol={RTOL}, atol={ATOL}), max|CC - oracle| "
+      f"{err3:.3g}, default build {err3d:.3g} (rtol={RTOL}, atol={ATOL}), "
+      f"max|CC - oracle| "
       f"{worst3:.3g} at {4 * len(lags3)} lags (atol={ATOL}); kernel "
       f"{ms3:.3f} ms, plain {plain3:.1f} ms [{CARD}]", flush=True)
 
@@ -367,9 +384,10 @@ results = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg, **kw)
 wall = time.perf_counter() - t0
 launches = mf.mf_cc.launches
 plain_calls = mf.matched_filter_plain.calls
-if launches < 1 or plain_calls != 0:
+if launches < 1 or plain_calls != 0 or mf.mf_cc_highest.launches:
     raise AssertionError(f"main path: {launches} kernel launches, "
-                         f"{plain_calls} plain-version calls")
+                         f"{plain_calls} plain-version calls, "
+                         f"{mf.mf_cc_highest.launches} of the highest build")
 for day, tid, o in REPEATS:
     t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
     hits = [e for e in results[day][str(tid)]
@@ -390,8 +408,14 @@ engine = MatchedFilter(tg, cfg=cfg, precision="highest",
                        **{k: v for k, v in kw.items()
                           if k != "minimum_interevent_time"})
 day1 = make_data("d1")
+zero_counts()
 dets = workflow.matched_filter_day(tg, day1, cfg=cfg, mf=engine,
                                    minimum_interevent_time=5.0)
+launches5 = mf.mf_cc_highest.launches
+others5 = (mf.mf_cc.launches, mf.matched_filter_plain.calls)
+if launches5 < 1 or others5 != (0, 0):
+    raise AssertionError(f"highest: {launches5} launches of its build; "
+                         f"default build, plain: {others5}")
 worst, n_checked = 0.0, 0
 for tid, evs in dets.items():
     tt = int(tg.tindexes[tid])
@@ -402,11 +426,12 @@ for tid, evs in dets.items():
                                   engine.data_arr, np.array([idx]))[0]
         worst = max(worst, abs(float(exact) - e.aux_data["cc"]))
         n_checked += 1
-if n_checked < N_TP or worst > 1e-5:
+if n_checked < N_TP or worst > ATOL_HIGHEST:
     raise AssertionError(f"highest: {n_checked} detections, max|CC - "
                          f"oracle| {worst:.3g}")
 print(f"highest: {n_checked} detections within {worst:.3g} of the float64 "
-      f"oracle", flush=True)
+      f"oracle (atol={ATOL_HIGHEST}); launches of its build {launches5}",
+      flush=True)
 
 plan = next(iter(engine._plans.values()))[0]
 dp = engine._data_pad
@@ -419,14 +444,34 @@ plain_ms = 1e3 * (time.perf_counter() - t0)
 err = float((got - ref).abs().max())
 if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
     raise AssertionError(f"day-size kernel != plain: max|diff| {err:.3g}")
+# the default build ('default', 'screen') on the same plan and day
+call5 = dict(n_tp=plan.n_tp, L=L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
+             hi_p=plan.hi_p, max_delta=plan.max_delta)
+
+
+def default5():
+    return mf.mf_cc(dp, plan.filt_rows, plan.mv_table, plan.tile_lo, **call5)
+
+
+got5d = default5()
+torch.cuda.synchronize()
+err5d = float((got5d - ref).abs().max())
+if not torch.allclose(got5d, ref, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"day-size default build != plain: max|diff| "
+                         f"{err5d:.3g}")
+builds5 = float((got5d - got).abs().max())
 ref5 = ref                  # held against the kernel again in phase 13
-del got, ref
+del got, ref, got5d
 ms = cuda_ms(lambda: plan(dp), 5)
-print(f"mf kernel, one day: {ms:.2f} ms ({macs / ms / 1e6:.0f} GMAC/s), "
+ms5d = cuda_ms(default5, 5)
+print(f"mf kernel, one day: highest build {ms:.2f} ms "
+      f"({macs / ms / 1e6:.0f} GMAC/s), default build {ms5d:.2f} ms "
+      f"({ms / ms5d:.3f} of it), "
       f"bound {bound_ms:.2f} ms ({bound_by}: 3 TF32 products at "
       f"{TF32_PEAK_FLOPS / 1e12:.0f} TFLOP/s; the f32 FMA figure "
       f"{fma_ms:.2f} ms), plain {plain_ms:.0f} ms; max|diff| from plain "
-      f"{err:.3g} [{CARD}]", flush=True)
+      f"{err:.3g}, default build {err5d:.3g}, between the builds "
+      f"{builds5:.3g} [{CARD}]", flush=True)
 
 
 # 6. where a warm 'screen' day's time goes: the host clock around each step
@@ -868,7 +913,8 @@ res11 = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg,
                            precision="high", **kw_high)
 wall11 = time.perf_counter() - t0
 launches11 = mf.mf_cc_split.launches
-others11 = (mf.mf_cc.launches, mf.matched_filter_plain.calls,
+others11 = (mf.mf_cc.launches + mf.mf_cc_highest.launches,
+            mf.matched_filter_plain.calls,
             mf.matched_filter_split_plain.calls)
 if launches11 < len(DATES) or others11 != (0, 0, 0):
     raise AssertionError(f"high main path: {launches11} split-kernel "
@@ -905,6 +951,9 @@ for day in DATES:
 if n11 < N_TP + len(REPEATS) or worst11 > ATOL_HIGH:
     raise AssertionError(f"high: {n11} detections, max|CC - oracle| "
                          f"{worst11:.3g}")
+if not worst < worst11:
+    raise AssertionError(f"highest (phase 5, max|CC - oracle| {worst:.3g}) "
+                         f"is not tighter than high ({worst11:.3g})")
 t0 = time.perf_counter()
 cat11 = workflow.assemble_catalog(
     {tid: [e for day in DATES for e in res11[day][tid]]
@@ -973,7 +1022,8 @@ t0 = time.perf_counter()
 cat12 = workflow.assemble_catalog(mf12, tg12)
 steps12["assemble_catalog"] = time.perf_counter() - t0
 counts12 = (bp.bp_beam.launches, mf.mf_cc_split.launches)
-others12 = (bp.beamform_plain.calls, mf.mf_cc.launches,
+others12 = (bp.beamform_plain.calls,
+            mf.mf_cc.launches + mf.mf_cc_highest.launches,
             mf.matched_filter_plain.calls,
             mf.matched_filter_split_plain.calls)
 if min(counts12) < 1 or others12 != (0, 0, 0, 0):
@@ -1083,6 +1133,18 @@ print(json.dumps({"kernels": [{
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
     "launches": launches,
+    "max_abs_err": max(err5d, err3d),
+    "ms": ms5d,
+    "plain_ms": plain_ms,
+    "bound_ms": bound_ms,
+    "bound_by": bound_by,
+    "library_ms": None,
+}, {
+    "name": "mf_cc_highest",
+    "route": "cuda",
+    "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
+    "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
+    "launches": launches5,
     "max_abs_err": max(err, err3, err13_f32),
     "ms": ms,
     "plain_ms": plain_ms,

@@ -104,25 +104,43 @@ def _finish(name: str, so: str, proc, tmp: str, t0: float) -> str:
         return ""
     _, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{err}")
+        raise RuntimeError(f"nvcc failed to build {name}:\n{err}")
     os.replace(tmp, so)
     build_seconds[name] = time.perf_counter() - t0
     return err
+
+
+# the builds of a source that the package loads besides its default one:
+# name -> tuples of -D defines (csrc/mf.cu serves 'highest' from a build
+# that sums each k-step's products outside the tensor cores)
+VARIANTS = {"mf": [("MF_ACC_OUT=1",)]}
+
+
+def key(name: str, defines=()) -> str:
+    """The name a build of `name` with -D `defines` is known by: the
+    source's name for its default build, else e.g. 'mf[MF_ACC_OUT=1]'."""
+    return f"{name}[{','.join(defines)}]" if defines else name
 
 
 def sources() -> list:
     return sorted(fn[:-3] for fn in os.listdir(CSRC) if fn.endswith(".cu"))
 
 
+def builds() -> list:
+    """(name, defines) of every build the package loads: each source's
+    default build and its VARIANTS."""
+    return [(n, d) for n in sources() for d in [(), *VARIANTS.get(n, [])]]
+
+
 def build_all() -> dict:
-    """Compile every kernel source at once (one nvcc each, all started
-    together) and load them; returns {name: seconds spent building}."""
+    """Compile every build at once (one nvcc each, all started together)
+    and load them; returns {key: seconds spent building}."""
     with _LOCK:
-        todo = [n for n in sources() if n not in _LIBS]
-        started = [(n, *_start(n)) for n in todo]
-        for n, so, proc, tmp, t0 in started:
-            _finish(n, so, proc, tmp, t0)
-            _LIBS[n] = ctypes.CDLL(so)
+        todo = [(n, d) for n, d in builds() if key(n, d) not in _LIBS]
+        started = [(key(n, d), *_start(n, d)) for n, d in todo]
+        for k, so, proc, tmp, t0 in started:
+            _finish(k, so, proc, tmp, t0)
+            _LIBS[k] = ctypes.CDLL(so)
     return dict(build_seconds)
 
 
@@ -137,14 +155,16 @@ def build_variants(name: str, variants, extra_flags=()) -> list:
             for so, proc, tmp, t0 in started]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with -D `defines`,
+    built on first use."""
+    k = key(name, defines)
+    lib = _LIBS.get(k)
     if lib is not None:
         return lib
     with _LOCK:
-        if name not in _LIBS:
-            so, proc, tmp, t0 = _start(name)
-            _finish(name, so, proc, tmp, t0)
-            _LIBS[name] = ctypes.CDLL(so)
-    return _LIBS[name]
+        if k not in _LIBS:
+            so, proc, tmp, t0 = _start(name, defines)
+            _finish(k, so, proc, tmp, t0)
+            _LIBS[k] = ctypes.CDLL(so)
+    return _LIBS[k]

@@ -40,9 +40,10 @@
 // with K = L + 7 rounded up to 8 (208 for L = 200: 96% useful), run as a
 // chain of K / 8 `mma.sync.m16n8k8` TF32 instructions with f32
 // accumulation, three per k-step into one accumulator, in the order dh*fh,
-// dl*fh, dh*fl.  The plain version `ops.mf.matched_filter_plain` sums each
-// product over all taps first and then adds hh + (lh + hl): the same
-// products (each exact in f32), equal up to f32 reassociation.
+// dl*fh, dh*fl (the 'highest' build differs: see Accumulation).  The plain
+// version `ops.mf.matched_filter_plain` sums each product over all taps
+// first and then adds hh + (lh + hl): the same products (each exact in
+// f32), equal up to f32 reassociation.
 //   What paces such a chain is shared memory, not the `mma`s: A is 128 new
 // elements per part and product, and loading it took longer than the
 // `mma`s themselves (PERF.md).  So a lane's rows are chosen to overlap.  A
@@ -78,6 +79,19 @@
 // across channels; each output is written once, with 64-bit offsets.
 //   Two blocks share an SM (MF_MINB), so that one block's staging and
 // window sums overlap the other's products.
+//   Accumulation (MF_ACC_OUT).  The tensor cores add an `mma`'s products
+// into its f32 accumulator with truncation, not round to nearest.  Near a
+// detection every product of a channel has the same sign, so a running sum
+// carried through a channel's 3 K / 8 dependent `mma`s loses a little at
+// each one, always toward zero, and the 30 channels' losses add up in the
+// network sum (~2e-6 of the CC at the main path's shape).  The default
+// build keeps that chain: it serves the 'default' rung and the 'screen'
+// scan, whose detections are re-taken on the float64 host CC.  The build
+// with MF_ACC_OUT=1 serves 'highest': each k-step's three `mma`s start
+// from a zeroed fragment, the two small products (dl*fh, dh*fl) first, so
+// that the tensor cores truncate only at the scale of one k-step's
+// partial; that partial is added into the running sum with an ordinary
+// round-to-nearest f32 add.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +103,9 @@
 #endif
 #ifndef MF_MINB
 #define MF_MINB 2       // blocks per SM the register budget must allow
+#endif
+#ifndef MF_ACC_OUT
+#define MF_ACC_OUT 0    // 1: sum the k-steps' partials outside the mma
 #endif
 #define MF_YG 16        // samples per partial of the window sums
 #define MF_T (128 * MF_NSUB)
@@ -162,6 +179,43 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c = a * b from a zeroed accumulator
+__device__ __forceinline__ void mma_tf32_zero(float (&c)[4], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint32_t b0,
+                                              uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// One k-step's three products of sub-tile rows (p, n) into acc: dh*fh,
+// dl*fh, dh*fl chained through acc, or (MF_ACC_OUT) dl*fh, dh*fl, dh*fh
+// from zero and the partial added to acc in round-to-nearest f32.
+__device__ __forceinline__ void mf_products(float (&acc)[4],
+                                            const uint32_t (&hp)[2],
+                                            const uint32_t (&hn)[2],
+                                            const uint32_t (&lp)[2],
+                                            const uint32_t (&ln)[2],
+                                            uint32_t bh0, uint32_t bh1,
+                                            uint32_t bl0, uint32_t bl1)
+{
+#if MF_ACC_OUT
+    float part[4];
+    mma_tf32_zero(part, lp[0], ln[0], lp[1], ln[1], bh0, bh1);  // dl * fh
+    mma_tf32(part, hp[0], hn[0], hp[1], hn[1], bl0, bl1);       // dh * fl
+    mma_tf32(part, hp[0], hn[0], hp[1], hn[1], bh0, bh1);       // dh * fh
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] += part[r];
+#else
+    mma_tf32(acc, hp[0], hn[0], hp[1], hn[1], bh0, bh1);        // dh * fh
+    mma_tf32(acc, lp[0], ln[0], lp[1], ln[1], bh0, bh1);        // dl * fh
+    mma_tf32(acc, hp[0], hn[0], hp[1], hn[1], bl0, bl1);        // dh * fl
+#endif
 }
 
 __global__ void __launch_bounds__(MF_THREADS, MF_MINB)
@@ -280,12 +334,8 @@ mf_kernel(const float* __restrict__ data,     // (n_ch, ext) padded day
                 for (int u = 0; u < MF_NSUB; ++u) {                        \
                     const int p = ((i) + 2 * u) % MF_WS;                   \
                     const int n = ((i) + 2 * u + 1) % MF_WS;               \
-                    mma_tf32(acc[u], wh[p][0], wh[n][0], wh[p][1],         \
-                             wh[n][1], bh0, bh1);       /* dh * fh */      \
-                    mma_tf32(acc[u], wl[p][0], wl[n][0], wl[p][1],         \
-                             wl[n][1], bh0, bh1);       /* dl * fh */      \
-                    mma_tf32(acc[u], wh[p][0], wh[n][0], wh[p][1],         \
-                             wh[n][1], bl0, bl1);       /* dh * fl */      \
+                    mf_products(acc[u], wh[p], wh[n], wl[p], wl[n], bh0,   \
+                                bh1, bl0, bl1);                            \
                 }                                                           \
                 const int e = e0 + 8 * ((ks) + MF_WS);                     \
                 const int i0 = MF_SK(e), i4 = MF_SK(e + 4);                \

@@ -15,9 +15,12 @@ accumulation; the window normalization comes from the unsplit f32 data.
 There is one kernel per split:
 
   `mf_cc` (`csrc/mf.cu`): TF32 parts (`split_tf32`, 11 significant bits
-  each, f32-class accuracy); the rungs 'highest' and 'default' (and the
-  'screen' scan, which runs 'default' on a bf16-rounded day).
-  `matched_filter_plain` is the same function in plain PyTorch.
+  each, f32-class accuracy); the rung 'default' (and the 'screen' scan,
+  which runs 'default' on a bf16-rounded day).  `mf_cc_highest` is the
+  rung 'highest': the same source built with MF_ACC_OUT=1, which sums
+  each k-step's products outside the tensor cores' accumulator (their
+  additions truncate; see csrc/mf.cu).  `matched_filter_plain` is the
+  same function in plain PyTorch.
 
   `mf_cc_split` (`csrc/mf_split.cu`): bf16 parts (`split_bf16`); the rung
   'high'.  `matched_filter_split_plain` is the same function in plain
@@ -121,11 +124,14 @@ def _lib_split():
     return lib
 
 
-def _lib():
+ACC_OUT = ("MF_ACC_OUT=1",)  # the -D defines of csrc/mf.cu's 'highest' build
+
+
+def _lib(defines=()):
     from .. import _build
 
-    lib = _build.load("mf")
-    if "mf" not in _BOUND:
+    lib = _build.load("mf", defines)
+    if _build.key("mf", defines) not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mf_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32, i32,
                                   i32, i64, i64, i64, i32, vp]
@@ -142,7 +148,7 @@ def _lib():
                 or lib.mf_smem_bytes(37, 3) != _smem_bytes(37, 3)):
             raise RuntimeError("csrc/mf.cu and ops/mf.py disagree on the "
                                "kernel's tile sizes")
-        _BOUND.add("mf")
+        _BOUND.add(_build.key("mf", defines))
     return lib
 
 
@@ -334,16 +340,11 @@ def _check_launch(lib, prefix: str, rc: int) -> None:
         raise RuntimeError(f"{prefix} kernel launch failed: {err}")
 
 
-def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
-          n_corr: int, lo_p: int, hi_p: int, max_delta: int,
-          lag_block: int = 4096) -> torch.Tensor:
-    """(n_tp, n_corr) f32 network CC of a 'highest'/'default' plan's
-    tensors on padded data, every product split in TF32 parts.
-    `filt_rows` are the rows' two TF32 parts as `stage_tf32_rows` lays them
-    out.
-
-    On CPU tensors this is `matched_filter_plain`; on CUDA tensors it
-    launches the kernel of csrc/mf.cu or raises."""
+def _mf_cc(wrapper, defines, data_pad, filt_rows, mv_table, tile_lo, *,
+           n_tp, L, n_corr, lo_p, hi_p, max_delta, lag_block):
+    """`mf_cc` and `mf_cc_highest`: the plain version on CPU tensors, else
+    the launch of csrc/mf.cu's build with -D `defines`, counted on
+    `wrapper`."""
     if data_pad.device.type == "cpu":
         filt_hi, filt_lo = tf32_rows_parts(filt_rows, L)
         return matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table,
@@ -370,7 +371,7 @@ def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
                       device=data_pad.device)
     if n_corr <= 0:
         return out
-    lib = _lib()
+    lib = _lib(defines)
     with torch.cuda.device(data_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mf_launch(
@@ -380,11 +381,41 @@ def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
             int(max_delta), stream,
         )
     _check_launch(lib, "mf", rc)
-    mf_cc.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
+          n_corr: int, lo_p: int, hi_p: int, max_delta: int,
+          lag_block: int = 4096) -> torch.Tensor:
+    """(n_tp, n_corr) f32 network CC of a 'default' plan's tensors on
+    padded data, every product split in TF32 parts.  `filt_rows` are the
+    rows' two TF32 parts as `stage_tf32_rows` lays them out.
+
+    On CPU tensors this is `matched_filter_plain`; on CUDA tensors it
+    launches the default build of csrc/mf.cu (each channel's products
+    chained through the tensor cores' accumulator) or raises."""
+    return _mf_cc(mf_cc, (), data_pad, filt_rows, mv_table, tile_lo,
+                  n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                  max_delta=max_delta, lag_block=lag_block)
+
+
 mf_cc.launches = 0
+
+
+def mf_cc_highest(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
+                  L: int, n_corr: int, lo_p: int, hi_p: int, max_delta: int,
+                  lag_block: int = 4096) -> torch.Tensor:
+    """`mf_cc` for a 'highest' plan: on CUDA tensors it launches the
+    MF_ACC_OUT build of csrc/mf.cu (each k-step's products summed from
+    zero on the tensor cores, the partials added in round-to-nearest f32)
+    or raises; on CPU tensors it is `matched_filter_plain`."""
+    return _mf_cc(mf_cc_highest, ACC_OUT, data_pad, filt_rows, mv_table,
+                  tile_lo, n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
+                  hi_p=hi_p, max_delta=max_delta, lag_block=lag_block)
+
+
+mf_cc_highest.launches = 0
 
 
 def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
@@ -490,10 +521,11 @@ class MatchedFilterPlan:
     padded days.
 
     `precision` keeps the JAX package's rung names.  'highest' and
-    'default' run the f32-class kernel (`mf_cc`): the plan splits the rows
-    in two TF32 parts once (`split_tf32`) and keeps them laid out as the
-    kernel stages them (`filt_rows`, `stage_tf32_rows`; `tf32_rows_parts`
-    reads the parts back).  'high' runs the split kernel (`mf_cc_split`)
+    'default' run the f32-class kernel (`mf_cc_highest`, `mf_cc`: two
+    builds of csrc/mf.cu that differ in how they accumulate): the plan
+    splits the rows in two TF32 parts once (`split_tf32`) and keeps them
+    laid out as the kernel stages them (`filt_rows`, `stage_tf32_rows`;
+    `tf32_rows_parts` reads the parts back).  'high' runs the split kernel (`mf_cc_split`)
     on bf16 parts (`split_bf16`, `stage_split_rows`, `split_rows_parts`).
     Each kernel splits the day itself.  `lag_block` is the plain versions'
     lag chunk."""
@@ -616,7 +648,8 @@ class MatchedFilterPlan:
         kw = dict(n_tp=self.n_tp, L=self.L, n_corr=self.n_corr_unit,
                   lo_p=self.lo_p, hi_p=self.hi_p, max_delta=self.max_delta,
                   lag_block=self.lag_block)
-        wrapper = mf_cc_split if self.precision_name == "high" else mf_cc
+        wrapper = {"high": mf_cc_split, "highest": mf_cc_highest,
+                   "default": mf_cc}[self.precision_name]
         return wrapper(data_pad, self.filt_rows, self.mv_table, self.tile_lo,
                        **kw)
 

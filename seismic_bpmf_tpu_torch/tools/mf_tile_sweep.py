@@ -11,8 +11,9 @@ events, the best of 2 x 3 launches) and its largest difference from the
 first variant, with the card's name and power limit.
 
   mf        csrc/mf.cu: (MF_NSUB 128-lag sub-tiles per block: 1, 2, 4
-            or 8; MF_MINB blocks per SM for the register budget), at
-            precision 'highest';
+            or 8; MF_MINB blocks per SM for the register budget;
+            MF_ACC_OUT 0 for the 'default' build, 1 for the 'highest'
+            one), each at its rung's precision;
   mf_split  csrc/mf_split.cu: (MFS_NSUB 128-lag sub-tiles per block,
             MFS_MINB), at precision 'high'.
 
@@ -21,7 +22,9 @@ package (say, the parent commit unpacked by `git archive`): the same day
 then runs there too, in a process of its own through that tree's
 `MatchedFilterPlan` at the same precision, and its time is printed with
 the largest difference between its CC and the first variant's, and
-whether the two agree within rtol 1e-4, atol 1e-5.
+whether the two agree within rtol 1e-4, atol 1e-5.  For `mf` that tree
+runs at 'highest' and is compared with the first variant, the default
+build: a kernel whose default build kept its bits gives max|diff| 0.
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ from ..ops import mf
 KERNELS = {
     # name: (define names, precision, variants; the first is the source's
     # default)
-    "mf": (("MF_NSUB", "MF_MINB"), "highest",
-           [(4, 2), (4, 1), (2, 2), (2, 3), (8, 1)]),
+    "mf": (("MF_NSUB", "MF_MINB", "MF_ACC_OUT"), "highest",
+           [(4, 2, 0), (4, 2, 1), (4, 1, 0), (2, 2, 0), (8, 1, 0)]),
     "mf_split": (("MFS_NSUB", "MFS_MINB"), "high",
                  [(4, 2), (4, 1), (3, 2), (2, 2), (2, 3)]),
 }
@@ -74,12 +77,16 @@ torch.save({"cc": cc.cpu(), "times": times}, out)
 """
 
 
-def _set_tiles(name: str, variant) -> None:
-    """Point ops.mf's mirrors of the kernel's tile sizes at a variant."""
+def _route(name: str, variant, precision: str) -> tuple:
+    """(the build's key in `_build._LIBS`, the plan precision that runs it)
+    of a variant, with ops.mf's mirrors of its tile sizes set."""
     if name == "mf":
         mf.LAG_TILE = 128 * variant[0]
-    else:
-        mf.SPLIT_LAG_TILE = 128 * variant[0]
+        if variant[2]:
+            return _build.key("mf", mf.ACC_OUT), "highest"
+        return "mf", "default"
+    mf.SPLIT_LAG_TILE = 128 * variant[0]
+    return name, precision
 
 
 def _day_ms(plan, dp) -> tuple:
@@ -119,7 +126,8 @@ def main():
              for var in variants]
     for lab, (so, log) in zip(label, built):
         regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Performance Loss" in ln]
         print(f"{lab} ptxas: {'; '.join(regs)}", flush=True)
     rng = np.random.default_rng(3)
     n_tp, n_sta, n_comp, L, n = 128, 10, 3, 200, 2160000
@@ -130,10 +138,10 @@ def main():
     macs = n_tp * n_sta * n_comp * L * (n - L + 1)
     first = None
     for var, lab, (so, _) in zip(variants, label, built):
-        _set_tiles(name, var)
-        mf._BOUND.discard(name)
-        _build._LIBS[name] = ctypes.CDLL(so)
-        plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=precision)
+        lib_key, rung = _route(name, var, precision)
+        mf._BOUND.discard(lib_key)
+        _build._LIBS[lib_key] = ctypes.CDLL(so)
+        plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=rung)
         dp = plan.pad_data(d)
         out = plan(dp)
         torch.cuda.synchronize()

@@ -92,22 +92,70 @@ SPLIT_CASES = dict(CASES, odd_moveouts_ragged_edges=_odd_moveouts_ragged,
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
 def test_kernel_matches_plain_on_card(card, case):
+    """Both builds of csrc/mf.cu: 'highest' (MF_ACC_OUT) and 'default'."""
     tp, mv, w, data = SPLIT_CASES[case](16)
-    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device=card)
-    dp = plan.pad_data(data)
-    launches, plain_calls = mf.mf_cc.launches, mf.matched_filter_plain.calls
-    got = plan(dp)
-    assert mf.mf_cc.launches == launches + 1
-    assert mf.matched_filter_plain.calls == plain_calls
-    filt_hi, filt_lo = mf.tf32_rows_parts(plan.filt_rows, plan.L)
-    want = mf.matched_filter_plain(
-        dp, filt_hi, filt_lo, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
-        n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               tref.matched_filter(tp, mv, w, data),
-                               rtol=RTOL, atol=ATOL)
+    for precision, wrapper in (("highest", mf.mf_cc_highest),
+                               ("default", mf.mf_cc)):
+        plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1],
+                                    precision=precision, device=card)
+        dp = plan.pad_data(data)
+        counts = [mf.mf_cc.launches, mf.mf_cc_highest.launches,
+                  mf.matched_filter_plain.calls]
+        got = plan(dp)
+        counts[wrapper is mf.mf_cc_highest] += 1
+        assert [mf.mf_cc.launches, mf.mf_cc_highest.launches,
+                mf.matched_filter_plain.calls] == counts
+        filt_hi, filt_lo = mf.tf32_rows_parts(plan.filt_rows, plan.L)
+        want = mf.matched_filter_plain(
+            dp, filt_hi, filt_lo, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
+            n_corr=plan.n_corr_unit, lo_p=plan.lo_p, hi_p=plan.hi_p)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   tref.matched_filter(tp, mv, w, data),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _planted_repeats(seed, n_tp=4, n_sta=10, n_comp=3, L=200,
+                     n_samp=12000, per_template=3):
+    """Noise with each template's waveform planted `per_template` times at
+    its moveouts (CC ~0.98), and the planted lags (as in
+    tests/test_torch_mf.py)."""
+    rng = np.random.default_rng(seed)
+    mv = rng.integers(0, 400, size=(n_tp, n_sta, n_comp))
+    wave = (8.0 * rng.normal(size=(n_tp, n_sta, n_comp, L))
+            * np.hanning(L)).astype(np.float32)
+    w = np.full((n_tp, n_sta, n_comp), 1.0 / (n_sta * n_comp), np.float32)
+    data = rng.standard_normal((n_sta, n_comp, n_samp), dtype=np.float32)
+    lags = np.stack([200 + 2800 * np.arange(per_template) + 700 * i
+                     for i in range(n_tp)])
+    for i in range(n_tp):
+        for o in lags[i]:
+            for s in range(n_sta):
+                for c in range(n_comp):
+                    st = o + mv[i, s, c]
+                    data[s, c, st : st + L] += wave[i, s, c]
+    return wave, mv, w, data, lags
+
+
+@pytest.mark.cuda
+def test_highest_build_is_exact_at_detections(card):
+    """At planted repeats (every channel's products of one sign) the
+    'highest' build lies within 1e-6 of the float64 oracle, and closer to
+    it than the default build, whose products run through the tensor
+    cores' truncating accumulator."""
+    tp, mv, w, data, lags = _planted_repeats(41, per_template=6,
+                                             n_samp=20000)
+    worst = {}
+    for precision in ("highest", "default"):
+        cc = mf.matched_filter(tp, mv, w, data, precision=precision,
+                               device=card).cpu().numpy()
+        worst[precision] = max(
+            float(np.abs(cc[i, lags[i]] - tref.matched_filter_at(
+                tp[i], mv[i], w[i], data, lags[i])).max())
+            for i in range(tp.shape[0]))
+    assert worst["highest"] <= 1e-6, worst
+    assert worst["highest"] < worst["default"], worst
 
 
 @pytest.mark.cuda
@@ -206,7 +254,8 @@ def test_matched_filter_on_card_matches_cpu(card, precision):
                             min_channels=3, min_stations=2, max_kurto=1e6)
         eng.set_data(day)
         eng.set_weights_channels(method="simple", normalize=True)
-        wrapper = mf.mf_cc_split if precision == "high" else mf.mf_cc
+        wrapper = {"high": mf.mf_cc_split, "highest": mf.mf_cc_highest,
+                   "screen": mf.mf_cc}[precision]
         launches = wrapper.launches
         dets = eng.run_matched_filter_search(
             5.0, threshold_window_dur=120.0, white_noise=noise, verbose=-1)

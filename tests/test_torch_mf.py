@@ -6,6 +6,8 @@ kernel itself is compared with it on a card by tests/test_torch_cuda.py
 and chip_smoke.py.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -221,6 +223,83 @@ def test_cuda_tensors_never_take_the_plain_version():
                  L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
                  hi_p=plan.hi_p, max_delta=plan.max_delta)
     assert mf.matched_filter_plain.calls == calls
+
+
+def _planted_repeats(seed, n_tp=4, n_sta=10, n_comp=3, L=200,
+                     n_samp=12000, per_template=3):
+    """A day of Gaussian noise with each template's waveform planted
+    `per_template` times at its moveouts (CC ~0.98), and the planted lags:
+    the shape where every channel's products near a detection share one
+    sign."""
+    rng = np.random.default_rng(seed)
+    mv = rng.integers(0, 400, size=(n_tp, n_sta, n_comp))
+    wave = (8.0 * rng.normal(size=(n_tp, n_sta, n_comp, L))
+            * np.hanning(L)).astype(np.float32)
+    w = np.full((n_tp, n_sta, n_comp), 1.0 / (n_sta * n_comp), np.float32)
+    data = rng.standard_normal((n_sta, n_comp, n_samp), dtype=np.float32)
+    lags = np.stack([200 + 2800 * np.arange(per_template) + 700 * i
+                     for i in range(n_tp)])
+    for i in range(n_tp):
+        for o in lags[i]:
+            for s in range(n_sta):
+                for c in range(n_comp):
+                    st = o + mv[i, s, c]
+                    data[s, c, st : st + L] += wave[i, s, c]
+    return wave, mv, w, data, lags
+
+
+def test_highest_plain_is_exact_at_planted_repeats():
+    """The 'highest' rung's arithmetic (three products of TF32 parts, f32
+    sums) lies within 5e-7 of the float64 oracle at every planted repeat:
+    the split is exact enough, so what csrc/mf.cu's 'highest' build must
+    repair is how the tensor cores accumulate, not the split."""
+    tp, mv, w, data, lags = _planted_repeats(41)
+    got = mf.matched_filter(tp, mv, w, data, precision="highest",
+                            device="cpu").numpy()
+    worst = 0.0
+    for i in range(tp.shape[0]):
+        exact = jref.matched_filter_at(tp[i], mv[i], w[i], data, lags[i])
+        assert np.all(exact > 0.95)
+        worst = max(worst, float(np.abs(got[i, lags[i]] - exact).max()))
+    assert worst < 5e-7, worst
+
+
+@pytest.mark.parametrize("precision, route", [
+    ("highest", "mf_cc_highest"), ("default", "mf_cc"),
+    ("screen", "mf_cc"), ("high", "mf_cc_split")])
+def test_rungs_route_to_their_builds(monkeypatch, precision, route):
+    """Each rung reaches its kernel's wrapper through the engine: 'highest'
+    the MF_ACC_OUT build of csrc/mf.cu, 'default' and 'screen' the default
+    build, 'high' csrc/mf_split.cu; no other."""
+    from seismic_bpmf_tpu_torch.detection import MatchedFilter
+    from seismic_bpmf_tpu_torch.config import Config
+    from seismic_bpmf_tpu_torch.data import TemplateGroup
+
+    seen = []
+    for name in ("mf_cc", "mf_cc_highest", "mf_cc_split"):
+        orig = getattr(mf, name)
+
+        def rec(*a, _name=name, _orig=orig, **k):
+            seen.append(_name)
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(mf, name, rec)
+    tp, mv, w, data = _bank(42, n_tp=3, n_sta=4, n_comp=3, L=30,
+                            n_samp=4000, mv_range=(0, 40))
+    tg = TemplateGroup.from_arrays(tp, mv, ["0", "1", "2"],
+                                   ["A", "B", "C", "D"], sampling_rate=25.0)
+    eng = MatchedFilter(tg, cfg=Config(data_buffer_sec=0.0,
+                                       sampling_rate_hz=25.0),
+                        precision=precision, device="cpu", min_channels=3,
+                        min_stations=2, max_kurto=1e6)
+    eng.set_data(SimpleNamespace(
+        duration=4000 / 25.0, sr=25.0, where="day", date_epoch=0.0,
+        get_np_array=lambda stations, components=None: data))
+    eng.set_weights_channels(method="simple", normalize=True)
+    eng.run_matched_filter_search(5.0, threshold_window_dur=60.0,
+                                  white_noise=np.ones(300, np.float32),
+                                  verbose=-1)
+    assert seen and set(seen) == {route}
 
 
 # --------------------------------------------------------------------------

@@ -73,13 +73,39 @@ Phases (any failure exits non-zero; nothing is caught):
  13. the split kernel's numbers at day shape beside the f32-class kernel's
      on the same bank and day: ms per day (CUDA events), its bound, the
      plain version's time and the day-size compare with the plain version;
-     the f32-class kernel's day held again to its plain version of phase 5.
+     the f32-class kernel's day held again to its plain version of phase 5;
+ 14. PhaseNet (seeded random weights, `init_phasenet`) on the card in f32
+     against the same functions on the CPU in float64, on 4 stations x
+     60,000 samples of phase 8's first day: `preprocess_batch` and
+     `normalize_batch` within 1e-4 of the traces' maximum,
+     `phasenet_probas_device` within 1e-5 (its forward scoped to IEEE f32
+     while the global TF32 flag is on), the probabilities finite and
+     summing to 1 within 1e-5;
+ 15. the PhaseNet BP day at full width on phase 8's world: day 1 through
+     `preprocess_batch` (2-12 Hz) -> `phasenet_feature_fn` ->
+     `backproject_day` on a `Beamformer` whose threshold is 4 deviations
+     (random weights), twice, the second warm; each run
+     launches kernel #3 11 times and its plain version never, the features
+     (32, 2, 2,160,000) stay on the card, and both runs give the same
+     detections (sample, source); the beam of a 100,000-sample cut of the
+     day's features held to the plain version (rtol=1e-4, atol=1e-5, the
+     first-max rule); the warm day's stage seconds with `bp_features`
+     split into preprocess, normalize and forward, the device busy share
+     (torch.profiler) and kernel #3's ms on these features against its
+     bound;
+ 16. picks: `Event.pick_PS_phases(waveform_transform=...)` on up to 20 of
+     phase 15's detections over a `WaveformTransform` of the day's
+     probabilities (thresholds the probabilities' medians) equal to
+     `find_picks` + `get_picks` on the same slices; three detections
+     through the `picker=make_picker(model)` route, their tables' columns
+     and dtypes checked; ms per event.
 It then prints the card line, one JSON line of per-kernel numbers, and as
 the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -92,6 +118,7 @@ import torch
 if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
     sys.exit(1)
+T_START = time.perf_counter()
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -100,18 +127,27 @@ from seismic_bpmf_tpu_torch import workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
 from seismic_bpmf_tpu_torch.data import (  # noqa: E402
     Data, Network, Stream, TemplateGroup, Trace, TravelTimes,
+    WaveformTransform,
 )
 from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
     Beamformer, MatchedFilter,
 )
+from seismic_bpmf_tpu_torch.models import (  # noqa: E402
+    init_phasenet, make_picker, phasenet_probas_device,
+)
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.beamform import _flatten_moveouts  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
+    candidates, find_picks, get_picks, normalize_batch,
+)
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch  # noqa: E402
 from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
     KM_PER_DEG, closest_weights, lattice, smooth_grid_moveouts, travel_times,
 )
 from seismic_bpmf_tpu_torch.utils.observe import GLOBAL_TIMER  # noqa: E402
+from seismic_bpmf_tpu_torch.utils.time import utc_from_epoch  # noqa: E402
 
 SEED = 20260816
 SR = 25.0
@@ -1125,6 +1161,205 @@ print(f"mf split kernel, one day: {ms13:.2f} ms ({macs / ms13 / 1e6:.0f} "
       f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s), plain {plain13:.0f} ms; "
       f"max|diff| from plain {err13:.3g}, from the f32 kernel {diff13:.3g} "
       f"[{CARD}]", flush=True)
+
+# 14. PhaseNet on the card (f32) against float64 on the CPU
+pn_model = init_phasenet(torch.Generator().manual_seed(SEED + 7))
+pn_model64 = copy.deepcopy(pn_model).cpu().double()
+raw14 = BP_DAYS["d1"][:4, :, 500_000:560_000]
+fband = (cfg_bp.min_freq_hz, cfg_bp.max_freq_hz)
+t0 = time.perf_counter()
+pre14 = preprocess_batch(raw14, SR, *fband)
+pre14_64 = preprocess_batch(torch.from_numpy(raw14.astype(np.float64)), SR,
+                            *fband)
+nb14 = normalize_batch(pre14_64.float().cuda())
+nb14_64 = normalize_batch(pre14_64)
+torch.backends.cudnn.allow_tf32 = True   # the forward must not take it
+pr14 = phasenet_probas_device(pn_model, pre14_64.float())
+if not torch.backends.cudnn.allow_tf32:
+    raise AssertionError("the PhaseNet forward left the TF32 flag changed")
+torch.backends.cudnn.allow_tf32 = False
+pr14_64 = phasenet_probas_device(pn_model64, pre14_64)
+if not (pre14.is_cuda and nb14.is_cuda and pr14.is_cuda
+        and pr14.dtype == torch.float32):
+    raise AssertionError("phase 14: the card results are not f32 on the card")
+err_pre14 = float((pre14.cpu().double() - pre14_64).abs().max()
+                  / pre14_64.abs().max())
+err_nb14 = float((nb14.cpu().double() - nb14_64).abs().max()
+                 / nb14_64.abs().max())
+err_pr14 = float((pr14.cpu().double() - pr14_64).abs().max())
+sum_err14 = float((pr14.sum(dim=1) - 1.0).abs().max())
+if (err_pre14 > 1e-4 or err_nb14 > 1e-4 or err_pr14 > 1e-5
+        or sum_err14 > 1e-5 or not bool(torch.isfinite(pr14).all())):
+    raise AssertionError(
+        f"PhaseNet on the card vs float64: preprocess {err_pre14:.3g}, "
+        f"normalize {err_nb14:.3g} (relative, gate 1e-4), probabilities "
+        f"{err_pr14:.3g}, sums {sum_err14:.3g} (gate 1e-5)")
+print(f"phasenet on the card (f32, TF32 off) vs float64 on the CPU, 4 "
+      f"stations x 60,000 samples: preprocess_batch {err_pre14:.3g}, "
+      f"normalize_batch {err_nb14:.3g} (of the traces' max, gate 1e-4), "
+      f"probabilities {err_pr14:.3g} (gate 1e-5), |sum - 1| {sum_err14:.3g} "
+      f"({time.perf_counter() - t0:.1f} s) [{CARD}]", flush=True)
+del pn_model64, pre14, pre14_64, nb14, nb14_64, pr14, pr14_64
+
+
+# 15. the PhaseNet BP day at full width, through kernel #3
+pn_fn = workflow.phasenet_feature_fn(pn_model)
+pn_kept = {}
+
+
+def pn_feature_fn(arr):
+    """Preprocessing on the card, then PhaseNet's P/S probabilities."""
+    with GLOBAL_TIMER.stage("pn_preprocess"):
+        x = preprocess_batch(arr, SR, *fband)
+        torch.cuda.synchronize()
+    pn_kept["f"] = pn_fn(x)
+    return pn_kept["f"]
+
+
+# random weights put no physics into the probabilities, so the beam of the
+# injected events stands lower above its median than the envelopes' does: a
+# threshold of 4 deviations (15 for the envelopes) gives the picks events
+cfg_pn = Config(sampling_rate_hz=SR, n_dev_bp_threshold=4.0)
+bf15 = Beamformer(network=net_bp, phases=["P", "S"], travel_times=travel,
+                  cfg=cfg_pn)
+PN_STAGES = ("bp_features", "pn_preprocess", "pn_normalize", "pn_forward",
+             "bp_backproject", "bp_detect")
+
+
+def pn_day(data):
+    """One PhaseNet BP day on bf15 (the first builds its plan): (detections,
+    launches, plain calls, wall s, stage s)."""
+    zero_counts()
+    before = {k: GLOBAL_TIMER.times[k] for k in PN_STAGES}
+    t0 = time.perf_counter()
+    _, dets = workflow.backproject_day(data, net_bp, travel, cfg=cfg_pn,
+                                       bf=bf15, feature_fn=pn_feature_fn)
+    torch.cuda.synchronize()
+    return (dets, bp.bp_beam.launches, bp.beamform_plain.calls,
+            time.perf_counter() - t0,
+            {k: GLOBAL_TIMER.times[k] - before[k] for k in PN_STAGES})
+
+
+t15 = time.perf_counter()
+day15 = make_bp_data("d1")
+runs15 = [pn_day(day15)]
+torch.cuda.reset_peak_memory_stats()
+runs15.append(pn_day(day15))
+peak15 = torch.cuda.max_memory_allocated() / 2**30
+feat15 = pn_kept["f"]
+if not (feat15.is_cuda and tuple(feat15.shape) == (N_STA_BP, 2, N_SAMP)):
+    raise AssertionError(f"PhaseNet features {tuple(feat15.shape)} on "
+                         f"{feat15.device}")
+for dets, n_launch, n_plain, _, _ in runs15:
+    if n_launch != 11 or n_plain != 0:
+        raise AssertionError(f"PhaseNet bp day: {n_launch} kernel launches, "
+                             f"{n_plain} plain-version calls")
+dets15 = runs15[1][0]
+keys15 = [[(int(round((e.origin_time_epoch - day15.date_epoch) * SR)),
+            e.aux_data["source_index"]) for e in r[0]] for r in runs15]
+if keys15[0] != keys15[1] or not dets15:
+    raise AssertionError(f"PhaseNet bp day: the two runs disagree or found "
+                         f"nothing: {len(keys15[0])} / {len(keys15[1])}")
+launches_pn = runs15[1][1]
+with torch.profiler.profile(activities=acts) as prof_pn:
+    t0 = time.perf_counter()
+    workflow.backproject_day(day15, net_bp, travel, cfg=cfg_pn, bf=bf15,
+                             feature_fn=pn_feature_fn)
+    torch.cuda.synchronize()
+    prof_pn_s = time.perf_counter() - t0
+busy_pn, top_pn = device_profile(prof_pn, "chip_smoke_pn_profile.txt")
+# the beam of a cut of the day's features against the plain version
+n15 = 100_000
+a15 = min(max(keys15[1][0][0] - n15 // 2, 0), N_SAMP - n15)
+plan15c = bp.BeamformPlan(bf15.moveouts, bf15.weights_phases,
+                          bf15.weights_sources, n15)
+g15c = plan15c.fold_and_pad(feat15[..., a15: a15 + n15])
+kv15, ki15 = plan15c.call_folded(g15c)
+pv15, pi15 = bp.beamform_plain(g15c, plan15c.tables)
+err15 = float((kv15 - pv15[:n15]).abs().max())
+near15 = check_first_max(plan15c.tables, g15c, kv15, ki15, pv15[:n15],
+                         pi15[:n15], "PhaseNet features")
+errs_bp.append(err15)
+del g15c, kv15, ki15, pv15, pi15, plan15c
+# kernel #3 on the day's PhaseNet features
+plan15 = bf15._plan(N_SAMP, "max", "strict")
+g15 = plan15.fold_and_pad(feat15)
+bound15, bound_by15 = bp_bound_ms(plan15.tables, g15)
+ms15 = cuda_ms(lambda: plan15.call_folded(g15), 2)
+del g15
+wall15, st15 = runs15[1][3], runs15[1][4]
+print(f"phasenet bp day (32 x 2 x 2,160,000 features on the card, 100k "
+      f"sources): {len(dets15)} detections, the same (sample, source) in "
+      f"both runs; kernel launches {launches_pn} a run, plain calls 0; "
+      f"warm day {wall15:.3f} s: "
+      + ", ".join(f"{k} {v:.3f} s" for k, v in st15.items())
+      + f"; profiled day {prof_pn_s:.3f} s, device busy {busy_pn:.1f} ms "
+      f"({100 * busy_pn / (1e3 * prof_pn_s):.0f}%): {top_pn}; the beam of "
+      f"samples {a15}-{a15 + n15} vs plain: max|diff| {err15:.3g} "
+      f"(rtol={RTOL}, atol={ATOL}), first-max rule held, {near15} samples "
+      f"with another source within {ATOL} of the maximum; kernel "
+      f"{ms15:.2f} ms a day, bound {bound15:.2f} ms ({bound_by15}); peak "
+      f"device memory of the warm day {peak15:.2f} GiB [{CARD}]", flush=True)
+del plan15
+
+
+# 16. P/S picks on the PhaseNet day's detections
+probas16 = feat15.cpu().numpy()
+wt16 = WaveformTransform(probas16, stations_bp, ["P", "S"], day15.date, SR)
+thr16 = {f"threshold_{ph}": float(np.median(probas16[:, p, ::101]))
+         for p, ph in enumerate("PS")}
+DUR16, OFF16 = 90.0, 20.0
+evs16 = dets15[:20]
+t0 = time.perf_counter()
+tables16 = [ev.pick_PS_phases(DUR16, offset_ot=OFF16, waveform_transform=wt16,
+                              **thr16) for ev in evs16]
+ms16 = 1e3 * (time.perf_counter() - t0) / len(evs16)
+n_picks16 = 0
+for ev, table in zip(evs16, tables16):
+    sub = wt16.slice(utc_from_epoch(ev.origin_time_epoch - OFF16),
+                     duration=DUR16, stations=list(ev.stations),
+                     components=["P", "S"]).transform_arr
+    rows = {}
+    for s, sta in enumerate(ev.stations):
+        rows[sta] = {}
+        for p, ph in enumerate("PS"):
+            v, m, sd = find_picks(sub[s, p], thr16[f"threshold_{ph}"])
+            rows[sta].update({f"{ph}_probas": v,
+                              f"{ph}_picks": m / SR * ev.sr,
+                              f"{ph}_unc": sd / SR * ev.sr})
+    want = get_picks(candidates(rows), buffer_length=0)
+    for c in want.columns:
+        if not np.array_equal(table[c], want[c], equal_nan=True):
+            raise AssertionError(f"event {ev.id}: pick_PS_phases {c} != "
+                                 f"find_picks + get_picks")
+    n_picks16 += int(np.isfinite(table["P_picks"]).sum()
+                     + np.isfinite(table["S_picks"]).sum())
+if n_picks16 == 0:
+    raise AssertionError("no picks on the PhaseNet day's detections")
+picker16 = make_picker(pn_model)
+cols16 = [f"{ph}_{c}" for ph in "PS" for c in ("picks", "probas", "unc")]
+t0 = time.perf_counter()
+for ev in dets15[:3]:
+    table = ev.pick_PS_phases(DUR16, offset_ot=OFF16, picker=picker16,
+                              data_reader=bp_window_reader, **thr16)
+    if (list(table.columns) != cols16 + ["P_abs_picks", "S_abs_picks"]
+            or len(table) != len(ev.stations)
+            or any(table[c].dtype != np.float32 for c in cols16)
+            or any(table[c].dtype != np.dtype("datetime64[ns]")
+                   for c in ("P_abs_picks", "S_abs_picks"))):
+        raise AssertionError(
+            f"picker route: columns {list(table.columns)}, dtypes "
+            f"{[table[c].dtype for c in table.columns]}")
+ms16p = 1e3 * (time.perf_counter() - t0) / 3
+print(f"picks: pick_PS_phases over the day's WaveformTransform on "
+      f"{len(evs16)} detections ({n_picks16} P/S picks at median "
+      f"thresholds) equal to find_picks + get_picks on the same slices, "
+      f"{ms16:.1f} ms per event; the picker route (make_picker, PhaseNet at "
+      f"100 Hz on the card) on 3 detections, columns and dtypes as "
+      f"specified, {ms16p:.1f} ms per event [{CARD}]", flush=True)
+del feat15, probas16, wt16
+print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
+      f"{time.perf_counter() - t15:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{

@@ -6,6 +6,7 @@ from .groups import TemplateGroup
 from .network import Network
 from .readers import data_reader_hdf5, write_hdf5_continuous
 from .stream import Stream, Trace
+from .transform import WaveformTransform
 from .travel_times import SourceTable, TravelTimes
 from .waveforms import Data, get_np_array
 
@@ -20,6 +21,7 @@ __all__ = [
     "TemplateGroup",
     "Trace",
     "TravelTimes",
+    "WaveformTransform",
     "data_reader_hdf5",
     "get_np_array",
     "write_hdf5_continuous",

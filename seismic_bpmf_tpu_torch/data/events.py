@@ -1,11 +1,12 @@
 """Event and Template containers with HDF5 IO.
 
-Copy of the parts of `seismic_bpmf_tpu.data.events` that the matched-filter
-day scan uses (reference parity: `Event`, BPMF/dataset.py:1052-3240, and
-`Template`, BPMF/dataset.py:3243-4079), with the same on-disk HDF5 schema.
-Moveouts are stored as a numpy array aligned to `stations`; the pandas
-table `moveouts` is built only when it is read, with pandas imported
-there.  h5py is imported inside the functions that do file IO.
+Copy of the parts of `seismic_bpmf_tpu.data.events` that the day scans and
+the P/S picking use (reference parity: `Event`, BPMF/dataset.py:1052-3240,
+and `Template`, BPMF/dataset.py:3243-4079), with the same on-disk HDF5
+schema.  Moveouts are stored as a numpy array aligned to `stations`, and
+picks as an `ops.picks.PickTable`; the pandas tables `moveouts` and
+`picks` are built only when they are read, with pandas imported there.
+h5py is imported inside the functions that do file IO.
 """
 
 from __future__ import annotations
@@ -86,6 +87,8 @@ class Event:
         self.id = event_id(self.origin_time) if id is None else str(id)
         self.data_reader = data_reader
         self.aux_data: Dict = {}
+        self.picks_table = None
+        self._picks_df = None
 
     # ------------------------------------------------------------------
     @property
@@ -247,13 +250,116 @@ class Event:
                     fill_value=0.0)
 
     # ------------------------------------------------------------------
+    # picking
+    # ------------------------------------------------------------------
+    @property
+    def picks(self):
+        """The picks of `pick_PS_phases` (or of the event's file) as a
+        pandas DataFrame indexed by station, built from `picks_table` on
+        first access (pandas is imported here).  No attribute before a
+        pick."""
+        if self._picks_df is None:
+            if self.picks_table is None:
+                raise AttributeError("picks")
+            self._picks_df = self.picks_table.to_frame()
+        return self._picks_df
+
+    @picks.setter
+    def picks(self, value):
+        self._picks_df = value
+
+    def pick_PS_phases(
+        self,
+        duration: float,
+        picker: Optional[Callable] = None,
+        threshold_P: float = 0.60,
+        threshold_S: float = 0.60,
+        offset_ot: float = 20.0,
+        picker_sampling_rate: float = 100.0,
+        component_order: str = "ZNE",
+        waveform_transform=None,
+        **reader_kwargs,
+    ):
+        """Pick P/S arrivals with an ML phase picker.
+
+        `picker` follows the reference's picker-callable protocol
+        (BPMF/dataset.py:1729-1736): probas (n_sta, 2, n_t) = picker(x
+        (n_sta, 3, n_t)) with channel order `component_order` at
+        `picker_sampling_rate` (the event's waveforms, read over
+        [origin - offset_ot, + duration) when not read yet, are resampled
+        to it); output phases ordered (P, S).  Or pass
+        `waveform_transform` (a `WaveformTransform` of day-long P/S
+        probability series with components ('P', 'S')) to slice
+        precomputed picker outputs instead of running the model again
+        (reference: BPMF/dataset.py:1833-1852).
+
+        Sets and returns `picks_table`, an `ops.picks.PickTable` with
+        columns {P,S}_{picks,probas,unc} (float32; picks and
+        uncertainties in samples at the event's rate from origin -
+        offset_ot) and {P,S}_abs_picks (datetime64[ns], NaT where no
+        pick); `picks` is its DataFrame.  Reference parity:
+        BPMF/dataset.py:1706-1927 (core path).
+        """
+        from scipy.signal import resample_poly
+
+        from ..ops.picks import candidates, find_picks, get_picks
+
+        if waveform_transform is not None:
+            start = utc_from_epoch(self.origin_time_epoch - offset_ot)
+            sub = waveform_transform.slice(
+                start, duration=duration, stations=list(self.stations),
+                components=["P", "S"],
+            )
+            probas = sub.transform_arr  # (n_sta, 2, n_t)
+            sr_p = waveform_transform.sr
+            if self.sampling_rate is None:
+                self.sampling_rate = sr_p
+        else:
+            if picker is None:
+                raise ValueError(
+                    "provide `picker` or `waveform_transform`"
+                )
+            if not hasattr(self, "traces"):
+                self.read_waveforms(
+                    duration, time_shifted=False, offset_ot=offset_ot,
+                    **reader_kwargs,
+                )
+            arr = self.waveforms_arr  # (n_sta, n_comp(NEZ), n)
+            # reorder to the picker's component order
+            comp_idx = {c: i for i, c in enumerate(self.components)}
+            order = [comp_idx[c] for c in component_order if c in comp_idx]
+            x = arr[:, order, :]
+            if self.sr != picker_sampling_rate:
+                up = int(round(picker_sampling_rate))
+                down = int(round(self.sr))
+                x = resample_poly(x, up, down, axis=-1)
+            probas = np.asarray(picker(x))  # (n_sta, 2, n_t)
+            sr_p = picker_sampling_rate
+        rows = {}
+        for s, sta in enumerate(self.stations):
+            row = {}
+            for p, ph in enumerate(("P", "S")):
+                thr = threshold_P if ph == "P" else threshold_S
+                values, means, stds = find_picks(probas[s, p], thr)
+                row[f"{ph}_probas"] = values
+                row[f"{ph}_picks"] = means / sr_p * self.sr  # native samples
+                row[f"{ph}_unc"] = stds / sr_p * self.sr
+            rows[sta] = row
+        table = get_picks(candidates(rows), buffer_length=0)
+        # absolute times
+        t0 = epoch_from_utc(self.origin_time) - offset_ot
+        for ph in ("P", "S"):
+            v = table[f"{ph}_picks"]
+            abs_t = np.full(len(v), np.datetime64("NaT"), "datetime64[ns]")
+            for i in np.flatnonzero(~np.isnan(v)):
+                abs_t[i] = utc_from_epoch(t0 + float(v[i]) / self.sr)
+            table.columns[f"{ph}_abs_picks"] = abs_t
+        self.picks_table, self._picks_df = table, None
+        return table
+
+    # ------------------------------------------------------------------
     # methods that reach modules not ported yet
     # ------------------------------------------------------------------
-    def pick_PS_phases(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Event.pick_PS_phases is not ported yet (ROADMAP Queue 1 #16)"
-        )
-
     def relocate(self, *args, **kwargs):
         raise NotImplementedError(
             "Event.relocate is not ported yet (ROADMAP Queue 1 #16)"
@@ -478,9 +584,10 @@ class Template(Event):
             event.origin_time, event.moveouts_table(), event.stations,
             event.phases, db_filename, db_path, **hypo,
         )
-        for opt in ("picks", "arrival_times"):
-            if hasattr(event, opt):
-                setattr(template, opt, getattr(event, opt))
+        template.picks_table = event.picks_table
+        template._picks_df = event._picks_df
+        if hasattr(event, "arrival_times"):
+            template.arrival_times = event.arrival_times
         keep = [f"offset_{ph}" for ph in event.phases] + [
             "tid", "cov_mat", "Mw", "Mw_err", "hmax_unc", "hmin_unc",
             "vmax_unc", "az_hmax_unc",

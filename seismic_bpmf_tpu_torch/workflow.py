@@ -123,9 +123,35 @@ def backproject_day(
     return bf, detections
 
 
-def phasenet_feature_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "PhaseNet features are not ported yet (ROADMAP Queue 1 #15)")
+def phasenet_feature_fn(model=None, whole_day: bool = True, device=None,
+                        **kwargs):
+    """Build a feature_fn that runs PhaseNet over the day and returns the
+    (n_sta, 2, n_samp) P/S probabilities as beamforming features.
+
+    `model` is a `models.PhaseNet` or `models.SeisBenchPhaseNet` (its
+    weights inside); None makes `init_phasenet(device=device)`, seeded
+    random weights on `device` (CUDA unless 'cpu' is asked for).  With
+    `whole_day=True` (the JAX package's `device=True`) the whole day is
+    normalized and windowed on the model's device
+    (`phasenet_probas_device`) and the probabilities stay there for the
+    beamformer; with False the host-normalized picker (`make_picker`,
+    forwards on the model's device in small chunks) returns host arrays.
+    `kwargs` go to either."""
+    from .models.phasenet import (
+        init_phasenet, make_picker, phasenet_probas_device, ps_channels,
+    )
+
+    if model is None:
+        model = init_phasenet(device=device)
+    if not whole_day:
+        return make_picker(model, **kwargs)
+    p_idx, s_idx = ps_channels(model)
+
+    def feature_fn(data_arr):
+        probas = phasenet_probas_device(model, data_arr, **kwargs)
+        return probas[:, [p_idx, s_idx], :]  # drop the noise class
+
+    return feature_fn
 
 
 def build_templates(

@@ -9,6 +9,7 @@ oracle copy stands for the reference; tests/test_torch_mf.py pins that
 copy to the JAX package's.
 """
 
+import copy
 from types import SimpleNamespace
 
 import numpy as np
@@ -22,7 +23,9 @@ from seismic_bpmf_tpu_torch.data import (  # noqa: E402
     Data, Network, Stream, TemplateGroup, Trace, TravelTimes,
 )
 from seismic_bpmf_tpu_torch.detection import MatchedFilter  # noqa: E402
+from seismic_bpmf_tpu_torch.models import phasenet  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import picks, signal  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import reference as tref  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5  # the f32 gate of the JAX package's kernel tests
@@ -476,3 +479,105 @@ def test_backproject_day_on_card_matches_cpu(card):
                                    [x[2] for x in found["cpu"][d]],
                                    rtol=1e-4, atol=1e-5)
     assert {x[0] for x in found["cuda"]["d1"]} >= {3000, 8000}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target_sr", [None, 100.0])
+def test_preprocess_and_normalize_on_card_match_float64(card, target_sr):
+    """`preprocess_batch` and `normalize_batch` on the card (f32) against
+    the same functions in float64 on the CPU: within 1e-4 of the traces'
+    maximum."""
+    rng = np.random.default_rng(30)
+    x = (rng.normal(size=(3, 3, 60000)) * 50 + 7).astype(np.float32)
+    got = signal.preprocess_batch(x, 25.0, 2.0, 12.0, target_sr=target_sr,
+                                  device=card)
+    want = signal.preprocess_batch(torch.from_numpy(x.astype(np.float64)),
+                                   25.0, 2.0, 12.0, target_sr=target_sr)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert float((got.cpu().double() - want).abs().max()) <= (
+        1e-4 * float(want.abs().max()))
+    got = picks.normalize_batch(want.float().to(card))
+    want = picks.normalize_batch(want)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert float((got.cpu().double() - want).abs().max()) <= (
+        1e-4 * float(want.abs().max()))
+
+
+def _seisbench_model(seed):
+    torch.manual_seed(seed)
+    model = phasenet.SeisBenchPhaseNet()
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    return model.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phasenet", "seisbench"])
+def test_phasenet_on_card_matches_float64(card, arch):
+    """Both architectures' day probabilities on the card (f32, IEEE
+    convolutions even with the global TF32 flag on) against float64 on the
+    CPU within 1e-5; the flag is the caller's again afterwards; the host
+    normalized route agrees too."""
+    if arch == "phasenet":
+        model = phasenet.init_phasenet(torch.Generator().manual_seed(31),
+                                       device=card)
+    else:
+        model = _seisbench_model(32).to(card)
+    model64 = phasenet.SeisBenchPhaseNet() if arch != "phasenet" else (
+        phasenet.PhaseNet())
+    model64.load_state_dict(model.state_dict())
+    model64 = model64.double().eval()
+    x = np.random.default_rng(33).normal(size=(2, 3, 9000)).astype(
+        np.float32)
+    x[1] *= 30.0
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = phasenet.phasenet_probas_device(model, x)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    want = phasenet.phasenet_probas_device(
+        model64, torch.from_numpy(x.astype(np.float64)))
+    assert got.is_cuda and got.dtype == torch.float32
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-5
+    assert float((got.sum(dim=1) - 1.0).abs().max()) <= 1e-5
+    host = phasenet.sliding_window_probas(model, x)
+    assert float(np.abs(host - want.numpy()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_phasenet_backproject_day_on_card_matches_cpu(card):
+    """A PhaseNet BP day (preprocessing, probabilities, kernel #3, the
+    threshold, the peaks) on the card gives the CPU run's detections, one
+    set of weights on both."""
+    net, tt, make_data = _bp_world(seed=34)
+    cfg = Config(sampling_rate_hz=25.0, n_dev_bp_threshold=3.0)
+    model = phasenet.init_phasenet(torch.Generator().manual_seed(35),
+                                   device="cpu")
+    found = {}
+    for dev in ("cpu", "cuda"):
+        pn = workflow.phasenet_feature_fn(copy.deepcopy(model).to(dev))
+
+        def feature_fn(arr):
+            return pn(signal.preprocess_batch(arr, 25.0, 2.0, 12.0,
+                                              device=dev))
+
+        launches = bp.bp_beam.launches
+        _, dets = workflow.backproject_day(
+            make_data("d1"), net, tt, cfg=cfg, device=dev,
+            feature_fn=feature_fn, num_closest_stations=4,
+            threshold_window_sec=120.0)
+        assert (bp.bp_beam.launches - launches >= 1) == (dev == "cuda")
+        found[dev] = [(round(e.origin_time_epoch * 25.0),
+                       e.aux_data["source_index"], e.aux_data["maxbeam"])
+                      for e in dets]
+    assert found["cpu"]
+    assert [x[:2] for x in found["cuda"]] == [x[:2] for x in found["cpu"]]
+    np.testing.assert_allclose([x[2] for x in found["cuda"]],
+                               [x[2] for x in found["cpu"]],
+                               rtol=1e-4, atol=1e-5)

@@ -324,3 +324,153 @@ def test_bp_oracle_copies_match_the_jax_package(name):
         for a, b in zip(tref.saturated_envelopes(x),
                         jref.saturated_envelopes(x)):
             np.testing.assert_array_equal(a, b)
+
+
+PHASENET_PATH = textwrap.dedent("""
+    import importlib.abc, sys
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.config import Config
+    from seismic_bpmf_tpu_torch.data import (
+        Data, Network, Stream, Trace, TravelTimes, WaveformTransform,
+    )
+    from seismic_bpmf_tpu_torch.models import init_phasenet, make_picker
+    from seismic_bpmf_tpu_torch.ops import bp
+    from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch
+
+    # raw day -> preprocessing -> PhaseNet P/S probabilities -> BP -> picks
+    SR, n_src, n = 25.0, 40, 9000
+    rng = np.random.default_rng(0)
+    sta_x = np.array([0.0, 15.0, 30.0, 45.0])
+    src_x = np.linspace(0.0, 45.0, n_src)
+    dist = np.hypot(src_x[:, None] - sta_x[None, :], 8.0)
+    tt = TravelTimes.from_arrays(
+        {{"P": {{s: dist[:, i] / 6.0 for i, s in enumerate("ABCD")}},
+          "S": {{s: dist[:, i] / 3.4 for i, s in enumerate("ABCD")}}}},
+        {{"longitude": src_x / 111.0, "latitude": np.zeros(n_src),
+          "depth": np.full(n_src, 8.0)}})
+    tt.convert_to_samples(SR)
+    net = Network.from_arrays(list("ABCD"), longitude=sta_x / 111.0,
+                              latitude=np.zeros(4))
+    day = 0.1 * rng.standard_normal((4, 3, n), dtype=np.float32)
+    for o, src in ((3000, 11), (6001, 30)):
+        for s in range(4):
+            for c, ph in ((2, "P"), (0, "S"), (1, "S")):
+                a = o + int(tt.travel_times_samp[ph]["ABCD"[s]][src])
+                day[s, c, a - 20: a + 20] += 8.0 * np.hanning(40)
+
+    def reader(where, stations=None, channels=None, starttime=None,
+               endtime=None, **kw):
+        st = Stream()
+        for s, sta in enumerate("ABCD"):
+            for c, comp in enumerate("NEZ"):
+                if ((stations is None or sta in stations)
+                        and (channels is None or channels.endswith(comp))):
+                    st += Trace(day[s, c], station=sta, channel="HH" + comp,
+                                sampling_rate=SR, starttime=0.0)
+        return st.slice(starttime, endtime)
+
+    model = init_phasenet(torch.Generator().manual_seed(1), device="cpu")
+    pn = workflow.phasenet_feature_fn(model)
+    kept = {{}}
+
+    def feature_fn(arr):
+        kept["f"] = pn(preprocess_batch(arr, SR, 2.0, 12.0, device="cpu"))
+        return kept["f"]
+
+    data = Data("1970-01-01", "d1", reader, duration=n / SR,
+                sampling_rate=SR).read_waveforms()
+    _, dets = workflow.backproject_day(
+        # random weights: a low threshold, so that the picks have events
+        data, net, tt, cfg=Config(sampling_rate_hz=SR, n_dev_bp_threshold=2.0),
+        device="cpu",
+        feature_fn=feature_fn, num_closest_stations=4,
+        threshold_window_sec=120.0)
+    assert kept["f"].shape == (4, 2, n) and dets
+    assert bp.beamform_plain.calls > 0 and bp.bp_beam.launches == 0
+    wt = WaveformTransform(kept["f"].numpy(), list("ABCD"), ["P", "S"],
+                           data.date, SR)
+    probas = kept["f"].numpy()
+    thr = dict(threshold_P=float(np.quantile(probas[:, 0], 0.5)),
+               threshold_S=float(np.quantile(probas[:, 1], 0.5)))
+    for ev in dets[:3]:
+        table = ev.pick_PS_phases(20.0, waveform_transform=wt, **thr)
+        assert list(table.stations) == list("ABCD")
+    table = dets[0].pick_PS_phases(20.0, picker=make_picker(model),
+                                   data_reader=reader, **thr)
+    assert table["P_abs_picks"].dtype == np.dtype("datetime64[ns]")
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("PHASENET_PATH_OK")
+""")
+
+
+def test_phasenet_path_runs_without_jax_pandas_h5py_ml_dtypes():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", PHASENET_PATH.format(blocked=BLOCKED)],
+        capture_output=True, text=True, cwd=str(REPO), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PHASENET_PATH_OK" in proc.stdout
+
+
+def _module_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("forbidden", ["pandas", "h5py", "ml_dtypes"])
+def test_no_port_module_imports_pandas_h5py_at_import(forbidden):
+    files = sorted(PORT.rglob("*.py"))
+    assert any(f.name == "phasenet.py" for f in files)
+    bad = [(str(f.relative_to(REPO)), name) for f in files
+           for name in _module_level_imports(f)
+           if name == forbidden or name.startswith(forbidden + ".")]
+    assert not bad
+
+
+def test_phasenet_entry_points_need_cuda_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.models import phasenet
+    from seismic_bpmf_tpu_torch.ops import picks, signal
+
+    x = np.random.default_rng(0).normal(size=(1, 3, 4000)).astype(np.float32)
+    path = tmp_path / "pn.pt"
+    torch.save(phasenet.SeisBenchPhaseNet().state_dict(), path)
+    calls = [
+        lambda: phasenet.init_phasenet(),
+        lambda: phasenet.load_seisbench_checkpoint(str(path)),
+        lambda: workflow.phasenet_feature_fn(),
+        lambda: signal.preprocess_batch(x, 25.0, 2.0, 12.0),
+        lambda: signal.detrend_linear(x),
+        lambda: picks.normalize_batch(x),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for the CPU, they run; the model's device is the path's device
+    model = phasenet.init_phasenet(device="cpu")
+    feats = workflow.phasenet_feature_fn(model)(x)
+    assert feats.device.type == "cpu" and feats.shape == (1, 2, 4000)
+    assert signal.preprocess_batch(x, 25.0, 2.0, 12.0,
+                                   device="cpu").device.type == "cpu"

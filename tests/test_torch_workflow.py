@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 from seismic_bpmf_tpu import workflow as jwf  # noqa: E402
 from seismic_bpmf_tpu.config import Config  # noqa: E402
 from seismic_bpmf_tpu.data import (  # noqa: E402
@@ -265,3 +266,46 @@ def test_full_workflow_at_high_matches_jax(world):
         rows(jcat["origin_time"].values.astype("datetime64[ns]"),
              jcat["tid"].values, jcat["unique_event"].values)
     assert int(np.sum(tcat["unique_event"])) >= 2
+
+
+def test_backproject_day_with_phasenet_features_matches_jax(world):
+    """PhaseNet features into `backproject_day`, one set of carried weights
+    in both packages: the (n_sta, 2, n) P/S features within 1e-5 (both
+    routes: the whole day on the device, and the host-normalized picker),
+    and identical detections (times and sources) when both packages
+    beamform the same feature array."""
+    from seismic_bpmf_tpu.models import phasenet as jpn
+    from seismic_bpmf_tpu_torch.models import phasenet as tpn
+
+    w = world
+    jmodel, variables = jpn.init_phasenet(jax.random.PRNGKey(2))
+    tmodel = tpn.PhaseNet()
+    tmodel.load_state_dict(tpn.from_flax_variables(
+        jax.tree.map(np.asarray, variables)))
+    arr = w["tdata"].get_np_array(w["tnet"].stations)
+    jfeat = np.array(jwf.phasenet_feature_fn(jmodel, variables)(
+        w["data"].get_np_array(w["net"].stations)))
+    tfeat = twf.phasenet_feature_fn(tmodel)(arr)
+    assert isinstance(tfeat, torch.Tensor)
+    assert tfeat.shape == jfeat.shape == (N_STA, 2, int(DAY * SR))
+    np.testing.assert_allclose(tfeat.numpy(), jfeat, rtol=0, atol=1e-5)
+    host = twf.phasenet_feature_fn(tmodel, whole_day=False)(arr)
+    np.testing.assert_allclose(host, jfeat, rtol=0, atol=1e-5)
+
+    bp_kw = dict(minimum_interevent_time=10.0, threshold_window_sec=150.0,
+                 num_closest_stations=N_STA)
+    _, jdets = jwf.backproject_day(w["data"], w["net"], w["tts"],
+                                   cfg=w["cfg"], feature_fn=lambda a: jfeat,
+                                   **bp_kw)
+    _, tdets = twf.backproject_day(w["tdata"], w["tnet"], w["ttts"],
+                                   cfg=_as_cfg(w["cfg"]), device="cpu",
+                                   feature_fn=lambda a: jfeat, **bp_kw)
+    assert len(jdets) >= 1
+    assert [(e.origin_time, e.aux_data["source_index"]) for e in tdets] == [
+        (e.origin_time, e.aux_data["source_index"]) for e in jdets]
+    # the port's own features, end to end on the CPU
+    _, own = twf.backproject_day(w["tdata"], w["tnet"], w["ttts"],
+                                 cfg=_as_cfg(w["cfg"]), device="cpu",
+                                 feature_fn=twf.phasenet_feature_fn(tmodel),
+                                 **bp_kw)
+    assert all(np.isfinite(e.aux_data["maxbeam"]) for e in own)

@@ -99,8 +99,38 @@ Phases (any failure exits non-zero; nothing is caught):
      `find_picks` + `get_picks` on the same slices; three detections
      through the `picker=make_picker(model)` route, their tables' columns
      and dtypes checked; ms per event.
-It then prints the card line, one JSON line of per-kernel numbers, and as
-the last line {"ok": true, "device": {...}}.
+ 17. kernel #3 against its plain version on the dense-array plan
+     (`tools/dense_world.py`, scripts/dense_array.py's world: 1,000,000
+     lattice sources x 128 stations x 2 phases, closest-20 weights) on a
+     cut of the scan's envelopes around the first event: reduce='max' on
+     2^12 samples under both policies and 'none' on 2^10, rtol=1e-4,
+     atol=1e-5, the first-max rule; the plan tables' host seconds, the
+     kernel's ms and its bound;
+ 18. the dense scan: `backproject_day` over the dense world (128 x 3 x
+     540,000 samples, 21,600 s) through `Beamformer` on the card, twice
+     (the second under torch.profiler); both injected events found within
+     2 samples (of the origin plus the wavelet's envelope peak) and one
+     lattice spacing, kernel launches counted and 0 plain calls, the same
+     detections in both runs, stage seconds, Gpoints/s, the busy share, the
+     peak device memory and the kernel's ms for the scan against its bound;
+ 19. relocation of the best detection on the same grid, as the script
+     does: `relocate(routine="beam")` temporal on 80 s and spatial on 60 s
+     (reduce='none', the argmax on the card, one beam column to the
+     host), both within one lattice spacing of the injected node, the two
+     hypocentres identical, the origin time within 2 s of the
+     detection's, the uncertainties finite, an arrival-time table for
+     every station with P_tt_sec > 0, one kernel launch each; NLLoc's obs
+     and control files from the arrival times written and read back, and
+     `relocate_nlloc` without a binary leaving the event un-relocated;
+ 20. the eikonal solver on the card: `build_travel_time_tables` for the
+     128 stations, P and S, on a 101 x 101 x 31-node, 1 km grid of a
+     layered model, 300 sweeps in f32; a homogeneous grid against straight
+     rays (tests/test_eikonal.py's gates) and two stations' tables against
+     float64 on the card within 1e-3 s; seconds, solves a second, peak
+     device memory.
+It then prints the card line, one JSON line of per-kernel numbers (kernel
+#3's launches those of phases 8, 18 and 19), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -108,8 +138,10 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -135,17 +167,28 @@ from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
 from seismic_bpmf_tpu_torch.models import (  # noqa: E402
     init_phasenet, make_picker, phasenet_probas_device,
 )
+from seismic_bpmf_tpu_torch.location import (  # noqa: E402
+    build_travel_time_tables, layered_velocity_grid, relocate_nlloc,
+    write_nlloc_control, write_nlloc_obs,
+)
+from seismic_bpmf_tpu_torch.location.eikonal import (  # noqa: E402
+    travel_time_grid as eikonal_grid, travel_time_grids as eikonal_grids,
+)
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.beamform import _flatten_moveouts  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
-    candidates, find_picks, get_picks, normalize_batch,
+    PickTable, candidates, find_picks, get_picks, normalize_batch,
 )
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch  # noqa: E402
+from seismic_bpmf_tpu_torch.tools.dense_world import (  # noqa: E402
+    KM_PER_DEG as KM_PER_DEG_DENSE, build_world as build_dense_world,
+)
 from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
     KM_PER_DEG, closest_weights, lattice, smooth_grid_moveouts, travel_times,
 )
+from seismic_bpmf_tpu_torch.utils.geo import two_point_distance  # noqa: E402
 from seismic_bpmf_tpu_torch.utils.observe import GLOBAL_TIMER  # noqa: E402
 from seismic_bpmf_tpu_torch.utils.time import utc_from_epoch  # noqa: E402
 
@@ -164,6 +207,8 @@ ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
 ATOL_HIGHEST = 1e-6                 # the `highest` rung against the oracle
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
+DENSE_CLOSEST = 20                  # scripts/dense_array.py's --closest
+EIK_SHAPE = (101, 101, 31)          # the dense box's eikonal grid, 1 km
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -1358,8 +1403,301 @@ print(f"picks: pick_PS_phases over the day's WaveformTransform on "
       f"100 Hz on the card) on 3 detections, columns and dtypes as "
       f"specified, {ms16p:.1f} ms per event [{CARD}]", flush=True)
 del feat15, probas16, wt16
+t16 = time.perf_counter()
+
+
+# 17. kernel #3 against its plain version on the dense-array plan
+del bf9, bf15, engine, engine11, screen, plan13, dp13
+torch.cuda.empty_cache()
+t17 = time.perf_counter()
+dense = build_dense_world()                 # scripts/dense_array.py's world
+N_SRC_D, N_STA_D = dense.travel_times.n_sources, dense.network.n_stations
+SR_D = dense.data.sr
+n_scan = int(round(dense.data.duration * SR_D))
+world_s = time.perf_counter() - t17
+bf_d = Beamformer(data=dense.data, network=dense.network, phases=["P", "S"],
+                  travel_times=dense.travel_times, cfg=dense.cfg)
+bf_d.set_weights(weights_phases=workflow.default_weights_phases(N_STA_D))
+bf_d.set_weights_sources(method="closest_stations",
+                         num_closest_stations=DENSE_CLOSEST, normalize=True)
+t0 = time.perf_counter()
+plan17 = bf_d._plan(2**12, "max", "strict")     # the tables, built here
+tables_d_s = time.perf_counter() - t0
+tab_d = plan17.tables
+env_d = saturated_envelopes(dense.day)[0]        # (128, 3, n_scan) on card
+a17 = int(dense.event_times[0] * SR_D) - 1000  # a cut around the 1st event
+errs17, near17 = [], 0
+t0 = time.perf_counter()
+for oob in ("strict", "flexible"):
+    p17 = bf_d._plan(2**12, "max", oob)
+    if p17.tables.prog is not tab_d.prog:
+        raise AssertionError("a dense plan of another policy rebuilt its "
+                             "tables")
+    g17 = p17.fold_and_pad(env_d[..., a17: a17 + 2**12])
+    kv, ki = p17.call_folded(g17)
+    pv, pi = bp.beamform_plain(g17, p17.tables)
+    errs17.append(float((kv - pv[: 2**12]).abs().max()))
+    near17 += check_first_max(p17.tables, g17, kv, ki, pv[: 2**12],
+                              pi[: 2**12], f"dense plan, {oob}")
+ms17 = cuda_ms(lambda: p17.call_folded(g17), 3)
+bound17, bound_by17 = bp_bound_ms(p17.tables, g17)
+t1 = time.perf_counter()
+bp.beamform_plain(g17, p17.tables)
+torch.cuda.synchronize()
+plain17 = 1e3 * (time.perf_counter() - t1)
+del g17, kv, ki, pv, pi
+p17n = bf_d._plan(2**10, "none", "flexible")
+g17n = p17n.fold_and_pad(env_d[..., a17: a17 + 2**10])
+kb = p17n.call_folded(g17n)
+pb = bp.beamform_plain(g17n, p17n.tables, reduce="none")
+torch.cuda.synchronize()
+errs17.append(float((kb - pb).abs().max()))
+if not torch.allclose(kb, pb, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"bp kernel != plain (dense plan, none): max|diff| "
+                         f"{errs17[-1]:.3g}")
+del kb, pb, g17n, p17n
+errs_bp += errs17
+rows17 = np.diff(tab_d.stage_row.cpu().numpy())
+print(f"bp kernel vs plain on the dense plan ({N_SRC_D} sources x "
+      f"{tab_d.n_sp} station-phases, closest-{DENSE_CLOSEST}: "
+      f"{tab_d.n_pairs / N_SRC_D:.1f} used pairs a source, "
+      f"{tab_d.n_stages} stages over {tab_d.n_tiles} source tiles, up to "
+      f"{rows17.max()} rows a stage, {tab_d.fma_per_word:.2f} multiply-adds "
+      f"per word loaded from shared memory): max on 2^12 (strict, flexible) "
+      f"and none on 2^10 (flexible), max|diff| {max(errs17):.3g} "
+      f"(rtol={RTOL}, atol={ATOL}), first-max rule held, {near17} samples "
+      f"with another source within {ATOL} of the maximum; kernel "
+      f"{ms17:.3f} ms on 2^12 samples, bound {bound17:.3f} ms "
+      f"({bound_by17}), plain {plain17:.0f} ms; world built in "
+      f"{world_s:.1f} s, plan tables on the host {tables_d_s:.1f} s "
+      f"({time.perf_counter() - t0:.1f} s of checks) [{CARD}]", flush=True)
+
+
+# 18. the dense scan: `backproject_day` over the dense world on the card
+def dense_hits(dets, what):
+    """Each injected event's detection: within 2 samples of its origin
+    plus the wavelet's envelope peak (its centre) and one lattice spacing
+    of its node."""
+    lag = (int(1.5 * SR_D) - 1) / 2 / SR_D
+    for ev_t in dense.event_times:
+        t_exp = dense.data.date_epoch + ev_t + lag
+        hits = [e for e in dets
+                if abs(e.origin_time_epoch - t_exp) <= 2.0 / SR_D
+                and np.all(np.abs(dense.src_km[e.aux_data["source_index"]]
+                                  - dense.src_km[dense.event_src])
+                           <= dense.spacing_km + 1e-9)]
+        if not hits:
+            raise AssertionError(
+                f"{what}: the event at {ev_t} s (node {dense.event_src}) not "
+                f"found: {[(e.origin_time_epoch - t_exp, e.aux_data) for e in dets]}")
+
+
+kw18 = dict(num_closest_stations=DENSE_CLOSEST, minimum_interevent_time=20.0,
+            threshold_window_sec=min(3600.0, dense.data.duration))
+stages18 = ("bp_features", "bp_backproject", "bp_detect")
+zero_counts()
+before = {k: GLOBAL_TIMER.times[k] for k in stages18}
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+_, dets18 = workflow.backproject_day(dense.data, dense.network,
+                                     dense.travel_times, cfg=dense.cfg,
+                                     bf=bf_d, **kw18)
+torch.cuda.synchronize()
+wall18 = time.perf_counter() - t0
+peak18 = torch.cuda.max_memory_allocated() / 2**30
+launches18, plain18 = bp.bp_beam.launches, bp.beamform_plain.calls
+st18 = {k: GLOBAL_TIMER.times[k] - before[k] for k in stages18}
+if launches18 < 1 or plain18 != 0:
+    raise AssertionError(f"dense scan: {launches18} kernel launches, "
+                         f"{plain18} plain-version calls")
+dense_hits(dets18, "dense scan")
+gpts18 = N_SRC_D * n_scan / st18["bp_backproject"] / 1e9
+with torch.profiler.profile(activities=acts) as prof18:
+    t0 = time.perf_counter()
+    _, dets18b = workflow.backproject_day(dense.data, dense.network,
+                                          dense.travel_times, cfg=dense.cfg,
+                                          bf=bf_d, **kw18)
+    torch.cuda.synchronize()
+    prof18_s = time.perf_counter() - t0
+busy18, top18 = device_profile(prof18, "chip_smoke_dense_profile.txt")
+if [e.origin_time_epoch for e in dets18b] != [e.origin_time_epoch
+                                              for e in dets18]:
+    raise AssertionError("dense scan: a second run found other detections")
+plan18 = bf_d._plan(n_scan, "max", "strict")
+g18 = plan18.fold_and_pad(env_d)
+ms18 = cuda_ms(lambda: plan18.call_folded(g18), 1)
+bound18, bound_by18 = bp_bound_ms(plan18.tables, g18)
+del g18
+print(f"dense scan (backproject_day, {N_STA_D} stations x 3 x {n_scan} "
+      f"samples, {N_SRC_D} sources, closest-{DENSE_CLOSEST}): "
+      f"{len(dets18)} detections, both injected events found; kernel "
+      f"launches {launches18}, plain calls 0; {wall18:.2f} s: "
+      + ", ".join(f"{k} {v:.3f} s" for k, v in st18.items())
+      + f"; {gpts18:.1f} Gpoints/s in bp_backproject; profiled run "
+      f"{prof18_s:.3f} s, device busy {busy18:.1f} ms "
+      f"({100 * busy18 / (1e3 * prof18_s):.0f}%): {top18}; kernel "
+      f"{ms18:.1f} ms for the scan ({plan18.n_t_blocks} time tiles, "
+      f"{ms18 / 1e3 * 86400 / dense.data.duration:.2f} s a day at this rate), "
+      f"bound {bound18:.1f} ms ({bound_by18}); peak device memory "
+      f"{peak18:.2f} GiB [{CARD}]", flush=True)
+
+
+# 19. relocation of the best detection on the same 1M-node grid
+best = max(dets18, key=lambda d: d.aux_data["maxbeam"])
+t_data = dense.data.date_epoch
+k19 = max(0, int((best.origin_time_epoch - t_data - 10.0) * SR_D))
+reloc = {}
+zero_counts()
+t19 = time.perf_counter()
+for method, sec in (("temporal", 80.0), ("spatial", 60.0)):
+    ev = copy.deepcopy(best)
+    t0 = time.perf_counter()
+    ev.relocate(bf_d, env_d[..., k19: min(n_scan, k19 + int(sec * SR_D))],
+                routine="beam", uncertainty_method=method,
+                features_starttime=t_data + k19 / SR_D)
+    torch.cuda.synchronize()
+    reloc[method] = (ev, time.perf_counter() - t0)
+    if method == "spatial" and (hasattr(bf_d, "beam")
+                                or bf_d.likelihood.shape != (N_SRC_D,)):
+        raise AssertionError("spatial relocation: the beam reached the host "
+                             "beyond its column at the argmax time")
+launches19, plain19 = bp.bp_beam.launches, bp.beamform_plain.calls
+if launches19 != 2 or plain19 != 0:
+    raise AssertionError(f"relocation: {launches19} kernel launches, "
+                         f"{plain19} plain-version calls")
+ev_t, ev_s = reloc["temporal"][0], reloc["spatial"][0]
+node = dense.src_km[dense.event_src]
+src_d = bf_d.source_coordinates
+for method, (ev, _) in reloc.items():
+    i = int(np.flatnonzero((src_d["longitude"] == ev.longitude)
+                           & (src_d["latitude"] == ev.latitude)
+                           & (src_d["depth"] == ev.depth))[0])
+    at = ev.arrival_times_table
+    if (np.any(np.abs(dense.src_km[i] - node) > dense.spacing_km + 1e-9)
+            or abs(ev.origin_time_epoch - best.origin_time_epoch) > 2.0
+            or not (np.isfinite(ev.hmax_unc) and np.isfinite(ev.vmax_unc))
+            or list(at.stations) != list(dense.network.stations)
+            or not bool((at["P_tt_sec"] > 0).all())):
+        raise AssertionError(
+            f"{method} relocation: node {i} ({dense.src_km[i]} km, injected "
+            f"{node}), origin {ev.origin_time} vs the detection's "
+            f"{best.origin_time}, uncertainties {ev.hmax_unc}, "
+            f"{ev.vmax_unc}, {len(at)} arrival rows")
+if (ev_t.longitude, ev_t.latitude, ev_t.depth) != (
+        ev_s.longitude, ev_s.latitude, ev_s.depth):
+    raise AssertionError(f"temporal {ev_t.location} != spatial "
+                         f"{ev_s.location}")
+err19 = float(two_point_distance(ev_t.longitude, ev_t.latitude, ev_t.depth,
+                                 src_d["longitude"][dense.event_src],
+                                 src_d["latitude"][dense.event_src],
+                                 src_d["depth"][dense.event_src]))
+# NLLoc's files from the relocated source's arrival times, as the script
+# writes them, and read back
+nll_dir = tempfile.mkdtemp(prefix="nlloc_")
+at = ev_t.arrival_times_table
+ev_t.picks_table = PickTable(at.stations, {
+    f"{p}_abs_picks": at[f"{p}_abs_arrival_times"] for p in "PS"})
+write_nlloc_obs(ev_t.origin_time, ev_t.picks_table, list(at.stations),
+                "event.obs", path=nll_dir)
+write_nlloc_control("event.in", "event", "event.obs", nll_dir, nll_dir,
+                    "bpmf")
+with open(os.path.join(nll_dir, "event.obs")) as f:
+    obs = [ln.split("\t") for ln in f.read().splitlines() if ln.strip()]
+with open(os.path.join(nll_dir, "event.in")) as f:
+    ctrl = f.read().splitlines()
+p_first = str(at["P_abs_arrival_times"][0].astype("datetime64[us]"))
+if (len(obs) != 2 * N_STA_D or obs[0][:5] != ["S000", "?", "?", "?", "P"]
+        or obs[0][6:9] != [p_first[0:10].replace("-", ""),
+                           p_first[11:16].replace(":", ""), p_first[17:26]]
+        or any(ln[-1] != "1" for ln in obs)
+        or f"LOCFILES {os.path.join(nll_dir, 'event.obs')} NLLOC_OBS "
+           f"{os.path.join(nll_dir, 'bpmf')} "
+           f"{os.path.join(nll_dir, 'event')}" not in ctrl):
+    raise AssertionError(f"NLLoc files: {obs[:2]}, {ctrl[:4]}")
+shutil.rmtree(nll_dir)
+if shutil.which("NLLoc"):
+    raise AssertionError("an NLLoc binary is on PATH: drive the round trip")
+ev_n = copy.deepcopy(ev_t)
+relocate_nlloc(ev_n)
+if ev_n.aux_data["NLLoc_reloc"] is not False or ev_n.location != ev_t.location:
+    raise AssertionError("relocate_nlloc without a binary moved the event")
+del env_d
+print(f"relocation on the {N_SRC_D}-node grid: temporal (80 s, max) "
+      f"{reloc['temporal'][1]:.2f} s, spatial (60 s, none: the {N_SRC_D} x "
+      f"{int(60 * SR_D)} beam on the card, its argmax there, one column of "
+      f"{N_SRC_D} floats to the host) {reloc['spatial'][1]:.2f} s; the same "
+      f"hypocentre ({ev_t.longitude:.4f}, {ev_t.latitude:.4f}, "
+      f"{ev_t.depth:.2f} km), {err19:.2f} km from the injected node; "
+      f"origin {ev_t.origin_time_epoch - best.origin_time_epoch:+.3f} s from "
+      f"the detection's; hunc {ev_t.hmax_unc:.2f} / {ev_s.hmax_unc:.2f} km, "
+      f"vunc {ev_t.vmax_unc:.2f} / {ev_s.vmax_unc:.2f} km (temporal / "
+      f"spatial); arrival times for {len(at)} stations; NLLoc obs "
+      f"({len(obs)} picks) and control files written and read back; no "
+      f"NLLoc binary: relocate_nlloc leaves NLLoc_reloc False, the round "
+      f"trip waits for a binary in the repository [{CARD}]", flush=True)
+
+
+# 20. the eikonal solver on the card: the dense world's station tables
+t20 = time.perf_counter()
+nx20, ny20, nz20 = EIK_SHAPE
+lons20 = 30.0 + np.arange(nx20) / KM_PER_DEG_DENSE   # 1 km nodes, the box
+lats20 = 40.0 + np.arange(ny20) / KM_PER_DEG_DENSE
+deps20 = np.arange(float(nz20))
+vp20 = np.array([4.5, 5.8, 6.3, 6.8])
+models20 = layered_velocity_grid(np.array([0.0, 5.0, 15.0, 30.0]), vp20,
+                                 vp20 / 1.75, deps20, (nx20, ny20))
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+tts20, _ = build_travel_time_tables(dense.network, lons20, lats20, deps20,
+                                    models20, spacing_km=1.0, n_iters=300)
+eik_s = time.perf_counter() - t0
+peak20 = torch.cuda.max_memory_allocated() / 2**30
+n_solves = sum(len(v) for v in tts20.values())
+# (a) homogeneous medium against straight rays (tests/test_eikonal.py)
+c20 = (nx20 // 2, ny20 // 2, nz20 // 2)
+t_h = eikonal_grid(np.full(EIK_SHAPE, 6.0, np.float32), c20, 1.0,
+                   n_iters=300)
+dist20 = np.sqrt(((np.arange(nx20) - c20[0]) ** 2.0)[:, None, None]
+                 + ((np.arange(ny20) - c20[1]) ** 2.0)[None, :, None]
+                 + ((np.arange(nz20) - c20[2]) ** 2.0)[None, None, :])
+far20 = dist20 > 3.0
+rel20 = np.abs(t_h[far20] - dist20[far20] / 6.0) / (dist20[far20] / 6.0)
+axial20 = float(np.abs(t_h[c20[0], c20[1], c20[2]:]
+                       - np.arange(nz20 - c20[2]) / 6.0).max())
+if (np.median(rel20) >= 0.01 or rel20.max() >= 0.05 or t_h[c20] != 0.0
+        or axial20 > 1e-5):
+    raise AssertionError(f"eikonal, homogeneous: median relative error "
+                         f"{np.median(rel20):.3g}, max {rel20.max():.3g}, "
+                         f"axial {axial20:.3g} s")
+# (b) two stations of the layered case against float64 on the card
+err20 = 0.0
+for s in range(2):
+    sta = dense.network.stations[s]
+    node = (int(np.argmin(np.abs(lons20 - dense.network.longitude[s]))),
+            int(np.argmin(np.abs(lats20 - dense.network.latitude[s]))),
+            int(np.argmin(np.abs(deps20 - dense.network.depth[s]))))
+    for ph in ("P", "S"):
+        t64 = eikonal_grids([models20[ph]], [node], 1.0, n_iters=300,
+                            dtype=torch.float64)[0]
+        err20 = max(err20, float(np.abs(
+            tts20[ph][sta] - t64.cpu().numpy().reshape(-1)).max()))
+if not np.isfinite(err20) or err20 > 1e-3:
+    raise AssertionError(f"eikonal f32 tables vs float64: {err20:.3g} s")
+print(f"eikonal on the card: build_travel_time_tables for {N_STA_D} "
+      f"stations x P, S on a {nx20} x {ny20} x {nz20}-node, 1 km grid "
+      f"(layered vp {vp20.tolist()}, vs = vp / 1.75), 300 sweeps in f32, "
+      f"batches of 128: {eik_s:.2f} s, {n_solves / eik_s:.1f} solves/s, "
+      f"peak device memory {peak20:.2f} GiB; homogeneous vs straight rays: "
+      f"median relative error {np.median(rel20):.2e}, max "
+      f"{rel20.max():.2e} beyond 3 nodes, axial {axial20:.1e} s; two "
+      f"stations' f32 tables vs float64 on the card: max {err20:.2e} s "
+      f"(gate 1e-3) ({time.perf_counter() - t20:.1f} s) [{CARD}]",
+      flush=True)
+launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
-      f"{time.perf_counter() - t15:.0f} s", flush=True)
+      f"{t16 - t15:.0f} s, phases 17-20 {time.perf_counter() - t16:.0f} s",
+      flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{
@@ -1403,7 +1741,7 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/bp.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_bp.py:67",
-    "launches": launches_bp,
+    "launches": launches_bp + launches_dense,
     "max_abs_err": max(errs_bp),
     "ms": ms_bp,
     "plain_ms": plain_ms_bp,

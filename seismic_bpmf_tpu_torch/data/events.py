@@ -1,11 +1,13 @@
 """Event and Template containers with HDF5 IO.
 
-Copy of the parts of `seismic_bpmf_tpu.data.events` that the day scans and
-the P/S picking use (reference parity: `Event`, BPMF/dataset.py:1052-3240,
-and `Template`, BPMF/dataset.py:3243-4079), with the same on-disk HDF5
-schema.  Moveouts are stored as a numpy array aligned to `stations`, and
-picks as an `ops.picks.PickTable`; the pandas tables `moveouts` and
-`picks` are built only when they are read, with pandas imported there.
+Copy of the parts of `seismic_bpmf_tpu.data.events` that the day scans,
+the P/S picking and the relocations use (reference parity: `Event`,
+BPMF/dataset.py:1052-3240, and `Template`, BPMF/dataset.py:3243-4079),
+with the same on-disk HDF5 schema.  Moveouts are stored as a numpy array
+aligned to `stations`, picks and arrival times as `ops.picks.PickTable`s
+(`picks_table`, `arrival_times_table`); the pandas tables `moveouts`,
+`picks` and `arrival_times` are built only when they are read, with pandas
+imported there, and a table set as a DataFrame is read back through them.
 h5py is imported inside the functions that do file IO.
 """
 
@@ -16,8 +18,11 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..ops.picks import PickTable, is_null
 from ..utils.observe import logger
-from ..utils.time import epoch_from_utc, sec_to_samp, utc_from_epoch
+from ..utils.time import (
+    epoch_from_utc, sec_to_samp, timedelta_sec, utc_from_epoch,
+)
 from .stream import Stream, Trace
 from .waveforms import DEFAULT_ALIASES, get_np_array
 
@@ -31,6 +36,30 @@ def _to_datetime64(t) -> np.datetime64:
     if isinstance(t, (int, float)):
         return utc_from_epoch(float(t))
     return np.datetime64(str(t), "ns")
+
+
+def _nulls(values: np.ndarray) -> np.ndarray:
+    """Boolean mask of the NaN / NaT / None cells of a column."""
+    if values.dtype.kind == "M":
+        return np.isnat(values)
+    if values.dtype.kind == "f":
+        return np.isnan(values)
+    return np.array([is_null(v) for v in values], bool)
+
+
+def _with_nulls(values: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """A copy of a column with NaN (NaT for times) where `mask` is set;
+    integer columns become float64 as pandas makes them."""
+    if values.dtype.kind in "iub":
+        values = values.astype(np.float64)
+    out = values.copy()
+    out[mask] = np.datetime64("NaT") if out.dtype.kind == "M" else np.nan
+    return out
+
+
+def _arrivals(ot: np.datetime64, tts) -> np.ndarray:
+    """ot + `Timedelta(seconds=tt)` for each travel time, datetime64[ns]."""
+    return np.array([ot + timedelta_sec(t) for t in tts], "datetime64[ns]")
 
 
 def event_id(origin_time) -> str:
@@ -88,7 +117,7 @@ class Event:
         self.data_reader = data_reader
         self.aux_data: Dict = {}
         self.picks_table = None
-        self._picks_df = None
+        self.arrival_times_table = None
 
     # ------------------------------------------------------------------
     @property
@@ -122,6 +151,9 @@ class Event:
         row = {s: i for i, s in enumerate(self.stations)}
         return self.moveouts_table()[[row[s] for s in stations]]
 
+    def _set_moveouts(self, table: np.ndarray):
+        self._moveouts_raw, self._moveouts_df = table, None
+
     @property
     def origin_time_epoch(self) -> float:
         return epoch_from_utc(self.origin_time)
@@ -149,6 +181,36 @@ class Event:
             n_samples=self.n_samples,
             verbose=False,
         )
+
+    @property
+    def hmax_unc(self):
+        return self._unc("hmax_unc")
+
+    @property
+    def hmin_unc(self):
+        return self._unc("hmin_unc")
+
+    @property
+    def vmax_unc(self):
+        return self._unc("vmax_unc")
+
+    @property
+    def az_hmax_unc(self):
+        return self._unc("az_hmax_unc")
+
+    @property
+    def az_hmin_unc(self):
+        return self._unc("az_hmin_unc")
+
+    @property
+    def pl_vmax_unc(self):
+        return self._unc("pl_vmax_unc")
+
+    def _unc(self, name):
+        if name in self.aux_data:
+            return self.aux_data[name]
+        self.hor_ver_uncertainties()
+        return self.aux_data[name]
 
     # ------------------------------------------------------------------
     def set_aux_data(self, aux_data: Dict):
@@ -253,20 +315,61 @@ class Event:
     # picking
     # ------------------------------------------------------------------
     @property
+    def picks_table(self) -> Optional[PickTable]:
+        """The picks as a PickTable (None before a pick); read from the
+        `picks` DataFrame when one was set or built."""
+        if self._picks_df is not None:
+            return PickTable.from_frame(self._picks_df)
+        return self._picks_table
+
+    @picks_table.setter
+    def picks_table(self, table):
+        self._picks_table, self._picks_df = table, None
+
+    @property
     def picks(self):
         """The picks of `pick_PS_phases` (or of the event's file) as a
         pandas DataFrame indexed by station, built from `picks_table` on
         first access (pandas is imported here).  No attribute before a
         pick."""
         if self._picks_df is None:
-            if self.picks_table is None:
+            if self._picks_table is None:
                 raise AttributeError("picks")
-            self._picks_df = self.picks_table.to_frame()
+            self._picks_df = self._picks_table.to_frame()
         return self._picks_df
 
     @picks.setter
     def picks(self, value):
         self._picks_df = value
+
+    @property
+    def arrival_times_table(self) -> Optional[PickTable]:
+        """The arrival times as a PickTable (None before any), columns
+        {P,S}_tt_sec (float) and {P,S}_abs_arrival_times (datetime64[ns]);
+        read from the `arrival_times` DataFrame when one was set or
+        built."""
+        if self._arrival_times_df is not None:
+            return PickTable.from_frame(self._arrival_times_df)
+        return self._arrival_times_table
+
+    @arrival_times_table.setter
+    def arrival_times_table(self, table):
+        self._arrival_times_table, self._arrival_times_df = table, None
+
+    @property
+    def arrival_times(self):
+        """`arrival_times_table` as the JAX package's DataFrame indexed by
+        station, built on first access (pandas is imported here).  No
+        attribute before any."""
+        if self._arrival_times_df is None:
+            if self._arrival_times_table is None:
+                raise AttributeError("arrival_times")
+            self._arrival_times_df = self._arrival_times_table.to_frame()
+        return self._arrival_times_df
+
+    @arrival_times.setter
+    def arrival_times(self, value):
+        self._arrival_times_df = value
 
     def pick_PS_phases(
         self,
@@ -358,15 +461,435 @@ class Event:
         return table
 
     # ------------------------------------------------------------------
-    # methods that reach modules not ported yet
+    # moveouts, arrival times and distances (reference parity:
+    # BPMF/dataset.py:2653-2689 and the helpers around them)
     # ------------------------------------------------------------------
-    def relocate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Event.relocate is not ported yet (ROADMAP Queue 1 #16)"
+    def set_moveouts_to_empirical_times(self):
+        """Set moveouts from picked arrival times (seconds after origin).
+
+        Reference parity: BPMF/dataset.py:2653-2671.  Picks of stations
+        that are not the event's are skipped."""
+        picks = self.picks_table
+        if picks is None:
+            raise RuntimeError("no picks; call pick_PS_phases first")
+        ot = self.origin_time_epoch
+        table = np.array(self.moveouts_table())
+        row = {s: i for i, s in enumerate(self.stations)}
+        for p, ph in enumerate(self.phases):
+            col = f"{ph.upper()}_abs_picks"
+            if col not in picks.columns:
+                continue
+            for sta, t in zip(picks.stations, picks[col]):
+                if sta in row and not is_null(t):
+                    table[row[sta], p] = epoch_from_utc(t) - ot
+        self._set_moveouts(table)
+
+    def set_moveouts_to_theoretical_times(self, travel_times):
+        """Set moveouts from a (stations x phases) travel-time table: a
+        DataFrame indexed by station, or a PickTable, with one column per
+        phase name.
+
+        Reference parity: BPMF/dataset.py:2673-2689."""
+        if not isinstance(travel_times, PickTable):
+            travel_times = PickTable.from_frame(travel_times)
+        at = {s: i for i, s in enumerate(travel_times.stations)}
+        table = np.array(self.moveouts_table())
+        for p, ph in enumerate(self.phases):
+            for s, sta in enumerate(self.stations):
+                if sta in at:
+                    table[s, p] = travel_times[ph][at[sta]]
+        self._set_moveouts(table)
+
+    def set_arrival_times_from_moveouts(self):
+        """Arrival times assuming arrival = origin time + moveout
+        (reference parity: BPMF/dataset.py
+        `set_arrival_times_from_moveouts`): `arrival_times_table` with
+        {P,S}_abs_arrival_times and {P,S}_tt_sec (float64)."""
+        table = self.moveouts_table()
+        columns = {}
+        for p, ph in enumerate(self.phases):
+            mv = np.asarray(table[:, p], np.float64)
+            columns[f"{ph.upper()}_abs_arrival_times"] = _arrivals(
+                self.origin_time, mv)
+            columns[f"{ph.upper()}_tt_sec"] = mv
+        self.arrival_times_table = PickTable(self.stations, columns)
+
+    def set_source_receiver_dist(self, network):
+        """Hypocentral and epicentral source-receiver distances (km) of the
+        event's stations, from a `Network` (reference parity:
+        BPMF/dataset.py `set_source_receiver_dist`); numpy arrays aligned to
+        `stations` (the JAX package's Series hold the same values)."""
+        from ..utils.geo import compute_distances
+
+        idx = network.stations_idx(list(self.stations))
+        lon, lat = network.longitude[idx], network.latitude[idx]
+        hyp = compute_distances(
+            [self.longitude], [self.latitude], [self.depth],
+            lon, lat, network.depth[idx],
+        )[0]
+        epi = compute_distances(
+            [self.longitude], [self.latitude], [0.0], lon, lat,
+            np.zeros(len(idx)),
+        )[0]
+        self._source_receiver_dist = hyp
+        self._source_receiver_epicentral_dist = epi
+        return hyp
+
+    @property
+    def source_receiver_dist(self) -> np.ndarray:
+        return self._distances("_source_receiver_dist")
+
+    @property
+    def source_receiver_epicentral_dist(self) -> np.ndarray:
+        return self._distances("_source_receiver_epicentral_dist")
+
+    def _distances(self, attr):
+        try:
+            return getattr(self, attr)
+        except AttributeError:
+            raise RuntimeError(
+                "call set_source_receiver_dist(network) first") from None
+
+    def remove_distant_stations(self, network=None,
+                                max_distance_km: float = 50.0):
+        """NaN out picks on stations farther than `max_distance_km`
+        (reference parity: BPMF/dataset.py `remove_distant_stations`)."""
+        if not hasattr(self, "_source_receiver_dist"):
+            if network is None:
+                raise RuntimeError(
+                    "call set_source_receiver_dist(network) first or pass "
+                    "`network`"
+                )
+            self.set_source_receiver_dist(network)
+        picks = self.picks_table
+        if picks is None:
+            return
+        dist = dict(zip(self.stations, self._source_receiver_dist))
+        far = np.array([float(dist.get(s, -np.inf)) > max_distance_km
+                        for s in picks.stations], bool)
+        self.picks_table = PickTable(picks.stations, {
+            c: _with_nulls(v, far) for c, v in picks.columns.items()})
+
+    def update_picks(self):
+        """Refresh relative pick times ({P,S}_picks_sec, float32) against
+        the current origin time (reference parity: BPMF/dataset.py
+        `update_picks`)."""
+        picks = self.picks_table
+        if picks is None:
+            return
+        ot = self.origin_time_epoch
+        columns = dict(picks.columns)
+        for ph in self.phases:
+            ph = ph.upper()
+            col = f"{ph}_abs_picks"
+            if col not in columns:
+                continue
+            sec = np.array(columns.get(f"{ph}_picks_sec",
+                                       np.full(len(picks), np.nan,
+                                               np.float32)))
+            for i in np.flatnonzero(~_nulls(columns[col])):
+                sec[i] = np.float32(epoch_from_utc(columns[col][i]) - ot)
+            columns[f"{ph}_picks_sec"] = sec
+        self.picks_table = PickTable(picks.stations, columns)
+
+    def update_travel_times(self):
+        """Refresh {P,S}_tt_sec against the current origin time
+        (reference parity: BPMF/dataset.py `update_travel_times`)."""
+        at = self.arrival_times_table
+        if at is None:
+            return
+        ot = self.origin_time_epoch
+        columns = dict(at.columns)
+        for ph in self.phases:
+            ph = ph.upper()
+            col = f"{ph}_abs_arrival_times"
+            if col not in columns:
+                continue
+            tt = np.array(columns.get(f"{ph}_tt_sec",
+                                      np.full(len(at), np.nan)))
+            for i in np.flatnonzero(~_nulls(columns[col])):
+                tt[i] = epoch_from_utc(columns[col][i]) - ot
+            columns[f"{ph}_tt_sec"] = tt
+        self.arrival_times_table = PickTable(at.stations, columns)
+
+    def remove_outlier_picks(self, max_diff_percent: float = 25.0,
+                             min_tt: float = 2.0):
+        """Drop picks whose deviation from the predicted arrival time
+        exceeds `max_diff_percent` of the predicted travel time.
+
+        Reference parity: BPMF/dataset.py:2464-2520.  The predicted arrival
+        comes from `arrival_times_table` where it has the station's
+        {ph}_tt_sec (NLLoc's predictions after `relocate_NLLoc`), from
+        {ph}_abs_arrival_times there or else origin time + that travel
+        time; otherwise from origin time + moveout.  Picks whose predicted
+        travel time is below `min_tt` are kept, and the travel time is
+        floored at 5 samples."""
+        picks = self.picks_table
+        if picks is None:
+            return
+        ot = self.origin_time_epoch
+        at = self.arrival_times_table
+        at_row = ({} if at is None
+                  else {s: i for i, s in enumerate(at.stations)})
+        mv_row = {s: i for i, s in enumerate(self.stations)}
+        mv_col = {f"moveouts_{p.upper()}": i
+                  for i, p in enumerate(self.phases)}
+        moveouts = self.moveouts_table()
+        columns = dict(picks.columns)
+        for ph in ("P", "S"):
+            col = f"{ph}_abs_picks"
+            if col not in columns:
+                continue
+            drop = np.zeros(len(picks), bool)
+            for i, sta in enumerate(picks.stations):
+                t = columns[col][i]
+                if is_null(t):
+                    continue
+                j = at_row.get(sta)
+                tt_col, abs_col = f"{ph}_tt_sec", f"{ph}_abs_arrival_times"
+                if (j is not None and tt_col in at.columns
+                        and not is_null(at[tt_col][j])):
+                    predicted_tt = float(at[tt_col][j])
+                    if abs_col in at.columns and not is_null(at[abs_col][j]):
+                        predicted = epoch_from_utc(at[abs_col][j])
+                    else:
+                        # tables with only tt columns (e.g. hand-built):
+                        # absolute arrival = origin time + predicted tt
+                        predicted = ot + predicted_tt
+                elif sta in mv_row and f"moveouts_{ph}" in mv_col:
+                    predicted_tt = float(
+                        moveouts[mv_row[sta], mv_col[f"moveouts_{ph}"]])
+                    predicted = ot + predicted_tt
+                else:
+                    continue
+                if predicted_tt < min_tt:
+                    continue
+                predicted_tt = max(predicted_tt, 5.0 / self.sr)
+                pick = epoch_from_utc(t)
+                drop[i] = (100.0 * abs(pick - predicted) / predicted_tt
+                           > max_diff_percent)
+            for c in (f"{ph}_picks", f"{ph}_probas", f"{ph}_unc", col):
+                if c in columns:
+                    columns[c] = _with_nulls(columns[c], drop)
+        self.picks_table = PickTable(picks.stations, columns)
+
+    # ------------------------------------------------------------------
+    # location uncertainty
+    # ------------------------------------------------------------------
+    def hor_ver_uncertainties(self):
+        """Horizontal/vertical marginals of the location covariance.
+
+        From `self.cov_mat` (3x3, km^2, E-N-Z right-handed), computes the
+        max/min horizontal and max vertical standard errors and azimuths.
+        Reference parity: BPMF/dataset.py:1521-1610.
+        """
+        cov = getattr(self, "cov_mat", None)
+        if cov is None:
+            cov = self.aux_data.get("cov_mat")
+        if cov is None:
+            # unlocated event: report large defaults
+            self.set_aux_data(
+                {"hmax_unc": 15.0, "hmin_unc": 15.0, "vmax_unc": 15.0,
+                 "az_hmax_unc": 0.0, "az_hmin_unc": 90.0,
+                 "pl_vmax_unc": 0.0}
+            )
+            return
+        cov = np.asarray(cov)
+        # horizontal 2x2 block
+        h = cov[:2, :2]
+        w, v = np.linalg.eigh(h)
+        hmax = float(np.sqrt(max(w[1], 0.0)))
+        hmin = float(np.sqrt(max(w[0], 0.0)))
+        az_hmax = float(np.degrees(np.arctan2(v[0, 1], v[1, 1]))) % 180.0
+        az_hmin = float(np.degrees(np.arctan2(v[0, 0], v[1, 0]))) % 180.0
+        vmax = float(np.sqrt(max(cov[2, 2], 0.0)))
+        # plunge of the most-vertical semi-axis of the full 3-D ellipsoid,
+        # measured from VERTICAL as in the reference (arccos of the
+        # vertical direction cosine, folded to [0, 90];
+        # BPMF/dataset.py:1607-1608): 0 deg = vertical axis
+        w3, v3 = np.linalg.eigh(cov)
+        vert = np.sqrt(np.maximum(w3, 0.0)) * np.abs(v3[2, :])
+        i = int(np.argmax(vert))
+        pl_vmax = float(np.degrees(np.arccos(
+            np.clip(np.abs(v3[2, i]), 0.0, 1.0)
+        )))
+        self.set_aux_data(
+            {"hmax_unc": hmax, "hmin_unc": hmin, "vmax_unc": vmax,
+             "az_hmax_unc": az_hmax, "az_hmin_unc": az_hmin,
+             "pl_vmax_unc": pl_vmax}
         )
 
-    relocate_NLLoc = relocate
-    relocate_beam = relocate
+    # ------------------------------------------------------------------
+    # relocation (beam; the NLLoc glue lives in location/)
+    # ------------------------------------------------------------------
+    def relocate(self, *args, routine: str = "beam", **kwargs):
+        routine = routine.lower()
+        if routine == "beam":
+            return self.relocate_beam(*args, **kwargs)
+        elif routine == "nlloc":
+            from ..location.nlloc import relocate_nlloc
+
+            return relocate_nlloc(self, *args, **kwargs)
+        raise ValueError(f"unknown relocation routine {routine!r}")
+
+    def relocate_NLLoc(self, *args, **kwargs):
+        """Reference-name alias (BPMF/dataset.py:2388-2421) for
+        ``relocate(routine='nlloc')``."""
+        return self.relocate(*args, routine="nlloc", **kwargs)
+
+    def relocate_beam(
+        self,
+        beamformer,
+        waveform_features=None,
+        duration: float = 60.0,
+        offset_ot: float = 10.0,
+        phase_on_comp: Dict[str, str] = DEFAULT_PHASE_ON_COMP,
+        component_aliases: Dict[str, List[str]] = DEFAULT_ALIASES,
+        uncertainty_method: str = "spatial",
+        restricted_domain_side_km: float = 100.0,
+        out_of_bounds: str = "flexible",
+        read_waveforms: bool = True,
+        effective_kT: float = 0.33,
+        gibbs_cutoff: float = 0.25,
+        features_starttime: Optional[float] = None,
+        **reader_kwargs,
+    ):
+        """Fine-grid beam relocation: backproject waveform features and move
+        the hypocenter (and origin time) to the beam argmax.
+
+        Reference parity: BPMF/dataset.py:2102-2269.  With
+        ``waveform_features=None`` the event's own waveforms are read in
+        picking mode (``duration`` seconds starting ``offset_ot`` before
+        the origin time), std-normalized per station, and enveloped on the
+        beamformer's device.
+
+        `uncertainty_method`:
+          - ``"spatial"``: the full (source, time) beam stays on the
+            device; its first maximum (row-major, as numpy's argmax) is
+            found there and only the beam's column at that time (n_src
+            floats) comes to the host.  The uncertainty is the
+            likelihood-weighted mean distance over the sources of a
+            ``restricted_domain_side_km`` box at that time.
+          - ``"temporal"``: the max-reduced beam; the uncertainty domain
+            is the set of per-time argmax sources weighted by a Gibbs
+            distribution of the max beam (``effective_kT``,
+            ``gibbs_cutoff``).
+
+        The origin time moves to the beam's argmax time when the features'
+        absolute start time is known (features read here, or
+        ``features_starttime`` in epoch seconds); otherwise it is left
+        unchanged.  Sets `arrival_times_table` from the relocated source's
+        moveouts."""
+        from ..ops.cf import envelope
+
+        if waveform_features is None:
+            if read_waveforms:
+                self.read_waveforms(
+                    duration,
+                    phase_on_comp=phase_on_comp,
+                    component_aliases=component_aliases,
+                    time_shifted=False,
+                    offset_ot=offset_ot,
+                    **reader_kwargs,
+                )
+            data_arr = get_np_array(
+                self.traces, beamformer.network.stations,
+                components=["N", "E", "Z"],
+                n_samples=self.n_samples,
+                component_aliases=self.component_aliases,
+            )
+            if data_arr is None:
+                raise RuntimeError(
+                    "relocate_beam found no waveforms for this event "
+                    "(empty read window?); pass waveform_features or fix "
+                    "the data_reader"
+                )
+            norm = np.std(data_arr, axis=(1, 2), keepdims=True)
+            norm[norm == 0.0] = 1.0
+            waveform_features = envelope(data_arr / norm,
+                                         device=beamformer.device)
+            if features_starttime is None and len(self.traces) > 0:
+                features_starttime = float(self.traces[0].stats.starttime)
+
+        if uncertainty_method == "spatial":
+            src_idx, time_idx, column = beamformer.beam_peak(
+                waveform_features, out_of_bounds=out_of_bounds)
+            peak = float(column[src_idx])
+        elif uncertainty_method == "temporal":
+            beamformer.backproject(
+                waveform_features, reduce="max",
+                out_of_bounds=out_of_bounds,
+            )
+            maxbeam = np.asarray(beamformer.maxbeam)
+            time_idx = int(np.argmax(maxbeam))
+            src_idx = int(beamformer.maxbeam_sources[time_idx])
+            peak = float(maxbeam[time_idx])
+        else:
+            raise ValueError(
+                f"unknown uncertainty_method {uncertainty_method!r} "
+                "(expected 'spatial' or 'temporal')"
+            )
+
+        sr = self.sr or beamformer.data.sr
+        # with relative-to-first moveouts the beam peaks at the FIRST
+        # arrival; shift back to the true origin time and restore absolute
+        # travel times, as find_detections does
+        mv_to_tt = 0.0
+        if (beamformer.moveouts_relative_to_first
+                and hasattr(beamformer.travel_times, "moveout_to_tt")):
+            mv_to_tt = float(
+                np.asarray(beamformer.travel_times.moveout_to_tt)[src_idx]
+            )
+        if features_starttime is not None:
+            self.origin_time = _to_datetime64(
+                utc_from_epoch(
+                    features_starttime + time_idx / sr - mv_to_tt
+                )
+            )
+        src = beamformer.source_coordinates
+        self.longitude = float(src["longitude"][src_idx])
+        self.latitude = float(src["latitude"][src_idx])
+        self.depth = float(src["depth"][src_idx])
+
+        if uncertainty_method == "spatial":
+            domain = beamformer._rectangular_domain(
+                self.longitude, self.latitude,
+                side_km=restricted_domain_side_km,
+            )
+            likelihood = beamformer._likelihood(column)
+            lik_domain = likelihood[domain]
+        else:
+            # Gibbs weights on the min-max-normalized max beam, so that
+            # effective_kT / gibbs_cutoff are scale-free
+            lik_t = beamformer._likelihood(maxbeam)
+            gibbs = np.exp(-(1.0 - lik_t) / effective_kT)
+            sel = gibbs > gibbs_cutoff
+            domain = np.asarray(beamformer.maxbeam_sources)[sel]
+            likelihood = gibbs
+            lik_domain = gibbs[sel]
+        beamformer.likelihood = likelihood
+        hunc, vunc = beamformer._compute_location_uncertainty(
+            self.longitude, self.latitude, self.depth, lik_domain, domain
+        )
+        self.set_aux_data(
+            {"hmax_unc": hunc, "hmin_unc": hunc, "vmax_unc": vunc,
+             "az_hmax_unc": 0.0, "maxbeam_reloc": peak}
+        )
+
+        # arrival-time table from the relocated source's moveouts
+        # (+ moveout_to_tt converts relative-to-first moveouts back to
+        # absolute travel times)
+        tts = (np.asarray(beamformer.moveouts[src_idx], np.float64) / sr
+               + mv_to_tt)
+        columns = {}
+        for p, ph in enumerate(beamformer.phases):
+            ph = str(ph).upper()
+            columns[f"{ph}_tt_sec"] = tts[:, p].astype(np.float32)
+            columns[f"{ph}_abs_arrival_times"] = _arrivals(
+                self.origin_time, tts[:, p])
+        self.arrival_times_table = PickTable(beamformer.network.stations,
+                                             columns)
+        return self
 
     # ------------------------------------------------------------------
     # HDF5 IO (schema-compatible with the reference)
@@ -584,10 +1107,10 @@ class Template(Event):
             event.origin_time, event.moveouts_table(), event.stations,
             event.phases, db_filename, db_path, **hypo,
         )
-        template.picks_table = event.picks_table
+        template._picks_table = event._picks_table
         template._picks_df = event._picks_df
-        if hasattr(event, "arrival_times"):
-            template.arrival_times = event.arrival_times
+        template._arrival_times_table = event._arrival_times_table
+        template._arrival_times_df = event._arrival_times_df
         keep = [f"offset_{ph}" for ph in event.phases] + [
             "tid", "cov_mat", "Mw", "Mw_err", "hmax_unc", "hmin_unc",
             "vmax_unc", "az_hmax_unc",

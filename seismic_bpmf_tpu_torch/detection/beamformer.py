@@ -15,6 +15,7 @@ import zlib
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .._device import resolve_device
 from ..config import Config, DEFAULT_CONFIG
@@ -223,10 +224,13 @@ class Beamformer:
         """The cached plan of these moveouts and weights.  The plan bakes
         in moveouts and both weight sets, so the key fingerprints their
         content: re-running set_weights* rebuilds, never reuses stale
-        device tables.  At most MAX_PLANS stay on the device."""
+        device tables.  A plan of the same content for another day length,
+        reduction or policy shares the cached plan's tables
+        (`BPTables.retimed`).  At most MAX_PLANS stay cached."""
         moveouts = self.moveouts
         content = tuple(
-            zlib.crc32(np.ascontiguousarray(a).tobytes())
+            # the bytes in place: a 1M-source grid's moveouts are GBs
+            zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B"))
             for a in (moveouts, self.weights_phases, self.weights_sources)
         )
         key = (reduce, out_of_bounds, n_samp, self.precision, content)
@@ -234,15 +238,23 @@ class Beamformer:
         if key in plans:
             plans[key] = plans.pop(key)
         else:
+            same = [p.tables for k, p in plans.items() if k[4] == content]
             plans[key] = BeamformPlan(
                 moveouts, self.weights_phases, self.weights_sources, n_samp,
                 reduce=reduce, out_of_bounds=out_of_bounds,
                 precision=self.precision, device=self.device,
+                tables=same[-1] if same else None,
             )
             while len(plans) > MAX_PLANS:
                 plans.pop(next(iter(plans)))
             self._plans = plans
         return plans[key]
+
+    def _check_weights(self):
+        if not hasattr(self, "weights_phases"):
+            raise RuntimeError("set weights_phases first (set_weights)")
+        if not hasattr(self, "weights_sources"):
+            raise RuntimeError("set weights_sources first")
 
     def backproject(
         self,
@@ -256,10 +268,7 @@ class Beamformer:
         Reference parity: BPMF/template_search.py:508-572.  reduce='max'
         sets and returns (maxbeam, maxbeam_sources) as host arrays;
         'none' sets and returns the (n_src, n_samp) beam."""
-        if not hasattr(self, "weights_phases"):
-            raise RuntimeError("set weights_phases first (set_weights)")
-        if not hasattr(self, "weights_sources"):
-            raise RuntimeError("set weights_sources first")
+        self._check_weights()
         plan = self._plan(int(waveform_features.shape[-1]), reduce,
                           out_of_bounds)
         out = plan(waveform_features)
@@ -269,6 +278,21 @@ class Beamformer:
             return self.maxbeam, self.maxbeam_sources
         self.beam = out.cpu().numpy()
         return self.beam
+
+    def beam_peak(self, waveform_features, out_of_bounds: str = "strict"):
+        """The full (n_src, n_samp) beam of the features, kept on the
+        device: (source, sample) of its first maximum in row-major order
+        (numpy's `argmax` of the host beam) and the beam's column at that
+        sample as a host array of n_src floats, the only part of the beam
+        that leaves the device.  Relocation's spatial route (a 1M-source
+        grid's beam of a minute is GBs)."""
+        self._check_weights()
+        plan = self._plan(int(waveform_features.shape[-1]), "none",
+                          out_of_bounds)
+        beam = plan(waveform_features)
+        src, t = divmod(int(torch.argmax(beam)), beam.shape[1])
+        column = beam[:, t].cpu().numpy()
+        return src, t, column
 
     # ------------------------------------------------------------------
     def compute_detection_threshold(

@@ -31,6 +31,7 @@ at column 0 and zeros after it, M > the largest moveout.  Moveouts must be
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -181,6 +182,16 @@ class BPTables:
     @property
     def n_stages(self) -> int:
         return self.stage_row.shape[0] - 1
+
+    def retimed(self, n_samp: int, strict: bool) -> "BPTables":
+        """The same tables for another day length or policy: the device
+        tensors are shared, only the time layout (n_samp, n_t_blocks, ext)
+        and the policy change."""
+        n_t_blocks = max(1, math.ceil(n_samp / TIME_TILE))
+        return dataclasses.replace(
+            self, n_samp=int(n_samp), n_t_blocks=n_t_blocks,
+            ext=self.ext + (n_t_blocks - self.n_t_blocks) * TIME_TILE,
+            strict=bool(strict))
 
     @property
     def fma_per_word(self) -> float:
@@ -334,7 +345,10 @@ def build_tables(mv_flat, w_flat, mv_lo, mv_hi, n_samp: int, strict: bool,
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
     return BPTables(
-        mv=t(mv.T), w=t(w.T, np.float32), lo=t(mv_lo), hi=t(mv_hi),
+        # (n_sp, n_src): transposed by torch on the device (a 1M-source
+        # table is GBs, which numpy transposes slowly)
+        mv=t(mv).t().contiguous(), w=t(w, np.float32).t().contiguous(),
+        lo=t(mv_lo), hi=t(mv_hi),
         tile_stage=t(tile_stage), stage_row=t(stage_row),
         stage_prog=t(stage_prog // 4), prog=t(prog), ent_sp=t(ent_sp),
         ent_lo=t(ent_lo), ent_span=t(ent_span), n_samp=int(n_samp),
@@ -497,7 +511,9 @@ class BeamformPlan:
     consecutive days).  Counterpart of `PallasBeamformPlan`; the TPU's
     blocking knobs and diagnostics have no counterpart (the kernel's tiles
     are fixed in csrc/bp.cu).  `precision` keeps the rung names as error
-    classes (every rung runs the f32 kernel)."""
+    classes (every rung runs the f32 kernel).  `tables`, another plan's
+    tables of the same moveouts and weights, are reused for this plan's
+    day length and policy (`BPTables.retimed`) instead of built anew."""
 
     # max beam points per kernel call before a 'max' day is cut into
     # calls over consecutive time tiles (`call_folded_chunked`, bit for
@@ -507,7 +523,7 @@ class BeamformPlan:
     def __init__(self, moveouts, weights_phases, weights_sources,
                  n_samp: int, reduce: str = "max",
                  out_of_bounds: str = "strict", precision: str = "highest",
-                 device=None):
+                 device=None, tables: BPTables = None):
         if reduce not in ("max", "none"):
             raise ValueError(f"reduce must be 'max' or 'none', got "
                              f"{reduce!r}")
@@ -516,16 +532,19 @@ class BeamformPlan:
                              f"got {out_of_bounds!r}")
         self.mode = _precision_mode(precision)
         self.device = resolve_device(device)
-        mv_flat, w_flat, mv_lo, mv_hi = _flatten_moveouts(
-            moveouts, weights_phases, weights_sources)
-        self.tables = build_tables(mv_flat, w_flat, mv_lo, mv_hi, n_samp,
-                                   out_of_bounds == "strict", self.device)
+        if tables is not None:
+            self.tables = tables.retimed(n_samp, out_of_bounds == "strict")
+        else:
+            self.tables = build_tables(
+                *_flatten_moveouts(moveouts, weights_phases,
+                                   weights_sources),
+                n_samp, out_of_bounds == "strict", self.device)
         self.weights_phases = torch.from_numpy(
             np.ascontiguousarray(weights_phases, np.float32)).to(self.device)
         self.n_samp = int(n_samp)
         self.reduce = reduce
         self.strict = out_of_bounds == "strict"
-        self.n_src, self.n_sp = mv_flat.shape
+        self.n_src, self.n_sp = self.tables.n_src, self.tables.n_sp
         self.n_t_blocks = self.tables.n_t_blocks
         self.ext = self.tables.ext
 

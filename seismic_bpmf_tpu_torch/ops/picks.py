@@ -27,7 +27,7 @@ PICK_COLUMNS = ("picks", "probas", "unc")
 
 
 class PickTable:
-    """Pick columns per station, without pandas.
+    """Pick (or arrival-time) columns per station, without pandas.
 
     `stations` is (n_sta,) str; `columns` maps a column name to an
     (n_sta,) array: float32 selected picks ({P,S}_{picks,probas,unc}),
@@ -56,6 +56,11 @@ class PickTable:
     def from_frame(cls, df) -> "PickTable":
         return cls(np.asarray(df.index),
                    {c: df[c].to_numpy() for c in df.columns})
+
+
+def is_null(v) -> bool:
+    """A cell with no value: None, NaN or NaT (numpy's or pandas')."""
+    return v is None or v != v
 
 
 def candidates(rows: Mapping[str, Mapping[str, np.ndarray]]) -> PickTable:

@@ -14,10 +14,12 @@ VP_KM_S, VS_KM_S = 6.0, 3.4
 KM_PER_DEG = 111.19  # degrees of the synthetic map, at 0 deg latitude
 
 
-def lattice(n_src: int, n_sta: int = 32, seed: int = 1):
+def lattice(n_src: int, n_sta: int = 32, seed: int = 1, rng=None):
     """Sources (n_src, 3) and stations (n_sta, 3) as x, y, depth in km,
-    and the lattice's (nx, ny, nz) spacings in km."""
-    rng = np.random.default_rng(seed)
+    and the lattice's (nx, ny, nz) spacings in km.  The stations are two
+    uniform draws of `rng` (a numpy Generator, default_rng(seed) unless
+    given), which a caller may go on drawing from."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     nz = max(2, int(round((n_src / 64) ** (1.0 / 3.0))))
     nxy = int(np.ceil(np.sqrt(n_src / nz)))
     xs = np.linspace(0.0, 100.0, nxy)

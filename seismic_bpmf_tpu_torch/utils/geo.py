@@ -2,7 +2,7 @@
 
 The part of `seismic_bpmf_tpu.utils.geo` the port uses (the network's
 interstation distances, the beamformer's location-uncertainty
-integrals).  Replaces cartopy.geodesic.Geodesic usage in the
+integrals, the events' source-receiver distances).  Replaces cartopy.geodesic.Geodesic usage in the
 reference (BPMF/dataset.py:204-225) with a vectorized
 WGS84 great-circle implementation (haversine on the WGS84 mean radius with
 a latitude-dependent radius correction is accurate to <0.2% at regional
@@ -55,3 +55,24 @@ def two_point_epicentral_distance(lat_1, lon_1, lat_2, lon_2):
     (lat, lon) argument order (BPMF/utils.py:1778-1802)."""
     return geodesic_distance_km(lon_1, lat_1, lon_2, lat_2)
 
+
+def compute_distances(
+    source_longitudes,
+    source_latitudes,
+    source_depths,
+    receiver_longitudes,
+    receiver_latitudes,
+    receiver_depths,
+):
+    """(n_sources, n_receivers) hypocentral distance matrix in km.
+
+    Reference parity: BPMF/utils.py:1419-1498.
+    """
+    slon = np.asarray(source_longitudes)[:, None]
+    slat = np.asarray(source_latitudes)[:, None]
+    sdep = np.asarray(source_depths)[:, None]
+    rlon = np.asarray(receiver_longitudes)[None, :]
+    rlat = np.asarray(receiver_latitudes)[None, :]
+    rdep = np.asarray(receiver_depths)[None, :]
+    d_epi = geodesic_distance_km(slon, slat, rlon, rlat)
+    return np.sqrt(d_epi**2 + (sdep - rdep) ** 2)

@@ -65,3 +65,9 @@ def epoch_from_utc(t) -> float:
     """datetime64 (or ISO string) -> epoch seconds as float."""
     t = np.datetime64(t, "ns")
     return float(t.astype("int64")) / 1e9
+
+
+def timedelta_sec(sec: float) -> np.timedelta64:
+    """Seconds -> timedelta64[ns] as `pandas.Timedelta(seconds=sec)` makes
+    it: the nanoseconds truncated toward zero."""
+    return np.timedelta64(int(float(sec) * 1_000_000_000), "ns")

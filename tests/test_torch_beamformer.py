@@ -345,11 +345,12 @@ def test_unported_options_raise(world):
     w = world
     with pytest.raises(NotImplementedError, match="Queue 1 #19"):
         Beamformer(network=w["tnet"], device="cpu", mesh=object())
-    # PhaseNet features are ported (tests/test_torch_phasenet.py);
-    # relocation is the event seam still unported
+    # PhaseNet features and relocation are ported
+    # (tests/test_torch_phasenet.py, test_torch_relocation.py); an unknown
+    # relocation routine raises
     event = tdata.Event(0.0, np.zeros((1, 2)), ["A"], ["P", "S"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #16"):
-        event.relocate()
+    with pytest.raises(ValueError, match="unknown relocation routine"):
+        event.relocate(routine="hypoinverse")
     _, tbf = _engines(w)
     with pytest.raises(NotImplementedError, match="Queue 1 #20"):
         tbf.plot_maxbeam()

@@ -581,3 +581,84 @@ def test_phasenet_backproject_day_on_card_matches_cpu(card):
     np.testing.assert_allclose([x[2] for x in found["cuda"]],
                                [x[2] for x in found["cpu"]],
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_eikonal_on_card_matches_cpu(card):
+    """The eikonal solver on the card: a batch of f32 solves within 1e-5 s
+    of the CPU's (IEEE ops on both), each batch row the one-grid solve,
+    and float64 within 1e-9 s; the station tables equal the CPU's."""
+    from seismic_bpmf_tpu_torch.location import eikonal
+
+    v = np.full((21, 19, 23), 4.0, np.float32)
+    v[:, :, 11:] = 6.5
+    srcs = [(0, 0, 0), (10, 9, 3), (20, 18, 22)]
+    got = eikonal.travel_time_grids([v] * 3, srcs, 0.8, n_iters=120,
+                                    device=card)
+    want = eikonal.travel_time_grids([v] * 3, srcs, 0.8, n_iters=120,
+                                     device="cpu")
+    assert got.is_cuda and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    one = eikonal.travel_time_grid(v, srcs[1], 0.8, n_iters=120,
+                                   device=card)
+    np.testing.assert_array_equal(one, got[1].cpu().numpy())
+    g64 = eikonal.travel_time_grids([v] * 3, srcs, 0.8, n_iters=120,
+                                    device=card, dtype=torch.float64)
+    w64 = eikonal.travel_time_grids([v] * 3, srcs, 0.8, n_iters=120,
+                                    device="cpu", dtype=torch.float64)
+    np.testing.assert_allclose(g64.cpu().numpy(), w64.numpy(), rtol=0,
+                               atol=1e-9)
+    net = Network.from_arrays(["A", "B"], latitude=[40.0, 40.2],
+                              longitude=[30.05, 30.3])
+    lons, lats = np.linspace(30.0, 30.4, 9), np.linspace(40.0, 40.3, 7)
+    deps = np.linspace(0.0, 10.0, 6)
+    models = eikonal.layered_velocity_grid(
+        np.array([0.0, 5.0]), np.array([5.0, 6.0]), np.array([2.9, 3.4]),
+        deps, (9, 7))
+    tc, _ = eikonal.build_travel_time_tables(net, lons, lats, deps, models,
+                                             n_iters=60, device=card)
+    tp, _ = eikonal.build_travel_time_tables(net, lons, lats, deps, models,
+                                             n_iters=60, device="cpu")
+    for ph in tp:
+        for sta in tp[ph]:
+            np.testing.assert_allclose(tc[ph][sta], tp[ph][sta], rtol=0,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["spatial", "temporal"])
+def test_relocate_beam_on_card_matches_cpu(card, method):
+    """A small dense world scanned and its best detection relocated on the
+    card (kernel #3, the flexible policy, the device argmax for 'spatial')
+    and on the CPU: the same hypocentre and origin time, the uncertainties
+    within 1e-5 relative, the same arrival-time table."""
+    from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes
+    from seismic_bpmf_tpu_torch.tools.dense_world import build_world
+
+    w = build_world(n_sta=12, n_src=3000, scan_sec=600.0)
+    env = saturated_envelopes(w.data.get_np_array(w.network.stations),
+                              device="cpu")[0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bf, dets = workflow.backproject_day(
+            w.data, w.network, w.travel_times, cfg=w.cfg, device=dev,
+            num_closest_stations=12, minimum_interevent_time=20.0,
+            threshold_window_sec=600.0)
+        ev = copy.deepcopy(max(dets, key=lambda d: d.aux_data["maxbeam"]))
+        k0 = int((ev.origin_time_epoch - w.data.date_epoch - 10.0) * 25.0)
+        launches = bp.bp_beam.launches
+        ev.relocate(bf, env[..., k0:k0 + 1500].to(dev), routine="beam",
+                    uncertainty_method=method,
+                    features_starttime=w.data.date_epoch + k0 / 25.0)
+        assert (bp.bp_beam.launches - launches == 1) == (dev == "cuda")
+        assert not hasattr(bf, "beam")
+        out[dev] = ev
+    c, g = out["cpu"], out["cuda"]
+    assert (g.longitude, g.latitude, g.depth, g.origin_time) == (
+        c.longitude, c.latitude, c.depth, c.origin_time)
+    for k in ("hmax_unc", "vmax_unc", "maxbeam_reloc"):
+        np.testing.assert_allclose(g.aux_data[k], c.aux_data[k], rtol=1e-5)
+    for col in c.arrival_times_table.columns:
+        np.testing.assert_array_equal(g.arrival_times_table[col],
+                                      c.arrival_times_table[col])

@@ -474,3 +474,102 @@ def test_phasenet_entry_points_need_cuda_unless_asked_for_the_cpu(tmp_path):
     assert feats.device.type == "cpu" and feats.shape == (1, 2, 4000)
     assert signal.preprocess_batch(x, 25.0, 2.0, 12.0,
                                    device="cpu").device.type == "cpu"
+
+
+DENSE_PATH = textwrap.dedent("""
+    import importlib.abc, sys, tempfile, os
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import copy
+    import numpy as np
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.location import (
+        build_travel_time_tables, layered_velocity_grid, read_nlloc_outputs,
+        relocate_nlloc, write_nlloc_control, write_nlloc_grids,
+        write_nlloc_obs,
+    )
+    from seismic_bpmf_tpu_torch.ops import bp
+    from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes
+    from seismic_bpmf_tpu_torch.ops.picks import PickTable
+    from seismic_bpmf_tpu_torch.tools.dense_world import build_world
+
+    # the dense path at a small size: scan, relocation both ways, NLLoc
+    # files, the eikonal tables
+    w = build_world(n_sta=8, n_src=600, scan_sec=400.0)
+    bf, dets = workflow.backproject_day(
+        w.data, w.network, w.travel_times, cfg=w.cfg, device="cpu",
+        num_closest_stations=8, minimum_interevent_time=20.0,
+        threshold_window_sec=400.0)
+    best = max(dets, key=lambda d: d.aux_data["maxbeam"])
+    env = saturated_envelopes(w.data.get_np_array(w.network.stations),
+                              device="cpu")[0]
+    k0 = int((best.origin_time_epoch - w.data.date_epoch - 10.0) * 25.0)
+    start = w.data.date_epoch + k0 / 25.0
+    locs = []
+    for method, n in (("temporal", 2000), ("spatial", 1500)):
+        ev = copy.deepcopy(best)
+        ev.relocate(bf, env[..., k0:k0 + n], routine="beam",
+                    uncertainty_method=method, features_starttime=start)
+        locs.append((ev.longitude, ev.latitude, ev.depth))
+        assert np.isfinite(ev.hmax_unc) and np.isfinite(ev.vmax_unc)
+        at = ev.arrival_times_table
+        assert (at["P_tt_sec"] > 0).all(), at.columns
+    assert locs[0] == locs[1], locs
+    own = copy.deepcopy(best).relocate_beam(bf, duration=40.0)
+    assert abs(own.origin_time_epoch - best.origin_time_epoch) < 2.0
+    assert bp.beamform_plain.calls > 0 and bp.bp_beam.launches == 0
+
+    d = tempfile.mkdtemp()
+    ev.picks_table = PickTable(at.stations, {{
+        f"{{p}}_abs_picks": at[f"{{p}}_abs_arrival_times"] for p in "PS"}})
+    write_nlloc_obs(ev.origin_time, ev.picks_table, list(at.stations),
+                    "ev.obs", path=d)
+    write_nlloc_control("ev.in", "ev", "ev.obs", d, d, "bpmf")
+    lons, lats = np.linspace(30.0, 30.9, 6), np.linspace(40.0, 40.9, 5)
+    deps = np.linspace(0.0, 20.0, 5)
+    models = layered_velocity_grid(np.array([0.0, 10.0]),
+                                   np.array([5.0, 6.0]),
+                                   np.array([2.9, 3.4]), deps, (6, 5))
+    tts, _ = build_travel_time_tables(w.network.subset(
+        list(w.network.stations[:2]), ["Z"]), lons, lats, deps, models,
+        n_iters=20, device="cpu")
+    write_nlloc_grids(tts, dict(origin_lon=30.0, origin_lat=40.0,
+                                origin_dep=0.0, d_lon_km=15.0,
+                                d_lat_km=20.0, d_dep_km=5.0,
+                                shape=(6, 5, 5)), w.network, d, "bpmf")
+    assert len(os.listdir(d)) == 2 + 2 * 2 * 2
+    open(os.path.join(d, "ev.hyp"), "w").write(
+        'NLLOC "x" "LOCATED" "y"\\n'
+        "GEOGRAPHIC  OT 2012 07 26 01 00 2.125  Lat 40.3 Long 30.2 "
+        "Depth 8.7\\n")
+    hypo, predicted = read_nlloc_outputs("ev.hyp", d)
+    assert hypo["success"] and len(predicted) == 0
+    relocate_nlloc(ev, nlloc_bin=os.path.join(d, "no_NLLoc_here"))
+    assert ev.aux_data["NLLoc_reloc"] is False
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("DENSE_PATH_OK")
+""")
+
+
+def test_dense_path_runs_without_jax_pandas_h5py_ml_dtypes():
+    """The dense-array path (BP scan, beam relocation both ways, the NLLoc
+    writers and parser, the eikonal tables) imports neither JAX nor the JAX
+    package, and runs with pandas and h5py blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", DENSE_PATH.format(blocked=BLOCKED)],
+        capture_output=True, text=True, cwd=str(REPO), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "DENSE_PATH_OK" in proc.stdout

@@ -172,7 +172,8 @@ from seismic_bpmf_tpu_torch.location import (  # noqa: E402
     write_nlloc_control, write_nlloc_obs,
 )
 from seismic_bpmf_tpu_torch.location.eikonal import (  # noqa: E402
-    travel_time_grid as eikonal_grid, travel_time_grids as eikonal_grids,
+    solves_per_batch as eikonal_batch, travel_time_grid as eikonal_grid,
+    travel_time_grids as eikonal_grids,
 )
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.beamform import _flatten_moveouts  # noqa: E402
@@ -1687,7 +1688,8 @@ if not np.isfinite(err20) or err20 > 1e-3:
 print(f"eikonal on the card: build_travel_time_tables for {N_STA_D} "
       f"stations x P, S on a {nx20} x {ny20} x {nz20}-node, 1 km grid "
       f"(layered vp {vp20.tolist()}, vs = vp / 1.75), 300 sweeps in f32, "
-      f"batches of 128: {eik_s:.2f} s, {n_solves / eik_s:.1f} solves/s, "
+      f"batches of {eikonal_batch(nx20 * ny20 * nz20)}: {eik_s:.2f} s, "
+      f"{n_solves / eik_s:.1f} solves/s, "
       f"peak device memory {peak20:.2f} GiB; homogeneous vs straight rays: "
       f"median relative error {np.median(rel20):.2e}, max "
       f"{rel20.max():.2e} beyond 3 nodes, axial {axial20:.1e} s; two "

@@ -7,7 +7,8 @@ with the same on-disk HDF5 schema.  Moveouts are stored as a numpy array
 aligned to `stations`, picks and arrival times as `ops.picks.PickTable`s
 (`picks_table`, `arrival_times_table`); the pandas tables `moveouts`,
 `picks` and `arrival_times` are built only when they are read, with pandas
-imported there, and a table set as a DataFrame is read back through them.
+imported there.  Each of the two pick tables has one store, holding the
+form set or read last (`Event._table`, `Event._frame`).
 h5py is imported inside the functions that do file IO.
 """
 
@@ -116,8 +117,7 @@ class Event:
         self.id = event_id(self.origin_time) if id is None else str(id)
         self.data_reader = data_reader
         self.aux_data: Dict = {}
-        self.picks_table = None
-        self.arrival_times_table = None
+        self._tables = {"picks": None, "arrival_times": None}
 
     # ------------------------------------------------------------------
     @property
@@ -314,62 +314,67 @@ class Event:
     # ------------------------------------------------------------------
     # picking
     # ------------------------------------------------------------------
+    def _table(self, name: str) -> Optional[PickTable]:
+        """The `name` table ('picks' or 'arrival_times') as a PickTable
+        (None before any).  Each table has one store, which holds what was
+        set or read last; a DataFrame there is converted once and replaced,
+        so repeated reads give one object and in-place edits persist."""
+        value = self._tables[name]
+        if value is not None and not isinstance(value, PickTable):
+            value = self._tables[name] = PickTable.from_frame(value)
+        return value
+
+    def _frame(self, name: str):
+        """The `name` table as the JAX package's DataFrame indexed by
+        station, built from the PickTable in the store on first read
+        (pandas imported there) and kept in its place."""
+        value = self._tables[name]
+        if value is None:
+            raise AttributeError(name)
+        if isinstance(value, PickTable):
+            value = self._tables[name] = value.to_frame()
+        return value
+
     @property
     def picks_table(self) -> Optional[PickTable]:
-        """The picks as a PickTable (None before a pick); read from the
-        `picks` DataFrame when one was set or built."""
-        if self._picks_df is not None:
-            return PickTable.from_frame(self._picks_df)
-        return self._picks_table
+        """The picks as a PickTable (None before a pick)."""
+        return self._table("picks")
 
     @picks_table.setter
     def picks_table(self, table):
-        self._picks_table, self._picks_df = table, None
+        self._tables["picks"] = table
 
     @property
     def picks(self):
         """The picks of `pick_PS_phases` (or of the event's file) as a
-        pandas DataFrame indexed by station, built from `picks_table` on
-        first access (pandas is imported here).  No attribute before a
+        pandas DataFrame indexed by station.  No attribute before a
         pick."""
-        if self._picks_df is None:
-            if self._picks_table is None:
-                raise AttributeError("picks")
-            self._picks_df = self._picks_table.to_frame()
-        return self._picks_df
+        return self._frame("picks")
 
     @picks.setter
     def picks(self, value):
-        self._picks_df = value
+        self._tables["picks"] = value
 
     @property
     def arrival_times_table(self) -> Optional[PickTable]:
         """The arrival times as a PickTable (None before any), columns
-        {P,S}_tt_sec (float) and {P,S}_abs_arrival_times (datetime64[ns]);
-        read from the `arrival_times` DataFrame when one was set or
-        built."""
-        if self._arrival_times_df is not None:
-            return PickTable.from_frame(self._arrival_times_df)
-        return self._arrival_times_table
+        {P,S}_tt_sec (float) and {P,S}_abs_arrival_times
+        (datetime64[ns])."""
+        return self._table("arrival_times")
 
     @arrival_times_table.setter
     def arrival_times_table(self, table):
-        self._arrival_times_table, self._arrival_times_df = table, None
+        self._tables["arrival_times"] = table
 
     @property
     def arrival_times(self):
-        """`arrival_times_table` as the JAX package's DataFrame indexed by
-        station, built on first access (pandas is imported here).  No
+        """The arrival times as a pandas DataFrame indexed by station.  No
         attribute before any."""
-        if self._arrival_times_df is None:
-            if self._arrival_times_table is None:
-                raise AttributeError("arrival_times")
-            self._arrival_times_df = self._arrival_times_table.to_frame()
-        return self._arrival_times_df
+        return self._frame("arrival_times")
 
     @arrival_times.setter
     def arrival_times(self, value):
-        self._arrival_times_df = value
+        self._tables["arrival_times"] = value
 
     def pick_PS_phases(
         self,
@@ -457,7 +462,7 @@ class Event:
             for i in np.flatnonzero(~np.isnan(v)):
                 abs_t[i] = utc_from_epoch(t0 + float(v[i]) / self.sr)
             table.columns[f"{ph}_abs_picks"] = abs_t
-        self.picks_table, self._picks_df = table, None
+        self.picks_table = table
         return table
 
     # ------------------------------------------------------------------
@@ -1107,10 +1112,8 @@ class Template(Event):
             event.origin_time, event.moveouts_table(), event.stations,
             event.phases, db_filename, db_path, **hypo,
         )
-        template._picks_table = event._picks_table
-        template._picks_df = event._picks_df
-        template._arrival_times_table = event._arrival_times_table
-        template._arrival_times_df = event._arrival_times_df
+        template.picks_table = event.picks_table
+        template.arrival_times_table = event.arrival_times_table
         keep = [f"offset_{ph}" for ph in event.phases] + [
             "tid", "cov_mat", "Mw", "Mw_err", "hmax_unc", "hmin_unc",
             "vmax_unc", "az_hmax_unc",

@@ -279,7 +279,7 @@ class Beamformer:
         self.beam = out.cpu().numpy()
         return self.beam
 
-    def beam_peak(self, waveform_features, out_of_bounds: str = "strict"):
+    def beam_peak(self, waveform_features, out_of_bounds: str):
         """The full (n_src, n_samp) beam of the features, kept on the
         device: (source, sample) of its first maximum in row-major order
         (numpy's `argmax` of the host beam) and the beam's column at that

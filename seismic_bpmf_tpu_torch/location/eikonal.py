@@ -33,6 +33,16 @@ import torch
 from .._device import resolve_device
 
 BIG = 1e6  # the initial time of every node outside the source ball
+# `build_travel_time_tables` solves its (station, phase) grids in batches:
+# a solve holds about SOLVE_WORDS grid-sized tensors at once during the
+# sweeps, and a batch is cut to hold at most BATCH_BYTES of them.
+SOLVE_WORDS = 40
+BATCH_BYTES = 8 << 30
+
+
+def solves_per_batch(n_nodes: int, itemsize: int = 4) -> int:
+    """Solves of an n_nodes grid that one batch holds within BATCH_BYTES."""
+    return max(1, BATCH_BYTES // (SOLVE_WORDS * itemsize * n_nodes))
 
 
 def _shift(t: torch.Tensor, ax: int, d: int) -> torch.Tensor:
@@ -232,16 +242,16 @@ def build_travel_time_tables(
     spacing_km: Optional[float] = None,
     output_path: Optional[str] = None,
     n_iters: int = 300,
-    batch: int = 128,
     device=None,
 ):
     """Station-to-grid travel-time tables through the eikonal solver.
 
     For each station, solves the eikonal equation with the source at the
     nearest grid node (reciprocity) and samples all (lon, lat, depth)
-    source nodes; `batch` (station, phase) solves run at once on `device`
-    (CUDA unless 'cpu' is asked for).  Writes the reference HDF5 contract
-    if `output_path` is given (h5py imported then).
+    source nodes; the (station, phase) solves run in batches of
+    `solves_per_batch` on `device` (CUDA unless 'cpu' is asked for).
+    Writes the reference HDF5 contract if `output_path` is given (h5py
+    imported then).
 
     Returns ({phase: {station: (n_sources,) f32}}, source coordinates)."""
     from ..data.travel_times import TravelTimes
@@ -271,6 +281,7 @@ def build_travel_time_tables(
         iz = int(np.argmin(np.abs(grid_depths_km - network.depth[s])))
         items += [(ph, sta, (ix, iy, iz)) for ph in velocity_models]
     tts: Dict[str, Dict[str, np.ndarray]] = {ph: {} for ph in velocity_models}
+    batch = solves_per_batch(nx * ny * nz)
     for b0 in range(0, len(items), batch):
         part = items[b0: b0 + batch]
         t = travel_time_grids([velocity_models[ph] for ph, _, _ in part],

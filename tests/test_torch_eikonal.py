@@ -136,8 +136,13 @@ def _networks():
 
 
 @pytest.mark.parametrize("batch", [1, 3, 8])
-def test_build_travel_time_tables_matches_jax(tmp_path, batch):
+def test_build_travel_time_tables_matches_jax(tmp_path, monkeypatch, batch):
+    """Equal to the JAX tables however the solves fall into batches."""
     jnet, tnet = _networks()
+    n_nodes = 11 * 12 * 7
+    monkeypatch.setattr(te, "BATCH_BYTES",
+                        batch * te.SOLVE_WORDS * 4 * n_nodes)
+    assert te.solves_per_batch(n_nodes) == batch
     lons = np.linspace(30.0, 30.2, 11)
     lats = np.linspace(40.0, 40.2, 12)
     deps = np.linspace(-1.0, 8.0, 7)
@@ -148,7 +153,7 @@ def test_build_travel_time_tables_matches_jax(tmp_path, batch):
                                                 models, n_iters=80)
     path = str(tmp_path / "tts.h5")
     got, coords = te.build_travel_time_tables(
-        tnet, lons, lats, deps, models, n_iters=80, batch=batch,
+        tnet, lons, lats, deps, models, n_iters=80,
         output_path=path, device="cpu")
     for k in ("longitude", "latitude", "depth"):
         np.testing.assert_array_equal(coords[k], wcoords[k])

@@ -379,9 +379,16 @@ def test_picks_and_arrival_times_are_dataframes_only_when_read():
     _, te = _pair()
     assert not hasattr(te, "picks") and not hasattr(te, "arrival_times")
     te.set_arrival_times_from_moveouts()
-    assert te._arrival_times_df is None
+    assert isinstance(te._tables["arrival_times"], PickTable)
+    table = te.arrival_times_table
+    assert te.arrival_times_table is table    # one object, read twice
+    table["P_tt_sec"][1] = 42.0               # an edit of the table persists
     frame = te.arrival_times
+    assert te.arrival_times is frame
     assert frame.index.name == "stations" and list(frame.columns) == [
         "P_abs_arrival_times", "P_tt_sec", "S_abs_arrival_times", "S_tt_sec"]
+    assert frame.loc["ST2", "P_tt_sec"] == 42.0
     frame.loc["ST1", "P_tt_sec"] = 99.0       # an edit of the view persists
-    assert te.arrival_times_table["P_tt_sec"][0] == 99.0
+    table = te.arrival_times_table
+    assert table["P_tt_sec"][0] == 99.0 and table["P_tt_sec"][1] == 42.0
+    assert te.arrival_times_table is table

@@ -127,6 +127,19 @@ Phases (any failure exits non-zero; nothing is caught):
      layered model, 300 sweeps in f32; a homogeneous grid against straight
      rays (tests/test_eikonal.py's gates) and two stations' tables against
      float64 on the card within 1e-3 s; seconds, solves a second, peak
+     device memory;
+ 21. the magnitude path (`tools/magnitude_world.py`: 10 stations x 3
+     components at 100 Hz, 30 INT32 miniSEED files of 6 h, 10 StationXML,
+     12 events of Mw 2.0-3.5): three windowed reads equal to a whole-file
+     decode followed by `slice`; for every event on the card
+     `extract_windows(attach_response=True)` through `data_reader_mseed`,
+     `compute_moment_magnitude` and `approximate_moment_magnitude`, the fit
+     within 0.25 of the injected Mw and Mw* within 0.3
+     (tests/test_response.py's gates), the response FFT launched on the
+     card at least 3 times an event; two events again with device="cpu"
+     (windows within 1e-5 of their maximum, Mw and Mw* within 1e-3);
+     `workflow.compute_magnitudes` over the 12 events; the world's
+     seconds, each event's seconds by stage, events a second and the peak
      device memory.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
 #3's launches those of phases 8, 18 and 19), and as the last line
@@ -183,6 +196,16 @@ from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
 )
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import response  # noqa: E402
+from seismic_bpmf_tpu_torch.data import data_reader_mseed  # noqa: E402
+from seismic_bpmf_tpu_torch.data.mseed import read_mseed  # noqa: E402
+from seismic_bpmf_tpu_torch.source import (  # noqa: E402
+    Spectrum, approximate_moment_magnitude, compute_moment_magnitude,
+    extract_windows,
+)
+from seismic_bpmf_tpu_torch.tools.magnitude_world import (  # noqa: E402
+    build_world as build_magnitude_world,
+)
 from seismic_bpmf_tpu_torch.tools.dense_world import (  # noqa: E402
     KM_PER_DEG as KM_PER_DEG_DENSE, build_world as build_dense_world,
 )
@@ -274,6 +297,18 @@ def zero_counts():
     mf.mf_cc_highest.launches = 0
     mf.mf_cc_split.launches = mf.matched_filter_split_plain.calls = 0
     bp.bp_beam.launches = bp.beamform_plain.calls = 0
+    response.apply_spectral_filter.launches = 0
+
+
+def timed(fn, seconds: dict, key: str):
+    """`fn`, adding the host seconds of each call to seconds[key]."""
+    def call(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[key] += time.perf_counter() - t
+    return call
 
 
 def kernel_bound_ms(plan, data_pad) -> tuple:
@@ -1696,10 +1731,134 @@ print(f"eikonal on the card: build_travel_time_tables for {N_STA_D} "
       f"stations' f32 tables vs float64 on the card: max {err20:.2e} s "
       f"(gate 1e-3) ({time.perf_counter() - t20:.1f} s) [{CARD}]",
       flush=True)
+# --------------------------------------------------------------------------
+# 21. the magnitude path on the card: miniSEED days and StationXML ->
+#     response removal -> spectra -> Mw and Mw* -> compute_magnitudes
+t21 = time.perf_counter()
+MAG_KW = dict(duration_sec=4.0, attach_response=True, taper_percentage=0.0,
+              pre_filt=(0.2, 0.5, 45.0, 49.0))
+mag_root = tempfile.mkdtemp(prefix="magnitude_world_")
+t0 = time.perf_counter()
+mag = build_magnitude_world(mag_root)
+world_s = time.perf_counter() - t0
+N_EV = len(mag.events)
+# three windowed reads against a whole-file decode followed by `slice`
+t0 = time.perf_counter()
+for f, e, off in ((0, 0, 0.0), (len(mag.files) // 2, N_EV // 2, 7.25),
+                  (len(mag.files) - 1, N_EV - 1, 19.99)):
+    a21 = mag.events[e].origin_time_epoch + off
+    win21 = read_mseed(mag.files[f], a21, a21 + 4.0)
+    whole21 = read_mseed(mag.files[f]).slice(a21, a21 + 4.0)
+    if not (len(win21) == len(whole21) == 1
+            and win21[0].stats.starttime == whole21[0].stats.starttime
+            and np.array_equal(win21[0].data, whole21[0].data)
+            and len(win21[0].data) == 401):
+        raise AssertionError(f"windowed read of {mag.files[f]} at {a21} "
+                             "differs from the whole decode")
+check21_s = time.perf_counter() - t0
+# the card run: each event's stage seconds from wrappers around the reader,
+# the response removal and the fit
+sec21 = {"read": 0.0, "response": 0.0, "fit": 0.0}
+reader21 = timed(data_reader_mseed, sec21, "read")
+remove_plain = response.remove_response_arr
+response.remove_response_arr = timed(remove_plain, sec21, "response")
+fit_plain = Spectrum.fit_average_spectrum
+Spectrum.fit_average_spectrum = timed(fit_plain, sec21, "fit")
+rows21, kept21 = [], {}
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+held21 = torch.cuda.memory_allocated()   # still held from earlier phases
+zero_counts()
+t0 = time.perf_counter()
+for e, (ev, mw_inj) in enumerate(zip(mag.events, mag.mw)):
+    before = dict(sec21)
+    t_ev = time.perf_counter()
+    win = extract_windows(ev, data_reader=reader21, **MAG_KW)
+    t_sp = time.perf_counter()
+    spec = compute_moment_magnitude(ev, mag.network, windows=win, Q0=1e9)
+    t_star = time.perf_counter()
+    star = approximate_moment_magnitude(ev, mag.network, windows=win,
+                                        Q0=1e9)
+    t_end = time.perf_counter()
+    if not spec.fit_success or abs(spec.Mw - mw_inj) >= 0.25:
+        raise AssertionError(f"event {e}: Mw {getattr(spec, 'Mw', None)} "
+                             f"vs injected {mw_inj:.3f} (gate 0.25)")
+    if star is None or abs(star - mw_inj) >= 0.3:
+        raise AssertionError(f"event {e}: Mw* {star} vs injected "
+                             f"{mw_inj:.3f} (gate 0.3)")
+    d = {k: sec21[k] - before[k] for k in sec21}
+    rows21.append((mw_inj, spec.Mw, star, d["read"], d["response"],
+                   t_sp - t_ev - d["read"] - d["response"],
+                   t_star - t_sp - d["fit"], d["fit"], t_end - t_star))
+    if e < 2:
+        kept21[e] = (win, spec.Mw, star)
+run21_s = time.perf_counter() - t0
+launches21 = response.apply_spectral_filter.launches
+peak21 = (torch.cuda.max_memory_allocated() - held21) / 2**20
+response.remove_response_arr = remove_plain
+Spectrum.fit_average_spectrum = fit_plain
+if launches21 < 3 * N_EV:
+    raise AssertionError(f"the response FFTs ran {launches21} times on the "
+                         f"card for {N_EV} events (at least 3 each)")
+# two events again on the CPU
+err21_win, err21_mw = 0.0, 0.0
+for e, (win_c, mw_c, star_c) in kept21.items():
+    ev = mag.events[e]
+    win_h = extract_windows(ev, device="cpu", **MAG_KW)
+    spec_h = compute_moment_magnitude(ev, mag.network, windows=win_h,
+                                      Q0=1e9, device="cpu")
+    star_h = approximate_moment_magnitude(ev, mag.network, windows=win_h,
+                                          Q0=1e9)
+    for ph in ("noise", "p", "s"):
+        err21_win = max(err21_win, float(np.abs(win_h[ph] - win_c[ph]).max()
+                                         / np.abs(win_c[ph]).max()))
+    err21_mw = max(err21_mw, abs(spec_h.Mw - mw_c), abs(star_h - star_c))
+if err21_win > 1e-5 or err21_mw > 1e-3:
+    raise AssertionError(f"card vs CPU: windows {err21_win:.3g} of their "
+                         f"maximum (gate 1e-5), Mw/Mw* {err21_mw:.3g} "
+                         "(gate 1e-3)")
+# the JAX package's entry point, as it runs by default
+t0 = time.perf_counter()
+mws21 = workflow.compute_magnitudes(mag.events, mag.network)
+cm21_s = time.perf_counter() - t0
+if len(mws21) != N_EV:
+    raise AssertionError(f"compute_magnitudes gave {len(mws21)} entries "
+                         f"for {N_EV} events")
+shutil.rmtree(mag_root)
+r21 = np.array(rows21)
+dmw = np.abs(r21[:, 1] - r21[:, 0])
+dstar = np.abs(r21[:, 2] - r21[:, 0])
+print(f"magnitude world: {len(mag.network.stations)} stations x 3 "
+      f"components at 100 Hz, {len(mag.files)} INT32 miniSEED files of "
+      f"{mag.n_samples} samples (4096-byte records) + "
+      f"{len(mag.network.stations)} StationXML, {N_EV} events Mw "
+      f"{mag.mw.min():.2f}-{mag.mw.max():.2f}: built in {world_s:.2f} s "
+      f"(files written in {mag.write_sec:.2f} s); three windowed reads "
+      f"equal to the whole decode + slice ({check21_s:.2f} s) [{CARD}]",
+      flush=True)
+for e, row in enumerate(rows21):
+    print(f"  event {e}: Mw injected {row[0]:.3f}, fit {row[1]:.3f}, "
+          f"Mw* {row[2]:.3f}; s: reads {row[3]:.3f}, response removal "
+          f"{row[4]:.3f}, conditioning {row[5]:.3f}, spectra and "
+          f"corrections {row[6]:.3f}, fit {row[7]:.3f}, Mw* {row[8]:.3f}",
+          flush=True)
+print(f"magnitude path on the card: {N_EV} events in {run21_s:.2f} s, "
+      f"{N_EV / run21_s:.3f} events/s; reads {r21[:, 3].sum():.2f} s, "
+      f"response removal {r21[:, 4].sum():.2f} s ({launches21} launches of "
+      f"the response FFT on the card), spectra {r21[:, 6].sum():.2f} s, "
+      f"fits {r21[:, 7].sum():.2f} s, Mw* {r21[:, 8].sum():.2f} s; "
+      f"max |Mw - injected| {dmw.max():.3f} (gate 0.25), max |Mw* - "
+      f"injected| {dstar.max():.3f} (gate 0.3); two events on the CPU: "
+      f"windows within {err21_win:.2e} of their maximum, Mw/Mw* within "
+      f"{err21_mw:.2e}; peak device memory {peak21:.1f} MiB above the "
+      f"{held21 / 2**20:.0f} MiB held from earlier phases; "
+      f"compute_magnitudes (counts integrated, the default route) "
+      f"{cm21_s:.2f} s, {sum(m is not None for m in mws21)} of {N_EV} "
+      f"values ({time.perf_counter() - t21:.1f} s) [{CARD}]", flush=True)
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
-      f"{t16 - t15:.0f} s, phases 17-20 {time.perf_counter() - t16:.0f} s",
-      flush=True)
+      f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
+      f"{time.perf_counter() - t21:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{

@@ -4,7 +4,11 @@ from .catalog import Catalog
 from .events import Event, Template
 from .groups import TemplateGroup
 from .network import Network
-from .readers import data_reader_hdf5, write_hdf5_continuous
+from .readers import (
+    data_reader_hdf5, data_reader_mseed, data_reader_template,
+    write_hdf5_continuous,
+)
+from .stationxml import ChannelResponse, Inventory, read_inventory
 from .stream import Stream, Trace
 from .transform import WaveformTransform
 from .travel_times import SourceTable, TravelTimes
@@ -12,8 +16,10 @@ from .waveforms import Data, get_np_array
 
 __all__ = [
     "Catalog",
+    "ChannelResponse",
     "Data",
     "Event",
+    "Inventory",
     "Network",
     "SourceTable",
     "Stream",
@@ -23,6 +29,9 @@ __all__ = [
     "TravelTimes",
     "WaveformTransform",
     "data_reader_hdf5",
+    "data_reader_mseed",
+    "data_reader_template",
     "get_np_array",
+    "read_inventory",
     "write_hdf5_continuous",
 ]

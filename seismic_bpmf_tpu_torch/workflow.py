@@ -8,6 +8,7 @@ notebooks), with the same JSON resume contract and the same HDF5 outputs:
   build_templates(...)    notebook 7: detections -> template bank
   matched_filter_day(...) notebook 8: template scan -> new detections
   assemble_catalog(...)   notebook 9: per-template detections -> catalog
+  compute_magnitudes(...) notebook 10: per-event Mw (Mw* fallback)
   scan_days(...)          either day scan over many days, with resume
 """
 
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .config import Config, DEFAULT_CONFIG
 from .data import (
     Catalog, Data, Network, Template, TemplateGroup, TravelTimes,
@@ -292,6 +294,32 @@ def assemble_catalog(
     columns = dict(cat.catalog)
     columns["unique_event"] = flagged["unique_event"]
     return Catalog.from_columns(columns)
+
+
+def compute_magnitudes(events, network: Network, fallback_mw_star=True,
+                       device=None, **kwargs):
+    """Per-event Mw with Mw* fallback when the fit fails (notebook 10);
+    None for an event whose computation raised (logged), as the JAX
+    package does.  Windows and FFT spectra run on `device` (CUDA unless
+    'cpu' is asked for)."""
+    from .source import approximate_moment_magnitude, compute_moment_magnitude
+
+    device = resolve_device(device)   # no card: raise here, not per event
+    out = []
+    for ev in events:
+        try:
+            spec = compute_moment_magnitude(ev, network, device=device,
+                                            **kwargs)
+            mw = getattr(spec, "Mw", None)
+            if mw is None and fallback_mw_star:
+                mw = approximate_moment_magnitude(ev, network, device=device)
+            out.append(mw)
+        except Exception as e:
+            # the JAX package's boundary: one event's failure is logged
+            # and leaves None, the others go on
+            logger.warning("Mw failed for %s: %s", ev.id, e)
+            out.append(None)
+    return out
 
 
 def scan_days(

@@ -573,3 +573,109 @@ def test_dense_path_runs_without_jax_pandas_h5py_ml_dtypes():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "DENSE_PATH_OK" in proc.stdout
+
+
+MAGNITUDE_PATH = textwrap.dedent("""
+    import importlib.abc, sys, tempfile
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.data import read_inventory
+    from seismic_bpmf_tpu_torch.data.mseed import read_mseed
+    from seismic_bpmf_tpu_torch.ops import response
+    from seismic_bpmf_tpu_torch.source import (
+        approximate_moment_magnitude, compute_moment_magnitude,
+        extract_windows,
+    )
+    from seismic_bpmf_tpu_torch.tools.magnitude_world import build_world
+
+    # miniSEED days + StationXML -> windows with the responses removed ->
+    # Mw and Mw* -> compute_magnitudes
+    w = build_world(tempfile.mkdtemp(), n_sta=4, n_events=2, hours=0.1,
+                    spacing_sec=150.0)
+    assert len(read_inventory(w.root + "/resp/*.xml")) == 12
+    assert len(read_mseed(w.files[0], w.events[0].origin_time,
+                          w.events[0].origin_time + np.timedelta64(4, "s"))
+               [0].data) == 401
+    for ev, mw in zip(w.events, w.mw):
+        win = extract_windows(ev, duration_sec=4.0, attach_response=True,
+                              taper_percentage=0.0,
+                              pre_filt=(0.2, 0.5, 45.0, 49.0), device="cpu")
+        spec = compute_moment_magnitude(ev, w.network, windows=win,
+                                        Q0=1e9, device="cpu")
+        assert spec.fit_success and abs(spec.Mw - mw) < 0.25, (spec.Mw, mw)
+        star = approximate_moment_magnitude(ev, w.network, windows=win,
+                                            Q0=1e9)
+        assert abs(star - mw) < 0.3, (star, mw)
+    mws = workflow.compute_magnitudes(w.events, w.network, device="cpu")
+    assert len(mws) == 2 and all(m is not None for m in mws), mws
+    assert response.apply_spectral_filter.launches == 0
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("MAGNITUDE_PATH_OK")
+""")
+
+
+def test_magnitude_path_runs_without_jax_pandas_h5py_ml_dtypes():
+    """miniSEED and StationXML in, moment magnitudes out, with JAX, the
+    JAX package, pandas, h5py and ml_dtypes blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", MAGNITUDE_PATH.format(blocked=BLOCKED)],
+        capture_output=True, text=True, cwd=str(REPO), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "MAGNITUDE_PATH_OK" in proc.stdout
+
+
+def test_magnitude_entry_points_need_cuda_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from seismic_bpmf_tpu_torch import workflow
+    from seismic_bpmf_tpu_torch.ops import response
+    from seismic_bpmf_tpu_torch.source import (
+        Spectrum, approximate_moment_magnitude, compute_moment_magnitude,
+        extract_windows,
+    )
+    from seismic_bpmf_tpu_torch.tools.magnitude_world import build_world
+
+    w = build_world(str(tmp_path), n_sta=3, n_events=1, hours=0.05,
+                    spacing_sec=60.0)
+    ev = w.events[0]
+    win = {p: np.ones((3, 3, 100), np.float32) for p in ("noise", "p", "s")}
+    resp = [_stationxml_response(w.root)] * 2
+    calls = [
+        lambda: response.apply_spectral_filter(np.ones((1, 8)),
+                                               np.ones((1, 9)), 16),
+        lambda: response.remove_response_arr(np.ones((2, 64)), resp, 100.0),
+        lambda: Spectrum().compute_spectrum(win, ["A", "B", "C"], 100.0),
+        lambda: extract_windows(ev, duration_sec=4.0, attach_response=True),
+        lambda: compute_moment_magnitude(ev, w.network, windows=win),
+        lambda: approximate_moment_magnitude(ev, w.network),
+        lambda: workflow.compute_magnitudes([ev], w.network),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for the CPU, they run
+    assert response.remove_response_arr(np.ones((2, 64)), resp, 100.0,
+                                        device="cpu").shape == (2, 64)
+    assert workflow.compute_magnitudes([ev], w.network, device="cpu")[0] \
+        is not None
+
+
+def _stationxml_response(root):
+    from seismic_bpmf_tpu_torch.data import read_inventory
+
+    return read_inventory(os.path.join(root, "resp", "*.xml")).responses[0]

@@ -140,9 +140,43 @@ Phases (any failure exits non-zero; nothing is caught):
      (windows within 1e-5 of their maximum, Mw and Mw* within 1e-3);
      `workflow.compute_magnitudes` over the 12 events; the world's
      seconds, each event's seconds by stage, events a second and the peak
-     device memory.
+     device memory;
+ 22. PhaseNet training (`tools/month_world.py`, the world of
+     scripts/month_workflow.py, BASELINE config 3): the script's picker,
+     256 windows of 3 x 3,001 samples, 6 epochs, batches of 32, lr 1e-3,
+     sigma 10, from a seeded init; the first step on the card against the
+     same step on the CPU (same weights, same batch): the loss within
+     1e-5, every gradient within 1e-4 of the largest, the running
+     statistics within 1e-4, the weights within 1e-6 of the difference
+     Adam's first update makes of the two gradients; then
+     `tools/month_workflow.train_picker` on the card, whose loss must
+     fall; a checkpoint round trip (`save_variables` / `load_variables`)
+     with bit-equal probabilities on the card; ms a step, windows/s, the
+     phase's own peak device memory;
+ 23. the month chain at full width over 3 days (10 stations x 3 x
+     2,160,000 samples a day, 10,000 sources): `bp_campaign` (the trained
+     picker's probabilities, `scan_days(stage="bp")`) over days 0-1, then
+     over days 0-2 from the same state file, which must run day 2 only;
+     the bank from day 0 (`build_templates`), `mf_campaign` at 'screen'
+     over the 3 days, `assemble_catalog`; kernel #3 on every BP day and
+     kernel #1's default build on every MF day, with no plain call; every
+     detection's CC within 1e-6 of the float64 oracle; on every day both
+     injected events at their samples through each template the bank kept
+     at an injected event, at CC >= 0.99 where the template is cut at that
+     event (the other event is held to the oracle: the script's float32
+     injection puts 3 of its 30 channels one sample off); each event once
+     a `unique_event` in the catalog; then kernel #3 on the campaign's own
+     `Beamformer` plan and a 100,000-sample cut of day 2's trained-picker
+     features held to its plain version (first-max rule), and kernel #1's
+     default build on the MF campaign's own plan and day 2 as 'screen'
+     uploads it (bf16-rounded, the whole day) held to its plain version;
+     s/day of both stages beside the world's draw and load seconds (the
+     days are drawn into a temporary folder once and loaded after, as the
+     script's HDF5 days are), the bank, the detection counts, a warm BP
+     day's device busy share.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
-#3's launches those of phases 8, 18 and 19), and as the last line
+#3's launches those of phases 8, 18, 19 and 23; kernel #1's default
+build's those of phases 4 and 23), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -178,7 +212,12 @@ from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
     Beamformer, MatchedFilter,
 )
 from seismic_bpmf_tpu_torch.models import (  # noqa: E402
-    init_phasenet, make_picker, phasenet_probas_device,
+    PhaseNet, init_phasenet, load_variables, make_picker, make_train_step,
+    phasenet_probas_device, save_variables,
+)
+from seismic_bpmf_tpu_torch.models.phasenet import (  # noqa: E402
+    _ieee_convolutions, cross_entropy_loss, gaussian_pick_labels,
+    init_weights,
 )
 from seismic_bpmf_tpu_torch.location import (  # noqa: E402
     build_travel_time_tables, layered_velocity_grid, relocate_nlloc,
@@ -205,6 +244,13 @@ from seismic_bpmf_tpu_torch.source import (  # noqa: E402
 )
 from seismic_bpmf_tpu_torch.tools.magnitude_world import (  # noqa: E402
     build_world as build_magnitude_world,
+)
+from seismic_bpmf_tpu_torch.tools.month_world import (  # noqa: E402
+    build_world as build_month_world, training_windows,
+)
+from seismic_bpmf_tpu_torch.tools.month_workflow import (  # noqa: E402
+    TRAIN_KW as MONTH_TRAIN, bp_campaign, bp_day, catalog_of, dates_of,
+    mf_campaign, template_bank, train_picker,
 )
 from seismic_bpmf_tpu_torch.tools.dense_world import (  # noqa: E402
     KM_PER_DEG as KM_PER_DEG_DENSE, build_world as build_dense_world,
@@ -1855,10 +1901,359 @@ print(f"magnitude path on the card: {N_EV} events in {run21_s:.2f} s, "
       f"compute_magnitudes (counts integrated, the default route) "
       f"{cm21_s:.2f} s, {sum(m is not None for m in mws21)} of {N_EV} "
       f"values ({time.perf_counter() - t21:.1f} s) [{CARD}]", flush=True)
+# 22. PhaseNet training on the card: the month script's picker
+t22 = time.perf_counter()
+t0 = time.perf_counter()
+work23 = tempfile.mkdtemp(prefix="month_wf_")   # the days, both state files
+month = build_month_world(work23)
+x22, picks22 = training_windows(month.wavelet)
+month_s = time.perf_counter() - t0
+labels22 = gaussian_pick_labels(picks22, x22.shape[-1],
+                                sigma=MONTH_TRAIN["sigma"])
+LR22 = MONTH_TRAIN["learning_rate"]
+# the first step on the card against the same step on the CPU: the seeded
+# init that `train_phasenet` starts from, and its first batch
+first22 = np.random.default_rng(0).permutation(len(x22))[
+    :MONTH_TRAIN["batch_size"]]
+step22 = {}
+for dev22 in ("cpu", "cuda"):
+    m22 = init_weights(PhaseNet(), torch.Generator().manual_seed(0)).to(dev22)
+    o22 = torch.optim.Adam(m22.parameters(), lr=LR22)
+    loss22 = make_train_step(m22, o22)(
+        (torch.from_numpy(x22[first22]).to(dev22),
+         torch.from_numpy(labels22[first22]).to(dev22)))
+    step22[dev22] = (
+        float(loss22),
+        {n: p.grad.double().cpu() for n, p in m22.named_parameters()},
+        {n: t.double().cpu() for n, t in m22.state_dict().items()
+         if t.is_floating_point()})
+del m22, o22
+(loss_h, grad_h, sd_h), (loss_c, grad_c, sd_c) = step22["cpu"], step22["cuda"]
+
+
+def adam_first(g):
+    """Adam's first update from a gradient (optax's and torch's)."""
+    return LR22 * g / (g.abs() + 1e-8)
+
+
+g_scale22 = max(float(g.abs().max()) for g in grad_h.values())
+err22_g = max(float((grad_c[n] - grad_h[n]).abs().max())
+              for n in grad_h) / g_scale22
+err22_w = max(float((sd_c[n] - sd_h[n]).abs().max()) for n in grad_h)
+# the weights' difference is the one Adam's update makes of the two
+# gradients (where |g| is near rounding noise, ~lr sign(g) flips), plus
+# the f32 rounding of the weights
+err22_u = max(float(((sd_c[n] - sd_h[n])
+                     - (adam_first(grad_h[n]) - adam_first(grad_c[n])))
+                    .abs().max()) for n in grad_h)
+n22_flip = sum(int(((sd_c[n] - sd_h[n]).abs() > 1e-6).sum()) for n in grad_h)
+err22_bn = max(float(((sd_c[n] - sd_h[n]).abs()
+                      / sd_h[n].abs().clamp(min=1e-3)).max())
+               for n in sd_h if "running_" in n)
+if (abs(loss_c - loss_h) > 1e-5 or err22_g > 1e-4 or err22_u > 1e-6
+        or err22_bn > 1e-4):
+    raise AssertionError(
+        f"training step card vs CPU: loss {loss_c} / {loss_h} (gate 1e-5), "
+        f"gradients {err22_g:.3g} of the largest (gate 1e-4), weights "
+        f"{err22_u:.3g} beyond Adam's update of the two gradients (gate "
+        f"1e-6), running statistics {err22_bn:.3g} (gate 1e-4)")
+# the script's training, through the tool's entry point
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+held22 = torch.cuda.memory_allocated()
+t0 = time.perf_counter()
+model22, losses22 = train_picker(month)
+torch.cuda.synchronize()
+train22_s = time.perf_counter() - t0
+peak22 = (torch.cuda.max_memory_allocated() - held22) / 2**20
+n_steps22 = MONTH_TRAIN["n_epochs"] * (len(x22) // MONTH_TRAIN["batch_size"])
+if not losses22[-1] < losses22[0] or not np.isfinite(losses22).all():
+    raise AssertionError(f"training: the loss did not fall: {losses22}")
+# where a warm step's time goes: forward (with the loss), backward, Adam,
+# CUDA events around each over 8 steps of a copy of the trained picker
+m22 = copy.deepcopy(model22).train()
+o22 = torch.optim.Adam(m22.parameters(), lr=LR22)
+xb22 = torch.from_numpy(x22[first22]).cuda()
+yb22 = torch.from_numpy(labels22[first22]).cuda()
+ev22 = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for _ in range(9)]
+with _ieee_convolutions():
+    for e0, e1, e2, e3 in ev22:
+        o22.zero_grad(set_to_none=True)
+        e0.record()
+        loss22 = cross_entropy_loss(m22(xb22), yb22)
+        e1.record()
+        loss22.backward()
+        e2.record()
+        o22.step()
+        e3.record()
+torch.cuda.synchronize()
+split22 = np.mean([[a.elapsed_time(b) for a, b in zip(e[:-1], e[1:])]
+                   for e in ev22[1:]], axis=0)   # the first is a warm-up
+del m22, o22, xb22, yb22
+# the checkpoint round trip: bit-equal probabilities on the card
+ck22 = tempfile.mkdtemp(prefix="phasenet_ckpt_")
+save_variables(ck22, model22)
+back22 = PhaseNet().cuda()
+load_variables(ck22, target=back22)
+shutil.rmtree(ck22)
+cut22 = month.day("day00")[:, :, :200_000]
+pa22 = phasenet_probas_device(model22, cut22)
+pb22 = phasenet_probas_device(back22, cut22)
+if not torch.equal(pa22, pb22):
+    raise AssertionError("checkpoint round trip: the probabilities differ "
+                         f"by {float((pa22 - pb22).abs().max()):.3g}")
+del back22, pa22, pb22
+print(f"phasenet training (the month script's picker: {len(x22)} windows x "
+      f"3 x {x22.shape[-1]}, {MONTH_TRAIN['n_epochs']} epochs, batch "
+      f"{MONTH_TRAIN['batch_size']}, lr {LR22}, sigma "
+      f"{MONTH_TRAIN['sigma']}; world and windows {month_s:.2f} s): first "
+      f"step card vs CPU: loss {loss_c:.7f} / {loss_h:.7f}, gradients "
+      f"within {err22_g:.3g} of the largest (gate 1e-4), weights within "
+      f"{err22_w:.3g} ({n22_flip} beyond 1e-6), {err22_u:.3g} beyond Adam's "
+      f"update of the two gradients (gate 1e-6), running statistics "
+      f"{err22_bn:.3g} (gate 1e-4); losses "
+      + " ".join(f"{v:.4f}" for v in losses22)
+      + f"; {n_steps22} steps in {train22_s:.2f} s, "
+      f"{1e3 * train22_s / n_steps22:.1f} ms a step (a warm step on CUDA "
+      f"events: forward and loss {split22[0]:.2f} ms, backward "
+      f"{split22[1]:.2f} ms, Adam {split22[2]:.2f} ms), "
+      f"{n_steps22 * MONTH_TRAIN['batch_size'] / train22_s:.0f} windows/s; "
+      f"peak device memory {peak22:.1f} MiB above the "
+      f"{held22 / 2**20:.0f} MiB held; checkpoint round trip bit-equal on "
+      f"10 x 3 x 200,000 samples ({time.perf_counter() - t22:.1f} s) "
+      f"[{CARD}]", flush=True)
+
+# 23. the month chain at full width over 3 days (BASELINE config 3): BP with
+#     the trained picker's features -> a resume -> the bank from day 0 -> MF
+#     at 'screen' -> the catalog, through the tool's entry points
+t23 = time.perf_counter()
+dates23 = dates_of(3)
+state23 = {s: os.path.join(work23, f"{s}_state.json") for s in ("bp", "mf")}
+ff23 = workflow.phasenet_feature_fn(model22)
+bp_day_fn, mf_day_fn = workflow.backproject_day, workflow.matched_filter_day
+days23 = {"bp": [], "mf": []}   # (date, kernel launches, other calls)
+oracle23 = []                    # |CC - float64 oracle| of every detection
+engines23 = {}                   # the campaigns' own Beamformer and engine
+
+
+def counted_bp(data, *args, **kwargs):
+    n0, p0 = bp.bp_beam.launches, bp.beamform_plain.calls
+    out = bp_day_fn(data, *args, **kwargs)
+    engines23["bp"] = out[0]
+    days23["bp"].append((os.path.basename(data.where),
+                         bp.bp_beam.launches - n0,
+                         bp.beamform_plain.calls - p0))
+    return out
+
+
+def mf_others():
+    return (mf.matched_filter_plain.calls + mf.mf_cc_highest.launches
+            + mf.mf_cc_split.launches + mf.matched_filter_split_plain.calls)
+
+
+def counted_mf(tg, data, *args, **kwargs):
+    n0, p0 = mf.mf_cc.launches, mf_others()
+    dets = mf_day_fn(tg, data, *args, **kwargs)
+    days23["mf"].append((os.path.basename(data.where),
+                         mf.mf_cc.launches - n0, mf_others() - p0))
+    eng = engines23["mf"] = kwargs["mf"]
+    for tid, evs in dets.items():
+        if evs:
+            tt = int(tg.tindexes[tid])
+            idx = np.array([int(round((e.origin_time_epoch - data.date_epoch)
+                                      * month.cfg.sampling_rate_hz))
+                            for e in evs], np.int64)
+            exact = matched_filter_at(tg.waveforms_arr[tt],
+                                      tg.moveouts_arr[tt],
+                                      eng.weights_channels[tt], eng.data_arr,
+                                      idx)
+            oracle23.append(float(np.abs(
+                exact - np.array([e.aux_data["cc"] for e in evs])).max()))
+    return dets
+
+
+BP_STAGES = ("bp_features", "pn_normalize", "pn_forward", "bp_backproject",
+             "bp_detect")
+WORLD_STAGES = ("month_draw", "month_load")
+
+
+def world_s(before):
+    return ", ".join(f"{k} {GLOBAL_TIMER.times[k] - before[k]:.2f} s"
+                     for k in WORLD_STAGES)
+
+
+workflow.backproject_day, workflow.matched_filter_day = counted_bp, counted_mf
+try:
+    zero_counts()
+    before23 = {k: GLOBAL_TIMER.times[k] for k in BP_STAGES + WORLD_STAGES}
+    t0 = time.perf_counter()
+    bp23 = bp_campaign(month, dates23[:2], ff23, state23["bp"])
+    bp01_s = time.perf_counter() - t0
+    st23 = {k: (GLOBAL_TIMER.times[k] - before23[k]) / 2 for k in BP_STAGES}
+    # the same campaign over days 0-2 from the state file: day 2 only
+    t0 = time.perf_counter()
+    bp2_23 = bp_campaign(month, dates23, ff23, state23["bp"])
+    bp2_s = time.perf_counter() - t0
+    world23_bp = world_s(before23)
+    if set(bp2_23) != {dates23[2]} or [d for d, _, _ in days23["bp"]] != \
+            dates23:
+        raise AssertionError(f"BP resume ran {sorted(bp2_23)}; days run "
+                             f"{[d for d, _, _ in days23['bp']]}")
+    bp23.update(bp2_23)
+    t0 = time.perf_counter()
+    bank23 = template_bank(month, bp23[dates23[0]])
+    bank23_s = time.perf_counter() - t0
+    scan0 = GLOBAL_TIMER.times["mf_scan"]
+    before23 = {k: GLOBAL_TIMER.times[k] for k in WORLD_STAGES}
+    t0 = time.perf_counter()
+    mf23 = mf_campaign(month, dates23, bank23, state23["mf"])
+    torch.cuda.synchronize()
+    mf23_s = time.perf_counter() - t0
+    scan23 = (GLOBAL_TIMER.times["mf_scan"] - scan0) / len(dates23)
+    world23_mf = world_s(before23)
+finally:
+    workflow.backproject_day, workflow.matched_filter_day = (bp_day_fn,
+                                                             mf_day_fn)
+t0 = time.perf_counter()
+cat23, n_cat23, n_uniq23 = catalog_of(mf23, bank23)
+cat23_s = time.perf_counter() - t0
+for stage, runs in days23.items():
+    if [d for d, _, _ in runs] != dates23 or any(
+            n < 1 or p for _, n, p in runs):
+        raise AssertionError(f"month {stage}: (day, kernel launches, other "
+                             f"calls) {runs}")
+if max(oracle23, default=0.0) > ATOL_HIGHEST:
+    raise AssertionError(f"month MF: a CC {max(oracle23):.3g} from the "
+                         f"float64 oracle (gate {ATOL_HIGHEST})")
+# every day's two events at their samples, through each template the bank
+# kept at an injected event: at CC >= 0.99 where the template is the event
+# itself; the other event's three misaligned channels (the script injects
+# at int((t + tt) * sr) in float32, which puts one P and one S arrival one
+# sample apart between the two times) bound its CC, held to the oracle
+SR23 = month.cfg.sampling_rate_hz
+ev_tp23 = {}
+for tp in bank23.templates:
+    dt = [abs(tp.origin_time_epoch - T0_EPOCH - t) for t in month.event_times]
+    if min(dt) < 2.0:
+        ev_tp23[str(tp.tid)] = (int(np.argmin(dt)), tp.origin_time_epoch
+                                - T0_EPOCH - month.event_times[
+                                    int(np.argmin(dt))])
+if not ev_tp23:
+    raise AssertionError(f"no template of the bank of {bank23.n_templates} "
+                         "is at an injected event")
+cc23 = {}
+for date in dates23:
+    for tid, (e0, bias) in ev_tp23.items():
+        for e, t_ev in enumerate(month.event_times):
+            hits = [ev for ev in mf23[date][tid]
+                    if abs(ev.origin_time_epoch - T0_EPOCH - t_ev - bias)
+                    < 0.5 / SR23]
+            if len(hits) != 1 or (e == e0 and hits[0].aux_data["cc"] < 0.99):
+                raise AssertionError(
+                    f"{date}: template {tid} (event {e0}) at event {e}: "
+                    + str([(h.origin_time_epoch - T0_EPOCH, h.aux_data["cc"])
+                           for h in hits]))
+            cc23.setdefault((tid, e == e0), []).append(hits[0].aux_data["cc"])
+# the catalog: each event once as a unique event (the days share their
+# stamp, so one event's detections on every day form one group)
+for e, t_ev in enumerate(month.event_times):
+    t_cat = [t_ev + bias for e0, bias in ev_tp23.values()]
+    near = np.min(np.abs((cat23.origin_times_epoch - T0_EPOCH)[:, None]
+                         - np.array(t_cat)[None]), axis=1) <= 3.0
+    if int(np.sum(cat23["unique_event"][near])) != 1:
+        raise AssertionError(f"catalog: event {e} has "
+                             f"{int(np.sum(cat23['unique_event'][near]))} "
+                             f"unique rows of {int(near.sum())}")
+own23, other23 = ([f(c for (_, own), v in cc23.items() if own == side
+                     for c in v) for f in (min, max)]
+                  for side in (True, False))
+launches23_bp = sum(n for _, n, _ in days23["bp"])
+launches23_mf = sum(n for _, n, _ in days23["mf"])
+# kernel #3 on the campaign's own plan (day 2's Beamformer) and a cut of
+# day 2's trained-picker features around its first event, against the
+# plain version
+bf23 = engines23["bp"]
+n23 = 100_000
+a23 = int(month.event_times[0] * SR23) - n23 // 2
+feat23 = ff23(month.make_data(dates23[2]).get_np_array(
+    month.network.stations))
+plan23c = bp.BeamformPlan(bf23.moveouts, bf23.weights_phases,
+                          bf23.weights_sources, n23,
+                          precision=bf23.precision, device=bf23.device)
+g23c = plan23c.fold_and_pad(feat23[..., a23: a23 + n23])
+kv23, ki23 = plan23c.call_folded(g23c)
+pv23, pi23 = bp.beamform_plain(g23c, plan23c.tables)
+err23_bp = float((kv23 - pv23[:n23]).abs().max())
+near23 = check_first_max(plan23c.tables, g23c, kv23, ki23, pv23[:n23],
+                         pi23[:n23], "month PhaseNet features")
+errs_bp.append(err23_bp)
+del feat23, g23c, kv23, ki23, pv23, pi23, plan23c
+# kernel #1's default build on the MF campaign's own plan and the last
+# day's padded upload as 'screen' made it (bf16-rounded), against the
+# plain version on the same tensors
+eng23 = engines23["mf"]
+plans23 = list(eng23._plans.values())[-1]     # the last day's (LRU order)
+dp23 = eng23._data_pad
+if (not torch.equal(dp23, dp23.bfloat16().float())
+        or sum(p.n_tp for p in plans23) != bank23.n_templates
+        or any(p.precision_name != "default" for p in plans23)):
+    raise AssertionError("month MF: the engine's last day is not the "
+                         "'screen' upload of the whole bank")
+err23_mf = 0.0
+for plan23 in plans23:
+    got23 = mf.mf_cc(dp23, plan23.filt_rows, plan23.mv_table,
+                     plan23.tile_lo, n_tp=plan23.n_tp, L=plan23.L,
+                     n_corr=plan23.n_corr_unit, lo_p=plan23.lo_p,
+                     hi_p=plan23.hi_p, max_delta=plan23.max_delta)
+    ref23 = plain_of(plan23, dp23)
+    err23_mf = max(err23_mf, float((got23 - ref23).abs().max()))
+    if not torch.allclose(got23, ref23, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"month MF: the default build != plain on "
+                             f"the screen upload: max|diff| {err23_mf:.3g}")
+del got23, ref23, dp23, plans23
+# a warm BP day on the PhaseNet features under the profiler
+with torch.profiler.profile(activities=acts) as prof23:
+    t0 = time.perf_counter()
+    bp_day(month, dates23[1], ff23)
+    torch.cuda.synchronize()
+    prof23_s = time.perf_counter() - t0
+busy23, top23 = device_profile(prof23, "chip_smoke_month_profile.txt")
+shutil.rmtree(work23)
+print(f"month chain ({len(month.network.stations)} stations x 3 x "
+      f"{month.n_samples:,} samples a day, "
+      f"{month.travel_times.n_sources} sources): BP days 0-1 "
+      f"{bp01_s:.2f} s ({bp01_s / 2:.2f} s/day: "
+      + ", ".join(f"{k} {v:.3f}" for k, v in st23.items())
+      + f" s; the world over the 3 days: {world23_bp}), the resume over "
+      f"days 0-2 ran day 2 only ({bp2_s:.2f} s); "
+      f"BP detections {[len(bp23[d]) for d in dates23]}; bank of "
+      f"{bank23.n_templates} templates from {len(bp23[dates23[0]])} "
+      f"({bank23_s:.2f} s), {len(ev_tp23)} at an injected event; MF 3 days "
+      f"{mf23_s:.2f} s ({mf23_s / 3:.2f} s/day, mf_scan {scan23:.3f} "
+      f"s/day; the world: {world23_mf}), detections "
+      f"{[sum(len(v) for v in mf23[d].values()) for d in dates23]}; "
+      f"catalog {n_cat23} events, {n_uniq23} unique ({cat23_s:.2f} s); "
+      f"launches a day: kernel #3 {[n for _, n, _ in days23['bp']]}, "
+      f"kernel #1 {[n for _, n, _ in days23['mf']]}, 0 plain calls; the "
+      f"events' CC: own {own23[0]:.4f}-{own23[1]:.4f}, other "
+      f"{other23[0]:.4f}-{other23[1]:.4f}, "
+      f"every detection's CC within {max(oracle23, default=0.0):.2e} of the "
+      f"float64 oracle; kernel #3 on a {n23:,}-sample cut of day 2's "
+      f"features through the campaign's plan vs plain: max|diff| "
+      f"{err23_bp:.3g} (rtol={RTOL}, atol={ATOL}), first-max rule held, "
+      f"{near23} samples with another source within {ATOL} of the maximum; "
+      f"kernel #1's default build on day 2's screen upload through the "
+      f"campaign's plan vs plain: max|diff| {err23_mf:.3g} (rtol={RTOL}, "
+      f"atol={ATOL}); a warm BP day {prof23_s:.2f} s, device busy "
+      f"{busy23:.1f} ms ({100 * busy23 / (1e3 * prof23_s):.0f}%): {top23} "
+      f"({time.perf_counter() - t23:.1f} s) [{CARD}]", flush=True)
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
-      f"{time.perf_counter() - t21:.0f} s", flush=True)
+      f"{t22 - t21:.0f} s, phase 22 {t23 - t22:.0f} s, phase 23 "
+      f"{time.perf_counter() - t23:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{
@@ -1866,8 +2261,8 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
-    "launches": launches,
-    "max_abs_err": max(err5d, err3d),
+    "launches": launches + launches23_mf,
+    "max_abs_err": max(err5d, err3d, err23_mf),
     "ms": ms5d,
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,
@@ -1902,7 +2297,7 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/bp.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_bp.py:67",
-    "launches": launches_bp + launches_dense,
+    "launches": launches_bp + launches_dense + launches23_bp,
     "max_abs_err": max(errs_bp),
     "ms": ms_bp,
     "plain_ms": plain_ms_bp,

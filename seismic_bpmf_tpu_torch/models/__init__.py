@@ -1,5 +1,12 @@
-"""Neural models (PyTorch): the PhaseNet phase picker, for serving."""
+"""Neural models (PyTorch): the PhaseNet phase picker, its serving and its
+training."""
 
+from .checkpoint import (
+    load_train_state,
+    load_variables,
+    save_train_state,
+    save_variables,
+)
 from .phasenet import (
     PhaseNet,
     SeisBenchPhaseNet,
@@ -7,10 +14,12 @@ from .phasenet import (
     init_phasenet,
     load_seisbench_checkpoint,
     make_picker,
+    make_train_step,
     phasenet_probas_device,
     ps_channels,
     sliding_window_probas,
 )
+from .training import train_phasenet, windows_from_events
 
 __all__ = [
     "PhaseNet",
@@ -18,8 +27,15 @@ __all__ = [
     "from_flax_variables",
     "init_phasenet",
     "load_seisbench_checkpoint",
+    "load_train_state",
+    "load_variables",
     "make_picker",
+    "make_train_step",
     "phasenet_probas_device",
     "ps_channels",
+    "save_train_state",
+    "save_variables",
     "sliding_window_probas",
+    "train_phasenet",
+    "windows_from_events",
 ]

@@ -1,5 +1,5 @@
 """PhaseNet (Zhu & Beroza 2019) in PyTorch: the deep-learning phase picker,
-for serving.
+for serving and training.
 
 Counterpart of `seismic_bpmf_tpu.models.phasenet` (the picker-callable
 protocol of the reference, BPMF/dataset.py:1729-1736:
@@ -17,12 +17,16 @@ protocol of the reference, BPMF/dataset.py:1729-1736:
   - `phasenet_probas_device`: a day of probabilities on the card
     (normalization, the windows, the overlap average);
     `sliding_window_probas`: the same with the normalization on the host;
-    `make_picker`: the protocol callable.
+    `make_picker`: the protocol callable;
+  - `gaussian_pick_labels`, `cross_entropy_loss`, `make_train_step`:
+    supervised training with `torch.optim.Adam` (optax's `adam` update);
+    `models.training.train_phasenet` drives it.
 
 Layouts are torch's, (batch, channels, time).  The convolutions are
 cuDNN's; on the card they run in float32 with TF32 off and deterministic
-algorithms, set for the forward only (`_ieee_convolutions`).  Training
-(`make_train_step`, the loss and the labels) is not ported yet.
+algorithms, set around each forward and training step
+(`_ieee_convolutions`).  BatchNorm keeps Flax's running statistics in
+training (`_BatchNorm`).
 """
 
 from __future__ import annotations
@@ -50,6 +54,26 @@ def _same_pad(n: int, k: int, s: int) -> tuple:
     return total // 2, total - total // 2
 
 
+class _BatchNorm(nn.BatchNorm1d):
+    """`nn.BatchNorm1d` whose running statistics follow Flax's BatchNorm in
+    training: Flax (momentum 0.9, torch's 0.1) folds in the biased batch
+    variance, torch the unbiased one.  The batch is normalized as torch
+    does it (biased variance); in eval mode this is `nn.BatchNorm1d`.  The
+    state-dict keys are unchanged."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class _ConvBN(nn.Module):
     """Conv (no bias, 'SAME') -> BatchNorm -> ReLU, the JAX `ConvBlock`."""
 
@@ -57,7 +81,7 @@ class _ConvBN(nn.Module):
         super().__init__()
         self.stride = stride
         self.conv = nn.Conv1d(c_in, c_out, kernel, stride, bias=False)
-        self.bn = nn.BatchNorm1d(c_out, eps=1e-5)
+        self.bn = _BatchNorm(c_out, eps=1e-5)
 
     def forward(self, x):
         x = F.pad(x, _same_pad(x.shape[-1], self.conv.kernel_size[0],
@@ -85,7 +109,7 @@ class _Up(nn.Module):
         self.tconv = nn.ConvTranspose1d(c_in, c_out, kernel, stride,
                                         padding=kernel - 1 - pad_a,
                                         bias=False)
-        self.bn = nn.BatchNorm1d(c_out, eps=1e-5)
+        self.bn = _BatchNorm(c_out, eps=1e-5)
         self.block = _ConvBN(2 * c_out, c_out, kernel)
 
     def forward(self, x, skip):
@@ -152,26 +176,26 @@ class SeisBenchPhaseNet(nn.Module):
         super().__init__()
         k = kernel_size
         self.inc = nn.Conv1d(in_channels, filters_root, k, padding=k // 2)
-        self.in_bn = nn.BatchNorm1d(filters_root, eps=1e-3)
+        self.in_bn = _BatchNorm(filters_root, eps=1e-3)
         self.down_branch = nn.ModuleList()
         self.up_branch = nn.ModuleList()
         last = filters_root
         for i in range(depth):
             f = filters_root * 2**i
             stage = [nn.Conv1d(last, f, k, padding=k // 2, bias=False),
-                     nn.BatchNorm1d(f, eps=1e-3), None, None]
+                     _BatchNorm(f, eps=1e-3), None, None]
             if i < depth - 1:
                 stage[2:] = [nn.Conv1d(f, f, k, stride, bias=False),
-                             nn.BatchNorm1d(f, eps=1e-3)]
+                             _BatchNorm(f, eps=1e-3)]
             self.down_branch.append(nn.ModuleList(stage))
             last = f
         for i in range(depth - 1):
             f = filters_root * 2 ** (depth - 2 - i)
             self.up_branch.append(nn.ModuleList([
                 nn.ConvTranspose1d(last, f, k, stride, bias=False),
-                nn.BatchNorm1d(f, eps=1e-3),
+                _BatchNorm(f, eps=1e-3),
                 nn.Conv1d(2 * f, f, k, padding=k // 2, bias=False),
-                nn.BatchNorm1d(f, eps=1e-3)]))
+                _BatchNorm(f, eps=1e-3)]))
             last = f
         self.out = nn.Conv1d(last, classes, 1)
 
@@ -203,17 +227,15 @@ def ps_channels(model) -> tuple:
 # weights
 # ---------------------------------------------------------------------------
 
-def init_phasenet(generator: torch.Generator = None,
-                  device=None) -> PhaseNet:
-    """A `PhaseNet` with seeded random weights, in eval mode, on `device`
-    (CUDA unless 'cpu' is asked for).  The scales are Flax's: conv
-    kernels normal with LeCun's std 1/sqrt(fan_in) (Flax truncates the
-    draw), the last bias 0, BatchNorm scale 1, bias 0, mean 0, var 1;
-    drawn from `generator` (a CPU `torch.Generator`; seed 0 when None)."""
-    dev = resolve_device(device)
+def init_weights(model: nn.Module,
+                 generator: torch.Generator = None) -> nn.Module:
+    """Seeded random weights for either architecture, in place, at Flax's
+    scales: conv kernels normal with LeCun's std 1/sqrt(fan_in) (Flax
+    truncates the draw), conv biases 0, BatchNorm scale 1, bias 0, mean 0,
+    var 1; drawn from `generator` (a CPU `torch.Generator`; seed 0 when
+    None), module by module.  Returns the model."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = PhaseNet()
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
@@ -225,7 +247,17 @@ def init_phasenet(generator: torch.Generator = None,
                         / np.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-    return model.to(dev).eval()
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+    return model
+
+
+def init_phasenet(generator: torch.Generator = None,
+                  device=None) -> PhaseNet:
+    """A `PhaseNet` with seeded random weights (`init_weights`), in eval
+    mode, on `device` (CUDA unless 'cpu' is asked for)."""
+    dev = resolve_device(device)
+    return init_weights(PhaseNet(), generator).to(dev).eval()
 
 
 def from_flax_variables(variables: Mapping[str, Any],
@@ -322,7 +354,8 @@ def load_seisbench_checkpoint(path: str, device=None) -> SeisBenchPhaseNet:
 @contextlib.contextmanager
 def _ieee_convolutions():
     """cuDNN in IEEE float32 (no TF32) with deterministic algorithms, for
-    the forward only; the caller's flags come back after it."""
+    a forward (or a training step) only; the caller's flags come back
+    after it."""
     cudnn = torch.backends.cudnn
     saved = cudnn.allow_tf32, cudnn.deterministic
     cudnn.allow_tf32, cudnn.deterministic = False, True
@@ -472,3 +505,53 @@ def make_picker(model: nn.Module, **kwargs):
         return probas[:, (p_idx, s_idx), :]  # drop the noise class
 
     return picker
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def gaussian_pick_labels(pick_samples: np.ndarray, n_samples: int,
+                         sigma: float = 10.0) -> np.ndarray:
+    """(batch, 2) P/S pick positions -> (batch, 3, n_samples) float32 soft
+    labels (P, S, noise) with Gaussian blurs around each pick (a negative
+    position: no pick).  The JAX function's values, in torch's layout."""
+    t = np.arange(n_samples)[None, :]
+    out = np.zeros((len(pick_samples), 3, n_samples), np.float32)
+    for c in range(2):
+        p = pick_samples[:, c: c + 1]
+        valid = p >= 0
+        out[:, c, :] = np.exp(-0.5 * ((t - p) / sigma) ** 2) * valid
+    out[:, 2, :] = np.clip(1.0 - out[:, 0, :] - out[:, 1, :], 0.0, 1.0)
+    return out
+
+
+def cross_entropy_loss(probas: torch.Tensor, labels: torch.Tensor,
+                       eps: float = 1e-7) -> torch.Tensor:
+    """Mean over batch and time of -sum_c labels log(probas + eps), on the
+    softmax output (batch, classes, time), as the JAX package computes it
+    (the eps is part of the loss and of its gradient)."""
+    return -torch.mean(torch.sum(labels * torch.log(probas + eps), dim=1))
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """`step((x, labels)) -> loss`: one supervised step of `model` (train
+    mode: batch statistics, Flax's running averages) with `optimizer`
+    (`torch.optim.Adam(model.parameters(), lr)` is optax's `adam(lr)`),
+    on (batch, 3, n) windows and (batch, 3, n) labels on the model's
+    device.  The convolutions and their gradients run in IEEE float32
+    with deterministic algorithms (`_ieee_convolutions`).  Returns the
+    step's loss as a 0-dim tensor (no host sync); the parameters' `.grad`
+    keep the step's gradients."""
+
+    def step(batch):
+        x, labels = batch
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with _ieee_convolutions():
+            loss = cross_entropy_loss(model(x), labels)
+            loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

@@ -1,0 +1,167 @@
+"""PhaseNet training, on the card.
+
+Counterpart of `seismic_bpmf_tpu.models.training`: the picker (re)trained
+on the user's own region, with Gaussian-blurred pick labels plus a noise
+class (the PhaseNet convention) and a cross-entropy loss:
+
+  windows_from_events : picked Events -> (windows, pick labels)
+  train_phasenet      : the epoch loop over `make_train_step` (Adam)
+
+Windows are in torch's layout, (n, 3, window).  `mesh=` (data-parallel
+batches) is not ported yet (ROADMAP Queue 1 #19).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from .phasenet import (
+    WINDOW, PhaseNet, SeisBenchPhaseNet, from_flax_variables,
+    gaussian_pick_labels, init_weights, make_train_step,
+)
+
+
+def windows_from_events(
+    events,
+    window: int = WINDOW,
+    target_sr: float = 100.0,
+    component_order: str = "ZNE",
+    jitter_sec: float = 5.0,
+    rng: Optional[np.random.Generator] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(x (n, 3, window), picks (n, 2)) float32 training pairs from picked
+    events: one randomly jittered window a picked station, resampled to
+    `target_sr` (scipy's `resample_poly`), normalized per channel; picks
+    in window samples (-1e9 where a phase has none).
+
+    Events need `picks_table` (P_picks/S_picks in native samples) and
+    waveforms read with time_shifted=False; the others are skipped.  The
+    jitter is drawn from `rng` (default_rng(0) when None), station by
+    station, as the JAX function draws it."""
+    from scipy.signal import resample_poly
+
+    rng = rng or np.random.default_rng(0)
+    xs, ps = [], []
+    for ev in events:
+        picks = getattr(ev, "picks_table", None)
+        if picks is None or not hasattr(ev, "traces"):
+            continue
+        arr = ev.waveforms_arr  # (n_sta, n_comp, n)
+        comp_idx = {c: i for i, c in enumerate(ev.components)}
+        order = [comp_idx[c] for c in component_order if c in comp_idx]
+        arr = arr[:, order, :]
+        sr = ev.sr
+        if sr != target_sr:
+            up, down = int(round(target_sr)), int(round(sr))
+            arr = resample_poly(arr, up, down, axis=-1)
+        scale = target_sr / sr
+        row = {s: i for i, s in enumerate(picks.stations)}
+        cols = picks.columns
+        for s, sta in enumerate(ev.stations):
+            if sta not in row:
+                continue
+            p_pick = cols["P_picks"][row[sta]] if "P_picks" in cols else np.nan
+            s_pick = cols["S_picks"][row[sta]] if "S_picks" in cols else np.nan
+            if np.isnan(p_pick) and np.isnan(s_pick):
+                continue
+            anchor = np.nanmin([p_pick, s_pick]) * scale
+            jitter = rng.uniform(-jitter_sec, jitter_sec) * target_sr
+            start = int(np.clip(anchor - window // 3 + jitter, 0,
+                                max(0, arr.shape[-1] - window)))
+            win = arr[s, :, start: start + window]
+            if win.shape[-1] < window:
+                win = np.pad(win, ((0, 0), (0, window - win.shape[-1])))
+            std = win.std(axis=-1, keepdims=True)
+            std[std == 0] = 1.0
+            win = (win - win.mean(axis=-1, keepdims=True)) / std
+            xs.append(win)
+            ps.append(np.array([
+                p_pick * scale - start if not np.isnan(p_pick) else -1e9,
+                s_pick * scale - start if not np.isnan(s_pick) else -1e9,
+            ]))
+    if not xs:
+        return (np.zeros((0, 3, window), np.float32),
+                np.zeros((0, 2), np.float32))
+    return (np.stack(xs).astype(np.float32),
+            np.stack(ps).astype(np.float32))
+
+
+def _state_dict(model: nn.Module,
+                variables: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A torch state dict as it is; the JAX package's Flax variables
+    ({'params', 'batch_stats'}) through `from_flax_variables`."""
+    if "params" in variables:
+        arch = "seisbench" if isinstance(model, SeisBenchPhaseNet) \
+            else "phasenet"
+        return from_flax_variables(variables, arch=arch)
+    return variables
+
+
+def train_phasenet(
+    x: np.ndarray,
+    picks: np.ndarray,
+    n_epochs: int = 10,
+    batch_size: int = 32,
+    learning_rate: float = 1e-3,
+    sigma: float = 10.0,
+    model: Optional[nn.Module] = None,
+    variables: Optional[Mapping[str, Any]] = None,
+    mesh=None,
+    seed: int = 0,
+    verbose: bool = True,
+    device=None,
+):
+    """Supervised PhaseNet training on `device` (CUDA unless 'cpu' is
+    asked for): x (n, 3, window) windows, picks (n, 2) P/S samples.
+
+    `model` defaults to `PhaseNet()`, trained in its own dtype.  Its
+    starting weights: `variables` (a torch state dict, or the JAX
+    package's Flax variables, carried by `from_flax_variables`), else
+    `init_weights` drawn from a CPU `torch.Generator` seeded with `seed`.
+    The batching is the JAX package's:
+    each epoch `np.random.default_rng(seed)` draws a permutation, batches
+    of `batch_size` run in its order and the remainder is dropped; Adam
+    at `learning_rate`.
+
+    Returns (model, its state dict, per-epoch mean losses); the model is
+    left on `device` in eval mode."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (data-parallel training) is not ported yet (ROADMAP "
+            "Queue 1 #19)")
+    dev = resolve_device(device)
+    if model is None:
+        model = PhaseNet()
+    if variables is not None:
+        model.load_state_dict(_state_dict(model, variables))
+    else:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    model.to(dev)
+    dtype = next(model.parameters()).dtype
+    window = x.shape[-1]
+    xt = torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dtype)
+    yt = torch.from_numpy(gaussian_pick_labels(
+        np.asarray(picks), window, sigma=sigma)).to(device=dev, dtype=dtype)
+    optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate)
+    step = make_train_step(model, optimizer)
+
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    losses = []
+    for epoch in range(n_epochs):
+        order = torch.from_numpy(rng.permutation(n)).to(dev)
+        epoch_loss = [step((xt[idx], yt[idx]))
+                      for idx in (order[lo: lo + batch_size]
+                                  for lo in range(0, n - batch_size + 1,
+                                                  batch_size))]
+        losses.append(float(np.mean([float(v) for v in epoch_loss]))
+                      if epoch_loss else np.nan)
+        if verbose:
+            print(f"epoch {epoch}: loss {losses[-1]:.4f}")
+    model.eval()
+    return model, model.state_dict(), losses

@@ -700,3 +700,83 @@ def test_response_removal_and_spectra_on_the_card(card):
         for p in windows:
             x, y = a.spectra[p].values, b.spectra[p].values
             assert np.abs(x - y).max() <= 1e-10 * np.abs(y).max()
+
+
+def _adam_first(g, lr):
+    """Adam's first update from a gradient (torch's and optax's)."""
+    return lr * g / (g.abs() + 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phasenet", "seisbench"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One `make_train_step` step from one set of weights on one batch, on
+    the card (IEEE f32 convolutions, with the global TF32 flag on) and on
+    the CPU: the loss within 1e-5, every gradient within 1e-4 of the
+    largest, the running statistics within 1e-4 (relative), and the
+    weights within 1e-6 of the difference Adam's first update makes of the
+    two gradients (where |g| is rounding noise, lr sign(g) may flip)."""
+    lr = 1e-3
+    model = (phasenet.init_phasenet(torch.Generator().manual_seed(41),
+                                    device="cpu") if arch == "phasenet"
+             else _seisbench_model(42))
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.normal(size=(8, 3, 3001)).astype(np.float32))
+    picks = np.stack([rng.uniform(200, 1500, 8), rng.uniform(1600, 2800, 8)],
+                     axis=1)
+    labels = torch.from_numpy(phasenet.gaussian_pick_labels(picks, 3001))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = torch.optim.Adam(m.parameters(), lr=lr)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            loss = phasenet.make_train_step(m, opt)((x.to(dev),
+                                                     labels.to(dev)))
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        out[dev] = (float(loss),
+                    {n: p.grad.double().cpu() for n, p in m.named_parameters()},
+                    {n: t.double().cpu() for n, t in m.state_dict().items()
+                     if t.is_floating_point()})
+    (lh, gh, wh), (lc, gc, wc) = out["cpu"], out["cuda"]
+    assert abs(lc - lh) <= 1e-5
+    scale = max(float(g.abs().max()) for g in gh.values())
+    for n in gh:
+        assert float((gc[n] - gh[n]).abs().max()) <= 1e-4 * scale, n
+        want = _adam_first(gh[n], lr) - _adam_first(gc[n], lr)
+        assert float(((wc[n] - wh[n]) - want).abs().max()) <= 1e-6, n
+    for n in wh:
+        if "running_" in n:
+            rel = (wc[n] - wh[n]).abs() / wh[n].abs().clamp(min=1e-3)
+            assert float(rel.max()) <= 1e-4, n
+
+
+@pytest.mark.cuda
+def test_train_phasenet_and_checkpoint_on_card(card, tmp_path):
+    """`train_phasenet` on the card: its weights stay there, the loss
+    falls; a checkpoint loaded into a fresh model on the card gives the
+    same probabilities bit for bit."""
+    from seismic_bpmf_tpu_torch.models import (
+        load_variables, save_variables, train_phasenet,
+    )
+
+    rng = np.random.default_rng(44)
+    x = rng.normal(size=(32, 3, 3001)).astype(np.float32)
+    picks = np.stack([rng.uniform(200, 1500, 32),
+                      rng.uniform(1600, 2800, 32)], axis=1)
+    for k, (p, s) in enumerate(picks.astype(int)):
+        x[k, 2, p: p + 40] += 5.0 * np.hanning(40)
+        x[k, :2, s: s + 40] += 5.0 * np.hanning(40)
+    model, _, losses = train_phasenet(x, picks, n_epochs=3, batch_size=8,
+                                      verbose=False)
+    assert next(model.parameters()).is_cuda
+    assert losses[-1] < losses[0]
+    path = save_variables(str(tmp_path / "ckpt"), model)
+    back = phasenet.PhaseNet().to(card)
+    load_variables(path, target=back)
+    day = rng.normal(size=(2, 3, 20000)).astype(np.float32)
+    assert torch.equal(phasenet.phasenet_probas_device(model, day),
+                       phasenet.phasenet_probas_device(back, day))

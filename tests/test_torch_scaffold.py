@@ -679,3 +679,107 @@ def _stationxml_response(root):
     from seismic_bpmf_tpu_torch.data import read_inventory
 
     return read_inventory(os.path.join(root, "resp", "*.xml")).responses[0]
+
+
+TRAINING_PATH = textwrap.dedent("""
+    import importlib.abc, os, sys, tempfile
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    # torch.optim imports torch._dynamo, which probes optional packages
+    # with importlib.util.find_spec (None where they are absent): let it
+    # probe before the blocker raises on them
+    import torch._dynamo  # noqa: F401
+    sys.meta_path.insert(0, Block())
+    import io, contextlib
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)  # the suite's workers share the cores
+    from seismic_bpmf_tpu_torch.models import (
+        PhaseNet, load_train_state, load_variables, make_train_step,
+        save_train_state, save_variables, train_phasenet,
+        windows_from_events,
+    )
+    from seismic_bpmf_tpu_torch.tools import month_workflow
+
+    # training, checkpoints
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(16, 3, 256)).astype(np.float32)
+    picks = np.stack([rng.uniform(20, 100, 16), rng.uniform(120, 220, 16)],
+                     axis=1).astype(np.float32)
+    model, sd, losses = train_phasenet(
+        x, picks, n_epochs=2, batch_size=8,
+        model=PhaseNet(depth=3, filters_root=4), verbose=False,
+        device="cpu")
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    tmp = tempfile.mkdtemp()
+    load_variables(save_variables(os.path.join(tmp, "v"), model),
+                   target=PhaseNet(depth=3, filters_root=4))
+    opt = torch.optim.Adam(model.parameters())
+    save_train_state(os.path.join(tmp, "s"), model, opt, step=3)
+    assert load_train_state(os.path.join(tmp, "s"))[2] == 3
+    assert windows_from_events([])[0].shape == (0, 3, 3001)
+    # the month tool at a cut (its picker trained on 32 of the script's
+    # windows), then its resume (day 0 made again)
+    train_picker = month_workflow.train_picker
+    month_workflow.train_picker = lambda world, device=None: train_picker(
+        world, device, n_train=32)
+    argv = ["--days", "2", "--n-src", "200", "--day-sec", "600", "--cpu",
+            "--workdir", os.path.join(tmp, "month")]
+    for run in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert month_workflow.main(argv) == 0
+        text = out.getvalue()
+        assert "CATALOG:" in text, text
+        assert ("backproject_day runs it again" in text) == (run == 1), text
+    assert "BP CAMPAIGN: 0 days" in text and "MF CAMPAIGN: 0 days" in text
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("TRAINING_PATH_OK")
+""")
+
+
+def test_training_and_month_path_run_without_jax_pandas_h5py_ml_dtypes():
+    """PhaseNet training, its checkpoints and the month tool (a 2-day cut
+    on the CPU with a picker trained on 32 windows, run twice: the second
+    resumes from its state files) import neither JAX nor the JAX package,
+    and run with pandas and h5py blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAINING_PATH.format(blocked=BLOCKED)],
+        capture_output=True, text=True, cwd=str(REPO), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TRAINING_PATH_OK" in proc.stdout
+
+
+def test_training_entry_points_need_cuda_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from seismic_bpmf_tpu_torch.models import train_phasenet
+    from seismic_bpmf_tpu_torch.tools import month_workflow
+    from seismic_bpmf_tpu_torch.tools.month_world import build_world
+
+    x = np.zeros((8, 3, 256), np.float32)
+    picks = np.full((8, 2), 100.0, np.float32)
+    world = build_world(str(tmp_path), n_sta=3, n_src=50, day_sec=300.0)
+    calls = [
+        lambda: train_phasenet(x, picks, n_epochs=1, batch_size=8),
+        lambda: month_workflow.train_picker(world, n_train=8),
+        lambda: month_workflow.bp_day(world, "day00", None),
+        lambda: month_workflow.main(["--days", "1", "--n-src", "50",
+                                     "--day-sec", "300"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

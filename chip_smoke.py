@@ -173,10 +173,38 @@ Phases (any failure exits non-zero; nothing is caught):
      s/day of both stages beside the world's draw and load seconds (the
      days are drawn into a temporary folder once and loaded after, as the
      script's HDF5 days are), the bank, the detection counts, a warm BP
-     day's device busy share.
+     day's device busy share;
+ 24. the year bank, BASELINE config 4 (`tools/year_world.py`,
+     scripts/year_scan.py's world: 10 stations x 3 components x 2,160,000
+     samples a day, two injected events, 1024 tid-distinct copies of the
+     two events' templates) at 'screen' through `tools/year_scan.campaign`
+     (`scan_days` with the script's arguments and a state file) over days
+     0-1, then over days 0-2 from the same state file, which must run day
+     2 only; kernel #1's default build on every day with no plain call,
+     the bank's plans built once for two days; every template detects
+     both events every day within a sample, the template ids cover
+     0-1023, and day 0's detections (template, sample, CC) equal those of
+     the four 256-template sub-banks scanned alone and of a run whose
+     `max_memory_gb` puts the extraction cut at 512; kernel #1's default
+     build on day 2's upload through the year plan's first chunk (a 2^17
+     cut around the first event) held to its plain version (rtol=1e-4,
+     atol=1e-5); the extraction chunk, s/day, CC GSamples/s, the prefetch
+     thread's `set_data` seconds, the refine and Event seconds, the peak
+     device memory, kernel #1's ms a day at 1024 templates, a warm day's
+     device busy share;
+ 25. the family path: phase 23's MF detections of the template with the
+     most (at least 3) -> `EventGroup.read_waveforms` through the month
+     world's reader -> `get_waveforms_arr` -> `normalize("rms")` ->
+     `SVDWF_stack` (every panel in one batched float64 SVD on the card,
+     counted; the card's stacks within 1e-9 of their maximum against the
+     host float64 version on the family's own panels) ->
+     `Stack.read_waveforms` -> `pick_PS_phases_family_mode` with phase
+     22's trained picker on the card, the family's picks within
+     `FAMILY_PICK_TOL` samples of the injected arrivals at
+     `FAMILY_MIN_STATIONS` stations or more for each phase; ms a family.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
 #3's launches those of phases 8, 18, 19 and 23; kernel #1's default
-build's those of phases 4 and 23), and as the last line
+build's those of phases 4, 23 and 24), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -205,7 +233,7 @@ from seismic_bpmf_tpu_torch import _build  # noqa: E402
 from seismic_bpmf_tpu_torch import workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
 from seismic_bpmf_tpu_torch.data import (  # noqa: E402
-    Data, Network, Stream, TemplateGroup, Trace, TravelTimes,
+    Data, EventGroup, Network, Stream, TemplateGroup, Trace, TravelTimes,
     WaveformTransform,
 )
 from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
@@ -252,6 +280,13 @@ from seismic_bpmf_tpu_torch.tools.month_workflow import (  # noqa: E402
     TRAIN_KW as MONTH_TRAIN, bp_campaign, bp_day, catalog_of, dates_of,
     mf_campaign, template_bank, train_picker,
 )
+from seismic_bpmf_tpu_torch.tools.year_scan import (  # noqa: E402
+    campaign as year_campaign, dates_of as year_dates,
+)
+from seismic_bpmf_tpu_torch.tools.year_world import (  # noqa: E402
+    build_bank as build_year_bank, build_world as build_year_world,
+)
+from seismic_bpmf_tpu_torch.utils import stacking  # noqa: E402
 from seismic_bpmf_tpu_torch.tools.dense_world import (  # noqa: E402
     KM_PER_DEG as KM_PER_DEG_DENSE, build_world as build_dense_world,
 )
@@ -278,6 +313,21 @@ ATOL_HIGHEST = 1e-6                 # the `highest` rung against the oracle
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 DENSE_CLOSEST = 20                  # scripts/dense_array.py's --closest
+N_YEAR = 1024                       # scripts/year_scan.py's --templates
+YEAR_DAY_KW = dict(minimum_interevent_time=5.0, threshold_window_dur=1800.0)
+FAMILY_WIN = 20.0                   # s of each member stacked
+FAMILY_OFFSETS = {"P": 2.0, "S": 4.0}
+FAMILY_PICK_SEC = 120.0             # the picker's window (3,001 samples)
+FAMILY_OFFSET_OT = 20.0
+FAMILY_THRESHOLD = 0.3
+# |family pick - injected arrival| in samples, and the stations (of 10)
+# that must meet it, set by CPU runs of this phase (a cut of the month world,
+# and the full world with members 0.6, -0.4 and 1.5 s from the events):
+# the trained picker's P probabilities peak at 0.4-0.5, 5-27 samples after
+# the onset at most stations (8-10 of 10 within 30); its S picks lie within
+# 10 samples at 5-10 stations, the rest on other arrivals
+FAMILY_PICK_TOL = {"P": 30.0, "S": 10.0}
+FAMILY_MIN_STATIONS = {"P": 7, "S": 4}
 EIK_SHAPE = (101, 101, 31)          # the dense box's eikonal grid, 1 km
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -344,6 +394,7 @@ def zero_counts():
     mf.mf_cc_split.launches = mf.matched_filter_split_plain.calls = 0
     bp.bp_beam.launches = bp.beamform_plain.calls = 0
     response.apply_spectral_filter.launches = 0
+    stacking.svdwf_panels.launches = 0
 
 
 def timed(fn, seconds: dict, key: str):
@@ -2219,7 +2270,6 @@ with torch.profiler.profile(activities=acts) as prof23:
     torch.cuda.synchronize()
     prof23_s = time.perf_counter() - t0
 busy23, top23 = device_profile(prof23, "chip_smoke_month_profile.txt")
-shutil.rmtree(work23)
 print(f"month chain ({len(month.network.stations)} stations x 3 x "
       f"{month.n_samples:,} samples a day, "
       f"{month.travel_times.n_sources} sources): BP days 0-1 "
@@ -2249,11 +2299,287 @@ print(f"month chain ({len(month.network.stations)} stations x 3 x "
       f"{busy23:.1f} ms ({100 * busy23 / (1e3 * prof23_s):.0f}%): {top23} "
       f"({time.perf_counter() - t23:.1f} s) [{CARD}]", flush=True)
 
+# 24. the year bank (BASELINE config 4) at full width: scripts/year_scan.py's
+#     world and 1024-template bank, `scan_days` at 'screen' with a state file
+t24 = time.perf_counter()
+t0 = time.perf_counter()
+year = build_year_world()
+year_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+bank24 = build_year_bank(year, N_YEAR)
+_ = bank24.waveforms_arr, bank24.moveouts_arr
+bank24_s = time.perf_counter() - t0
+SR24, L24 = year.cfg.sampling_rate_hz, bank24.waveforms_arr.shape[-1]
+N_CH24 = bank24.waveforms_arr.shape[1] * bank24.waveforms_arr.shape[2]
+n_corr24 = year.n_samples - L24 + 1
+noise24 = np.random.default_rng(SEED + 24).normal(size=500).astype(
+    np.float32)
+work24 = tempfile.mkdtemp(prefix="year_scan_")
+state24 = os.path.join(work24, "year_state.json")
+dates24 = year_dates(3)
+YEAR_STAGES = ("mf_set_data", "mf_scan", "mf_refine", "mf_events")
+runs24 = []         # (kernel launches, other calls) of each day
+engines24 = []      # each campaign's own engine
+
+
+def counted_mf24(tg, data, *args, **kwargs):
+    n0, p0 = mf.mf_cc.launches, mf_others()
+    dets = mf_day_fn(tg, data, *args, **kwargs)
+    runs24.append((mf.mf_cc.launches - n0, mf_others() - p0))
+    if not engines24 or engines24[-1] is not kwargs["mf"]:
+        engines24.append(kwargs["mf"])
+    return dets
+
+
+def samples24(dets):
+    """{tid: [(sample, CC)]} of one day's detections."""
+    return {str(t): [(int(round((e.origin_time_epoch - T0_EPOCH) * SR24)),
+                      float(e.aux_data["cc"])) for e in evs]
+            for t, evs in dets.items()}
+
+
+workflow.matched_filter_day = counted_mf24
+try:
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before24 = {k: GLOBAL_TIMER.times[k] for k in YEAR_STAGES}
+    calls24 = GLOBAL_TIMER.counts["mf_set_data"]
+    t0 = time.perf_counter()
+    res24 = year_campaign(year, bank24, dates24[:2], state_file=state24,
+                          white_noise=noise24)
+    days24_s = (time.perf_counter() - t0) / 2
+    st24 = {k: (GLOBAL_TIMER.times[k] - before24[k]) / 2
+            for k in YEAR_STAGES}
+    uploads24 = GLOBAL_TIMER.counts["mf_set_data"] - calls24
+    plans24 = {k: [p.n_tp for p in v]
+               for k, v in engines24[0]._plans.items()}
+    # the same campaign over days 0-2 from the state file: day 2 only
+    t0 = time.perf_counter()
+    res24b = year_campaign(year, bank24, dates24, state_file=state24,
+                           white_noise=noise24)
+    day2_s = time.perf_counter() - t0
+    peak24 = torch.cuda.max_memory_allocated() / 2**30
+finally:
+    workflow.matched_filter_day = mf_day_fn
+launches24 = sum(n for n, _ in runs24)
+if list(res24) != dates24[:2] or list(res24b) != dates24[2:]:
+    raise AssertionError(f"year campaign ran {list(res24)}, then "
+                         f"{list(res24b)} on resume")
+if len(runs24) != 3 or any(n < 1 or p for n, p in runs24):
+    raise AssertionError(f"year days: (kernel launches, other calls) "
+                         f"{runs24}")
+if uploads24 != 2 or len(plans24) != -(-N_YEAR // engines24[0]
+                                       ._extraction_chunk(N_YEAR)):
+    raise AssertionError(f"year campaign: {uploads24} day uploads over 2 "
+                         f"days, plans {plans24}: the bank was not "
+                         "uploaded once")
+res24.update(res24b)
+hits24 = {}
+for date in dates24:
+    day24 = samples24(res24[date])
+    if sorted(day24, key=int) != [str(i) for i in range(N_YEAR)]:
+        raise AssertionError(f"{date}: the detections' template ids are "
+                             f"not 0-{N_YEAR - 1}")
+    for tid, hits in day24.items():
+        for t_ev in year.event_times:
+            near = [i for i, _ in hits if abs(i - t_ev * SR24) <= 1]
+            if len(near) != 1:
+                raise AssertionError(f"{date}: template {tid} at the event "
+                                     f"of {t_ev} s: {hits}")
+    hits24[date] = sum(len(v) for v in day24.values())
+# day 0 again: four 256-template sub-banks alone, and the whole bank with
+# the extraction cut moved onto a 256 boundary
+day0_24 = samples24(res24[dates24[0]])
+row_gb24 = 4 * year.n_samples / 1024.0**3
+t0 = time.perf_counter()
+subs24 = {}
+for lo in range(0, N_YEAR, 256):
+    sub = TemplateGroup(bank24.templates[lo:lo + 256], year.network)
+    subs24.update(samples24(year_campaign(
+        year, sub, dates24[:1], white_noise=noise24)[dates24[0]]))
+moved24 = samples24(year_campaign(
+    year, bank24, dates24[:1], white_noise=noise24,
+    max_memory_gb=512.5 * row_gb24)[dates24[0]])
+checks24_s = time.perf_counter() - t0
+for what, other in (("the 256-template sub-banks", subs24),
+                    ("the moved extraction cut", moved24)):
+    if other != day0_24:
+        bad = [t for t in day0_24 if other.get(t) != day0_24[t]][:5]
+        raise AssertionError(f"day 0 through {what} differs at templates "
+                             f"{bad}")
+# kernel #1's default build on day 2's upload through the year plan's first
+# chunk, a 2^17-sample cut around the first event, against its plain version
+eng24 = engines24[-1]
+chunk24 = eng24._extraction_chunk(N_YEAR)
+plans24b = list(eng24._plans.values())
+dp24 = eng24._data_pad
+if (not torch.equal(dp24, dp24.bfloat16().float())
+        or [sum(p.n_tp for p in v) for v in plans24b]
+        != [min(chunk24, N_YEAR - lo) for lo in range(0, N_YEAR, chunk24)]):
+    raise AssertionError("year: the engine's last day is not the 'screen' "
+                         "upload of the whole bank")
+plan24 = plans24b[0][0]
+n24 = 2**17
+a24 = int(year.event_times[0] * SR24) - n24 // 2
+dp24c = dp24[:, a24: a24 + plan24.pad_left + n24].contiguous()
+call24 = dict(n_tp=plan24.n_tp, L=plan24.L, n_corr=n24 - plan24.L + 1,
+              lo_p=plan24.lo_p, hi_p=plan24.pad_left + n24 - plan24.L)
+got24 = mf.mf_cc(dp24c, plan24.filt_rows, plan24.mv_table, plan24.tile_lo,
+                 max_delta=plan24.max_delta, **call24)
+ref24 = mf.matched_filter_plain(dp24c, *mf.tf32_rows_parts(
+    plan24.filt_rows, plan24.L), plan24.mv_table, **call24)
+err24 = float((got24 - ref24).abs().max())
+if not torch.allclose(got24, ref24, rtol=RTOL, atol=ATOL):
+    raise AssertionError(f"year: the default build != plain on the year "
+                         f"plan: max|diff| {err24:.3g}")
+del got24, ref24, dp24c
+all24 = [p for v in plans24b for p in v]
+ms24 = cuda_ms(lambda: [p(dp24) for p in all24], 2)
+# a warm day on the campaign's engine under the profiler
+data24 = year.make_data(dates24[0])
+with torch.profiler.profile(activities=acts) as prof24:
+    t0 = time.perf_counter()
+    workflow.matched_filter_day(bank24, data24, cfg=year.cfg, mf=eng24,
+                                white_noise=noise24, **YEAR_DAY_KW)
+    torch.cuda.synchronize()
+    prof24_s = time.perf_counter() - t0
+busy24, top24 = device_profile(prof24, "chip_smoke_year_profile.txt")
+del data24, engines24, eng24, dp24, plans24b, all24, plan24
+shutil.rmtree(work24)
+gs24 = N_YEAR * N_CH24 * n_corr24 / days24_s / 1e9
+quarter24 = (torch.cuda.mem_get_info()[1] / 4 / 2**30)
+print(f"year bank ({N_YEAR} templates x {N_CH24} channels x "
+      f"{year.n_samples:,} samples a day, screen): world {year_s:.1f} s, "
+      f"bank {bank24_s:.1f} s; extraction chunk {chunk24} templates, plans "
+      f"{list(plans24.values())}; days 0-1 {days24_s:.2f} s/day "
+      f"({gs24:.2f} CC GSamples/s), the resume ran day 2 only "
+      f"({day2_s:.2f} s, a new engine's plans included); stages s/day: "
+      + ", ".join(f"{k} {v:.3f}" for k, v in st24.items())
+      + f" (mf_set_data on the prefetch thread, mf_events the Event "
+      f"building); detections a day {[hits24[d] for d in dates24]}, "
+      f"every template at both events within a sample; kernel #1 "
+      f"launches a day {[n for n, _ in runs24]}, 0 plain calls; day 0 "
+      f"equal to the four 256-template sub-banks and to the extraction cut "
+      f"at 512 ({checks24_s:.1f} s); peak device memory {peak24:.2f} GiB "
+      f"({len(plans24)} extraction chunks queued, each sized so that its CC "
+      f"stack ({chunk24 * row_gb24:.2f} GiB) and the extraction's "
+      f"temporaries fit a quarter of memory, {quarter24:.1f} GiB); kernel "
+      f"#1's "
+      f"default build on a 2^17-sample cut of day 2 through the year "
+      f"plan's first chunk vs plain: max|diff| {err24:.3g} (rtol={RTOL}, "
+      f"atol={ATOL}); kernel #1 a day through the {N_YEAR}-template plans "
+      f"{ms24:.2f} ms; a warm day {prof24_s:.2f} s, device busy "
+      f"{busy24:.1f} ms ({100 * busy24 / (1e3 * prof24_s):.0f}%): {top24} "
+      f"({time.perf_counter() - t24:.1f} s) [{CARD}]", flush=True)
+del year, bank24, res24, res24b
+
+# 25. the family path on the card: the month MF detections of one template
+#     -> EventGroup -> SVDWF stack (batched SVD on the card) -> Stack ->
+#     the family's P/S picks with phase 22's trained picker
+t25 = time.perf_counter()
+zero_counts()
+tid25 = max(bank23.tids, key=lambda t: sum(len(mf23[d][t]) for d in dates23))
+members25 = [ev for d in dates23 for ev in mf23[d][tid25]]
+if len(members25) < 3:
+    raise AssertionError(f"family: template {tid25} has "
+                         f"{len(members25)} detections (3 needed)")
+SR25 = month.cfg.sampling_rate_hz
+t0 = time.perf_counter()
+group25 = EventGroup(members25, month.network)
+group25.read_waveforms(FAMILY_WIN, offset_phase=FAMILY_OFFSETS)
+group25.get_waveforms_arr()
+group25.normalize("rms")
+read25_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+stack25 = group25.SVDWF_stack(2.0, 8.0, SR25)
+torch.cuda.synchronize()
+svd25_ms = 1e3 * (time.perf_counter() - t0)
+svd_launches25 = stacking.svdwf_panels.launches
+wf25 = group25.waveforms_arr
+panels25 = np.moveaxis(wf25, 0, 2).reshape(-1, wf25.shape[0],
+                                           wf25.shape[-1])
+panels25 = panels25[[p for p in range(len(panels25))
+                     if not np.allclose(panels25[p], 0.0)]]
+card25 = stacking.svdwf_panels(panels25, freqmin=2.0, freqmax=8.0,
+                               sampling_rate=SR25)
+host25 = stacking.svdwf_panels_host(panels25, freqmin=2.0, freqmax=8.0,
+                                    sampling_rate=SR25)
+err25 = float(np.abs(card25 - host25).max() / np.abs(host25).max())
+if svd_launches25 < 1 or err25 > 1e-9:
+    raise AssertionError(f"family: svdwf on the card {svd_launches25} "
+                         f"launches, {err25:.3g} from the host float64 "
+                         f"version (gate 1e-9 of its maximum)")
+stack25.read_waveforms(FAMILY_WIN)
+if stack25.get_np_array().shape != wf25.shape[1:] or not np.isfinite(
+        stack25.get_np_array()).all():
+    raise AssertionError("family: the stack's windows are not finite")
+for ev in members25:
+    del ev.traces   # the picker reads each member around its origin
+t0 = time.perf_counter()
+picks25 = stack25.pick_PS_phases_family_mode(
+    FAMILY_PICK_SEC, make_picker(model22), picker_sampling_rate=SR25,
+    offset_ot=FAMILY_OFFSET_OT, threshold_P=FAMILY_THRESHOLD,
+    threshold_S=FAMILY_THRESHOLD)
+torch.cuda.synchronize()
+pick25_s = time.perf_counter() - t0
+# the injected arrivals, in samples from each member's window start (the
+# member's origin less offset_ot), averaged over the family
+tt25 = {ph: np.array([month.travel_times.travel_times[ph][s][
+    month.event_src] for s in month.network.stations], np.float64)
+    for ph in ("P", "S")}      # seconds
+err_picks25 = {}
+for ph in ("P", "S"):
+    want = np.zeros(len(month.network.stations))
+    for ev in members25:
+        t_ev = min(month.event_times, key=lambda t: abs(
+            ev.origin_time_epoch - T0_EPOCH - t))
+        want += (T0_EPOCH + t_ev + tt25[ph]
+                 - (ev.origin_time_epoch - FAMILY_OFFSET_OT)) * SR25
+    want /= len(members25)
+    err_picks25[ph] = picks25[f"{ph}_picks"] - want
+print(f"family picks - injected arrivals (samples): P "
+      f"{np.round(err_picks25['P'], 1).tolist()}, S "
+      f"{np.round(err_picks25['S'], 1).tolist()}", flush=True)
+for ph in ("P", "S"):
+    n_ok = int(np.sum(np.abs(err_picks25[ph]) <= FAMILY_PICK_TOL[ph]))
+    if n_ok < FAMILY_MIN_STATIONS[ph]:
+        raise AssertionError(f"family: {ph} picks within "
+                             f"{FAMILY_PICK_TOL[ph]} samples of the injected "
+                             f"arrivals at {n_ok} stations")
+# the same family picked again with the picker on the CPU (float64 Z-scores
+# and f32 forwards there too): the same picks within rtol 1e-4
+for ev in members25:
+    del ev.traces
+picks25c = stack25.pick_PS_phases_family_mode(
+    FAMILY_PICK_SEC, make_picker(copy.deepcopy(model22).cpu()),
+    picker_sampling_rate=SR25, offset_ot=FAMILY_OFFSET_OT,
+    threshold_P=FAMILY_THRESHOLD, threshold_S=FAMILY_THRESHOLD)
+err25c = 0.0
+for c in picks25.columns:
+    a, b = picks25[c], picks25c[c]
+    if not np.array_equal(np.isnan(a), np.isnan(b)) or not np.allclose(
+            a[~np.isnan(a)], b[~np.isnan(b)], rtol=RTOL, atol=RTOL):
+        raise AssertionError(f"family: the card's {c} {a} != the CPU's {b}")
+    err25c = max(err25c, float(np.nanmax(np.abs(a - b), initial=0.0)))
+stack25.picks_table = picks25
+shutil.rmtree(work23)
+print(f"family path on the card: template {tid25}'s {len(members25)} month "
+      f"detections -> EventGroup ({wf25.shape}, {read25_s:.2f} s to read) "
+      f"-> SVDWF_stack {svd25_ms:.1f} ms a family ({len(panels25)} panels, "
+      f"{svd_launches25} batched SVD launch on the card, within "
+      f"{err25:.3g} of the host float64 version's maximum, gate 1e-9) -> "
+      f"Stack.read_waveforms -> pick_PS_phases_family_mode with phase 22's "
+      f"picker {pick25_s:.2f} s (tolerances {FAMILY_PICK_TOL} samples at "
+      f"{FAMILY_MIN_STATIONS} stations held), the same picks as the "
+      f"picker's on the CPU within {err25c:.3g} "
+      f"({time.perf_counter() - t25:.1f} s) [{CARD}]", flush=True)
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
       f"{t22 - t21:.0f} s, phase 22 {t23 - t22:.0f} s, phase 23 "
-      f"{time.perf_counter() - t23:.0f} s", flush=True)
+      f"{t24 - t23:.0f} s, phase 24 {t25 - t24:.0f} s, phase 25 "
+      f"{time.perf_counter() - t25:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{
@@ -2261,8 +2587,8 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
-    "launches": launches + launches23_mf,
-    "max_abs_err": max(err5d, err3d, err23_mf),
+    "launches": launches + launches23_mf + launches24,
+    "max_abs_err": max(err5d, err3d, err23_mf, err24),
     "ms": ms5d,
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,

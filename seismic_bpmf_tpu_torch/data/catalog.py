@@ -170,6 +170,13 @@ class Catalog:
                    columns["depth"], columns["origin_time"], **extras)
 
     @classmethod
+    def read_from_dataframe(cls, df) -> "Catalog":
+        """A catalog from a pandas DataFrame with at least longitude,
+        latitude, depth and origin_time columns (reference parity:
+        BPMF/dataset.py:436-458); its columns become numpy arrays."""
+        return cls.from_columns({c: df[c].to_numpy() for c in df.columns})
+
+    @classmethod
     def read_from_detection_file(
         cls,
         filename: str,

@@ -219,6 +219,19 @@ class Event:
     def set_components(self, components):
         self.components = np.asarray(list(components)).astype("U")
 
+    def set_component_aliases(self, component_aliases: Dict):
+        """Set the channel-alias map, e.g. {'N': ['N', '1'], ...}
+        (reference parity: BPMF/dataset.py `set_component_aliases`)."""
+        self.component_aliases = component_aliases
+
+    @property
+    def availability(self) -> np.ndarray:
+        """Alias of `availability_per_sta` (set by `set_availability`)."""
+        try:
+            return self.availability_per_sta
+        except AttributeError:
+            raise RuntimeError("call set_availability first") from None
+
     def inherit_location(self, other: "Event"):
         """Reference parity: BPMF/dataset.py:1423-1439."""
         for attr in ("longitude", "latitude", "depth"):
@@ -310,6 +323,87 @@ class Event:
         for tr in self.traces:
             tr.trim(starttime=starttime, endtime=endtime, pad=True,
                     fill_value=0.0)
+
+    def get_np_array(self, stations=None, components=None) -> np.ndarray:
+        """Dense (n_stations, n_components, n_samples) float32 array of the
+        event's traces, zero rows for missing channels (reference parity:
+        BPMF/dataset.py `Event.get_np_array`)."""
+        stations = list(stations if stations is not None else self.stations)
+        components = list(
+            components if components is not None else self.components
+        )
+        return get_np_array(
+            self.traces, stations, components=components,
+            n_samples=self.n_samples,
+            component_aliases=self.component_aliases,
+        )
+
+    def get_peak_amplitudes(self, stations=None,
+                            components=None) -> np.ndarray:
+        """(n_stations, n_components) peak |amplitude - mean| per channel
+        (reference parity: BPMF/dataset.py:1494-1519, which demeans so
+        that DC offsets do not count as signal)."""
+        arr = self.get_np_array(stations, components)
+        return np.max(
+            np.abs(arr - arr.mean(axis=-1, keepdims=True)), axis=-1
+        )
+
+    def compute_snr(self, noise_window_sec: float = 5.0) -> np.ndarray:
+        """Amplitude SNR per channel, RMS(signal) / RMS(noise) with the
+        noise the first `noise_window_sec` of each window (reference
+        parity: BPMF/dataset.py:1441-1520, simplified as in the JAX
+        package).  Sets `snr`, (n_stations, n_components) float64 in
+        `stations` x `components` order, and the aux data `snr_<comp>`
+        (arrays aligned to `stations`; the JAX package keeps Series)."""
+        arr = self.waveforms_arr
+        n_noise = int(sec_to_samp(noise_window_sec, sr=self.sr))
+
+        def rms(x):
+            return np.sqrt(np.mean(x.astype(np.float64) ** 2, axis=-1))
+
+        noise_rms = rms(arr[..., :n_noise])
+        snr = np.where(noise_rms > 0,
+                       rms(arr[..., n_noise:]) / np.maximum(noise_rms, 1e-30),
+                       0.0)
+        for c, cp in enumerate(self.components):
+            self.set_aux_data({f"snr_{cp}": snr[:, c]})
+        self._snr = snr
+        return self._snr
+
+    @property
+    def snr(self) -> np.ndarray:
+        try:
+            return self._snr
+        except AttributeError:
+            raise RuntimeError("call compute_snr first") from None
+
+    def n_closest_stations(self, n: int, available_stations=None):
+        """The n stations of smallest first-phase moveout (reference
+        parity: BPMF/dataset.py:1612-1652, moveout as distance proxy)."""
+        mv = np.array(self.moveouts_table()[:, 0], np.float64)
+        if available_stations is not None:
+            mv[~np.isin(self.stations, list(available_stations))] = np.inf
+        order = np.argsort(mv, kind="stable")
+        return self.stations[order[:n]].astype("U")
+
+    def n_best_SNR_stations(self, n: int, available_stations=None):
+        """The n stations of highest mean SNR (reference parity:
+        BPMF/dataset.py:1654-1704)."""
+        snr = self.snr.mean(axis=1)
+        if available_stations is not None:
+            snr[~np.isin(self.stations, list(available_stations))] = -np.inf
+        order = np.argsort(snr, kind="stable")[::-1]
+        return self.stations[order[:n]].astype("U")
+
+    def zero_out_clipped_waveforms(self, kurtosis_threshold: float = -1.0):
+        """Zero the traces whose sample-distribution kurtosis is below the
+        threshold: clipped recordings are platykurtic (reference parity:
+        BPMF/dataset.py:2868-2894)."""
+        from scipy.stats import kurtosis as scipy_kurtosis
+
+        for tr in self.traces:
+            if len(tr.data) and scipy_kurtosis(tr.data) < kurtosis_threshold:
+                tr.data = np.zeros_like(tr.data)
 
     # ------------------------------------------------------------------
     # picking
@@ -987,6 +1081,33 @@ class Event:
             if close:
                 f0.close()
 
+    def update_aux_data_database(
+        self, keys=None, filename: Optional[str] = None, db_path: str = "",
+        gid: Optional[str] = None,
+    ):
+        """Write (some of) the aux data into the event's existing HDF5
+        database in place (reference parity: BPMF/dataset.py:2813-2866,
+        without the lock files: one writer per file)."""
+        import h5py
+
+        filename = filename or os.path.basename(
+            getattr(self, "path_database", self.where)
+        )
+        gid = gid if gid is not None else getattr(self, "hdf5_gid", None)
+        keys = list(keys) if keys is not None else list(self.aux_data.keys())
+        with h5py.File(os.path.join(db_path, filename), "a") as f0:
+            f = f0[str(gid)] if gid is not None else f0
+            g = f.require_group("aux_data")
+            for k in keys:
+                if k in g:
+                    del g[k]
+                v = self.aux_data[k]
+                if hasattr(v, "to_numpy"):
+                    v = v.to_numpy()
+                if isinstance(v, np.ndarray) and v.dtype.kind == "U":
+                    v = v.astype("S")
+                g.create_dataset(k, data=v)
+
     @classmethod
     def read_from_file(
         cls,
@@ -1154,6 +1275,23 @@ class Template(Event):
         return self.id
 
     @property
+    def template_idx(self):
+        return self.id
+
+    @property
+    def moveouts_win(self):
+        """The windows' moveouts (each phase's moveout less its pre-pick
+        offset) as the moveout DataFrame (pandas imported here; reference
+        parity: BPMF/dataset.py:3464-3475)."""
+        mv = self.moveouts.copy()
+        for ph in self.phases:
+            mv[f"moveouts_{ph.upper()}"] = (
+                self.moveouts[f"moveouts_{ph.upper()}"]
+                - self.aux_data[f"offset_{ph.upper()}"]
+            )
+        return mv
+
+    @property
     def moveouts_arr(self) -> np.ndarray:
         """(n_stations, n_components) int samples: per component, the
         moveout of its phase (phase_on_comp) minus that phase's pre-pick
@@ -1181,9 +1319,64 @@ class Template(Event):
                 tr.stats.sampling_rate = self.sr
         return self
 
+    def distance(self, longitude, latitude, depth) -> float:
+        """Hypocentral distance (km) to a point."""
+        from ..utils.geo import two_point_distance
+
+        return float(
+            two_point_distance(
+                self.longitude, self.latitude, self.depth,
+                longitude, latitude, depth,
+            )
+        )
+
+    def find_monochromatic_traces(
+        self, autocorr_peak_threshold: float = 0.33,
+        num_peaks_criterion: int = 5,
+    ) -> list:
+        """Ids of the traces that look monochromatic (sensor glitches): at
+        least `num_peaks_criterion` autocorrelation peaks above the
+        threshold (reference parity: BPMF/dataset.py:3506-3585)."""
+        from scipy.signal import find_peaks
+
+        flagged = []
+        for tr in self.traces:
+            x = tr.data.astype(np.float64)
+            if len(x) < 8 or np.allclose(x, 0):
+                continue
+            x = x - x.mean()
+            ac = np.correlate(x, x, mode="full")[len(x) - 1:]
+            if ac[0] <= 0:
+                continue
+            ac /= ac[0]
+            peaks, _ = find_peaks(ac, height=autocorr_peak_threshold)
+            if len(peaks) >= num_peaks_criterion:
+                flagged.append(tr.id)
+        return flagged
+
     def write(self, db_filename, db_path="", save_waveforms=True, **kwargs):
         super().write(db_filename, db_path=db_path,
                       save_waveforms=save_waveforms, **kwargs)
+
+    # ------------------------------------------------------------------
+    # the per-template detection database (reference:
+    # BPMF/dataset.py:3703-3892); h5py is imported when these run
+    # ------------------------------------------------------------------
+    def read_catalog(
+        self,
+        filename: Optional[str] = None,
+        db_path: str = "",
+        extra_attributes=("cc", "n_dev"),
+    ):
+        """This template's detection file as a `data.Catalog` (reference
+        parity: BPMF/dataset.py:3703-3850)."""
+        from .catalog import Catalog
+
+        filename = filename or f"detections_tp{self.tid}.h5"
+        return Catalog.read_from_detection_file(
+            filename, db_path=db_path,
+            extra_attributes=tuple(extra_attributes) + ("tid",),
+        )
 
     def write_detections(self, detections, filename=None, db_path=""):
         """Write this template's detections, one group per event."""
@@ -1193,6 +1386,35 @@ class Template(Event):
         with h5py.File(os.path.join(db_path, filename), "a") as f:
             for ev in detections:
                 ev.write(filename, db_path=db_path, gid=ev.id, hdf5_file=f)
+
+    def write_summary(self, summary: Dict, filename=None, db_path=""):
+        """Cache summary arrays (recurrence times, CC histories, ...)
+        (reference parity: BPMF/dataset.py:3852-3892)."""
+        import h5py
+
+        filename = filename or f"summary_template{self.tid}.h5"
+        with h5py.File(os.path.join(db_path, filename), "a") as f:
+            for key, value in summary.items():
+                if key in f:
+                    del f[key]
+                f.create_dataset(key, data=value)
+
+    def read_summary(self, filename=None, db_path="") -> Dict:
+        """The arrays of `write_summary` ({} without a file)."""
+        filename = filename or f"summary_template{self.tid}.h5"
+        path = os.path.join(db_path, filename)
+        if not os.path.isfile(path):
+            return {}
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return {key: f[key][()] for key in f.keys()}
+
+    def _no_plot(self, *args, **kwargs):
+        raise NotImplementedError(
+            "plotting is not ported yet (ROADMAP Queue 1 #20)")
+
+    plot = plot_recurrence_times = plot_detection = _no_plot
 
     def __repr__(self):
         return (

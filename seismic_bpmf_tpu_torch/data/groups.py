@@ -1,11 +1,14 @@
-"""Template group: the batch arrays of a template bank.
+"""Event and template group containers: the batch arrays of a family or a
+template bank.
 
-Copy of the matched-filter side of `seismic_bpmf_tpu.data.groups`
-(`TemplateGroup`, reference parity: BPMF/dataset.py:4376-5353) without
-pandas.  It assembles the dense arrays the kernel consumes:
+Counterpart of `seismic_bpmf_tpu.data.groups` (reference parity:
+`Family`/`EventGroup`, BPMF/dataset.py:4082-4373, `TemplateGroup`,
+BPMF/dataset.py:4376-5353, and `Stack`, BPMF/dataset.py:5356-5677) without
+pandas.  They assemble the dense arrays the kernels and the stacking
+consume:
 
-  moveouts_arr  : (n_tp, n_stations, n_components) int32 samples
-  waveforms_arr : (n_tp, n_stations, n_components, n_samples) float32
+  moveouts_arr  : (n, n_stations, n_components) int32 samples
+  waveforms_arr : (n, n_stations, n_components, n_samples) float32
 
 `TemplateGroup.from_arrays` builds a group straight from these arrays
 (and the bank's metadata) and `TemplateGroup.from_group` reads them off
@@ -16,6 +19,12 @@ The inter-template tables (distances, directional errors, ellipsoid
 separations, CC) are plain numpy (n_tp, n_tp) arrays whose rows and
 columns follow `tids`; `table_at(table, tid_i, tid_j)` reads one entry by
 template id.  The JAX package keeps the same numbers in DataFrames.
+
+`EventGroup.SVDWF_stack` stacks every (station, component) panel of a
+family in one batched SVD on `device` (`utils.stacking.svdwf_panels`);
+`Stack.pick_PS_phases_family_mode` returns a `PickTable`, as
+`Event.pick_PS_phases` does, and skips only the members that have no data
+to read (an error of the picker or of the device propagates).
 """
 
 from __future__ import annotations
@@ -25,10 +34,314 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..ops.picks import PickTable
 from ..utils.geo import two_point_distance
-from .events import Template
+from ..utils.time import sec_to_samp, utc_from_epoch
+from .events import (
+    DEFAULT_OFFSET_PHASE, DEFAULT_PHASE_ON_COMP, Event, Template,
+    _to_datetime64,
+)
 from .network import Network
 from .waveforms import get_np_array
+
+# what a family member without data raises when it is picked: its reader
+# finds no file or no channel (OSError, KeyError), its window is empty (its
+# array is None: TypeError) or too short (ValueError, IndexError)
+MEMBER_WITHOUT_DATA = (OSError, KeyError, TypeError, ValueError, IndexError)
+
+
+def _normalized(arr: np.ndarray, method: str) -> np.ndarray:
+    if method == "rms":
+        norm = np.std(arr, axis=-1, keepdims=True)
+    elif method == "max":
+        norm = np.max(np.abs(arr), axis=-1, keepdims=True)
+    else:
+        raise ValueError("method must be 'rms' or 'max'")
+    norm[norm == 0.0] = 1.0
+    return arr / norm
+
+
+class EventGroup:
+    """A set of events aligned on a common network (stacking input).
+
+    Reference parity: BPMF/dataset.py:4082-4373.
+    """
+
+    def __init__(self, events: Sequence[Event], network: Network):
+        self.events = list(events)
+        self.network = network
+
+    @property
+    def n_events(self):
+        return len(self.events)
+
+    @property
+    def components(self):
+        return list(self.network.components)
+
+    @property
+    def stations(self):
+        return self.network.stations
+
+    def get_moveouts_arr(self) -> np.ndarray:
+        """(n_ev, n_sta, n_comp) int32 samples (phase-on-component, S where
+        an event names none)."""
+        mv = np.zeros(
+            (self.n_events, len(self.stations), len(self.components)),
+            np.int32,
+        )
+        for e, ev in enumerate(self.events):
+            table = ev.moveouts_table()
+            row = {s: i for i, s in enumerate(ev.stations)}
+            col = {p.upper(): i for i, p in enumerate(ev.phases)}
+            for c, cp in enumerate(self.components):
+                ph = str(ev.aux_data.get(f"phase_on_comp{cp}", "S")).upper()
+                if ph not in col:
+                    raise KeyError(f"moveouts_{ph}")
+                for s, sta in enumerate(self.stations):
+                    if sta in row:
+                        mv[e, s, c] = sec_to_samp(
+                            float(table[row[sta], col[ph]]), sr=ev.sr)
+        return mv
+
+    def read_waveforms(self, duration: float, **kwargs) -> "EventGroup":
+        """Read every event's time-shifted windows; kwargs go to
+        `Event.read_waveforms` (offset_phase, phase_on_comp, ...)."""
+        for ev in self.events:
+            ev.read_waveforms(duration, **kwargs)
+        return self
+
+    def get_waveforms_arr(self, **kwargs) -> np.ndarray:
+        arrs = [
+            get_np_array(ev.traces, self.stations,
+                         components=self.components,
+                         n_samples=ev.n_samples, verbose=False)
+            for ev in self.events
+        ]
+        n = min(a.shape[-1] for a in arrs)
+        self.waveforms_arr = np.stack([a[..., :n] for a in arrs])
+        return self.waveforms_arr
+
+    def normalize(self, method: str = "rms"):
+        """Normalize each event's waveforms (rms or max) in the batch
+        array."""
+        self.waveforms_arr = _normalized(self.waveforms_arr, method)
+        self._normalize_method = method
+
+    def set_network(self, network: Network):
+        """Re-target the group onto a new (e.g. subset) Network, rebuilding
+        the batch array and re-applying its normalization (reference
+        parity: BPMF/dataset.py:4172-4203)."""
+        self.network = network
+        if hasattr(self, "waveforms_arr"):
+            self.get_waveforms_arr()
+            if getattr(self, "_normalize_method", None):
+                self.normalize(self._normalize_method)
+        return self
+
+    def SVDWF_stack(
+        self,
+        freqmin: float,
+        freqmax: float,
+        sampling_rate: float,
+        expl_var: float = 0.4,
+        max_singular_values: int = 5,
+        generator=None,
+        device=None,
+    ) -> "Stack":
+        """SVD-Wiener-filtered stack -> `Stack`, every panel that is not
+        all zeros in one batched SVD on `device` (CUDA unless 'cpu' is
+        asked for).  Reference parity: BPMF/dataset.py:4275-4373."""
+        from ..utils.stacking import stack_panels
+
+        if not hasattr(self, "waveforms_arr"):
+            self.get_waveforms_arr()
+        stacked = stack_panels(
+            self.waveforms_arr, device=device, expl_var=expl_var,
+            max_singular_values=max_singular_values, freqmin=freqmin,
+            freqmax=freqmax, sampling_rate=sampling_rate,
+            generator=generator)
+        stack = Stack(
+            stacked,
+            self.stations,
+            self.components,
+            sampling_rate=sampling_rate,
+            phases=self.events[0].phases,
+            moveouts=self.events[0].moveouts_table(),
+        )
+        stack.events = self.events
+        return stack
+
+
+class Stack(Event):
+    """An Event wrapping stacked traces (reference:
+    BPMF/dataset.py:5356-5677)."""
+
+    def __init__(
+        self,
+        waveforms: np.ndarray,
+        stations,
+        components,
+        sampling_rate: float,
+        phases=("P", "S"),
+        moveouts: Optional[np.ndarray] = None,
+    ):
+        if moveouts is None:
+            moveouts = np.zeros((len(stations), len(phases)), np.float32)
+        super().__init__(
+            np.datetime64("now", "ns"),
+            np.asarray(moveouts, np.float32),
+            stations,
+            phases,
+            sampling_rate=sampling_rate,
+            components=components,
+        )
+        from .stream import Stream, Trace
+
+        self.traces = Stream()
+        for s, sta in enumerate(stations):
+            for c, cp in enumerate(components):
+                self.traces += Trace(
+                    waveforms[s, c],
+                    station=str(sta),
+                    channel=f"HH{cp}",
+                    sampling_rate=sampling_rate,
+                )
+        self.duration = waveforms.shape[-1] / sampling_rate
+        # the full stacked windows: read_waveforms slices from them
+        self.stacked_traces = self.traces
+
+    def read_waveforms(
+        self,
+        duration: float,
+        phase_on_comp=DEFAULT_PHASE_ON_COMP,
+        offset_phase=DEFAULT_OFFSET_PHASE,
+        time_shifted: bool = True,
+        offset_ot: float = 10.0,
+        **kwargs,
+    ):
+        """Slice phase windows from the stacked traces (reference parity:
+        BPMF/dataset.py:5451-5523): the stacked channel of component `c`
+        starts `offset_<PH>` seconds (aux data, else the default pre-pick
+        offset) before its phase arrival.  `time_shifted=True` moves each
+        window to the new `offset_phase`; `time_shifted=False` starts every
+        window `offset_ot` seconds before the origin time.  Samples outside
+        the stack are zeros."""
+        from .stream import Stream, Trace
+
+        if not hasattr(self, "stacked_traces"):
+            self.stacked_traces = self.traces
+        sr = self.sr
+        n = int(sec_to_samp(duration, sr=sr))
+        table = self.moveouts_table()
+        row = {s: i for i, s in enumerate(self.stations)}
+        col = {p.upper(): i for i, p in enumerate(self.phases)}
+        out = Stream()
+        for sta in self.stations:
+            for cp in self.components:
+                ph = str(phase_on_comp[cp]).upper()
+                orig_off = float(self.aux_data.get(
+                    f"offset_{ph}", DEFAULT_OFFSET_PHASE[ph]
+                ))
+                mv = float(table[row[sta], col[ph]])
+                if time_shifted:
+                    rel = orig_off - float(offset_phase[ph])
+                else:
+                    rel = orig_off - mv - float(offset_ot)
+                src = self.stacked_traces.select(station=str(sta),
+                                                 component=cp)
+                if not src:
+                    continue
+                x = np.asarray(src[0].data)
+                k0 = int(sec_to_samp(rel, sr=sr))
+                seg = np.zeros(n, np.float32)
+                a0, a1 = max(0, k0), min(len(x), k0 + n)
+                if a1 > a0:
+                    seg[a0 - k0:a1 - k0] = x[a0:a1]
+                out += Trace(seg, station=str(sta), channel=f"HH{cp}",
+                             sampling_rate=sr)
+        self.traces = out
+        self.duration = duration
+        self.set_aux_data({
+            f"offset_{str(p).upper()}": float(offset_phase[p])
+            for p in offset_phase
+        })
+        self.set_availability(stations=self.stations)
+        return self
+
+    def set_arrival_times_from_moveouts(self, offset_ot: float = 0.0):
+        """Shift the origin by `offset_ot`, then fill the arrival times
+        from the moveouts (reference parity: BPMF/dataset.py:5447-5449)."""
+        if offset_ot:
+            self.origin_time = _to_datetime64(utc_from_epoch(
+                self.origin_time_epoch + float(offset_ot)
+            ))
+        return super().set_arrival_times_from_moveouts()
+
+    def pick_PS_phases_family_mode(
+        self,
+        duration: float,
+        picker,
+        threshold_P: float = 0.60,
+        threshold_S: float = 0.60,
+        **kwargs,
+    ) -> Optional[PickTable]:
+        """Pick each member event attached by `EventGroup.SVDWF_stack` and
+        combine the picks: per station and phase, the probability-weighted
+        mean pick, the weighted spread across members as its uncertainty
+        and the largest probability (reference parity:
+        BPMF/dataset.py:5524-5677).  Sets and returns `picks_table`, float64
+        columns {P,S}_{picks,unc,probas} (NaN where no member picked); None
+        when no member was picked.
+
+        A member is skipped when it has no waveforms and no reader, or when
+        reading or picking it raises one of `MEMBER_WITHOUT_DATA` (the JAX
+        package skips a member on any exception, which would hide a fault
+        of the picker or the device)."""
+        if not hasattr(self, "events"):
+            raise RuntimeError("no member events attached to this Stack")
+        member_picks = []
+        for ev in self.events:
+            if not hasattr(ev, "traces") and ev.data_reader is None:
+                continue
+            try:
+                member_picks.append(ev.pick_PS_phases(
+                    duration, picker, threshold_P=threshold_P,
+                    threshold_S=threshold_S, **kwargs,
+                ))
+            except MEMBER_WITHOUT_DATA:
+                continue
+        if not member_picks:
+            return None
+        stations = [str(s) for s in self.stations]
+        rows = [{str(s): i for i, s in enumerate(p.stations)}
+                for p in member_picks]
+        columns = {}
+        for ph in ("P", "S"):
+            means, uncs, probas = [], [], []
+            for sta in stations:
+                vals, ws = [], []
+                for p, row in zip(member_picks, rows):
+                    i = row.get(sta)
+                    if i is not None and not np.isnan(p[f"{ph}_picks"][i]):
+                        vals.append(float(p[f"{ph}_picks"][i]))
+                        ws.append(float(p[f"{ph}_probas"][i]))
+                if vals:
+                    vals, ws = np.asarray(vals), np.asarray(ws)
+                    m = float(np.sum(vals * ws) / ws.sum())
+                    means.append(m)
+                    uncs.append(float(np.sqrt(
+                        np.sum(ws * (vals - m) ** 2) / ws.sum())))
+                    probas.append(float(ws.max()))
+                else:
+                    means.append(np.nan)
+                    uncs.append(np.nan)
+                    probas.append(np.nan)
+            columns[f"{ph}_picks"] = np.asarray(means, np.float64)
+            columns[f"{ph}_unc"] = np.asarray(uncs, np.float64)
+            columns[f"{ph}_probas"] = np.asarray(probas, np.float64)
+        self.picks_table = PickTable(stations, columns)
+        return self.picks_table
 
 
 class TemplateGroup:
@@ -223,6 +536,102 @@ class TemplateGroup:
             np.float32
         )
         return self._waveforms_arr
+
+    def normalize(self, method: str = "rms"):
+        """Normalize each template channel (rms or max) in the batch
+        array."""
+        self._waveforms_arr = _normalized(self.waveforms_arr, method)
+        self._normalize_method = method
+
+    def set_network(self, network: Network):
+        """Re-target the group onto a new (e.g. subset) Network: drop the
+        cached arrays and tables, rebuild the waveforms against the new
+        station list and re-apply the normalization (reference parity:
+        BPMF/dataset.py:4172-4203)."""
+        had_waveforms = hasattr(self, "_waveforms_arr")
+        self.network = network
+        for cache in ("_moveouts_arr", "_waveforms_arr", "_intertp_dist",
+                      "_dir_errors", "_ellips_dist", "_intertemplate_cc"):
+            self.__dict__.pop(cache, None)
+        if had_waveforms:
+            self.read_waveforms()
+            if getattr(self, "_normalize_method", None):
+                self.normalize(self._normalize_method)
+        return self
+
+    def set_network_to_template_map(self):
+        """Build the per-template channel-presence map (reference parity:
+        BPMF/dataset.py `set_network_to_template_map`; the
+        `network_to_template_map` property holds it)."""
+        _ = self.network_to_template_map
+
+    def box(self, lon_min: float, lon_max: float, lat_min: float,
+            lat_max: float) -> "TemplateGroup":
+        """A new group of the templates located inside the geographic box
+        (reference parity: BPMF/dataset.py `TemplateGroup.box`)."""
+        kept = [
+            tp for tp in self.templates
+            if (tp.longitude is not None and tp.latitude is not None
+                and lon_min <= tp.longitude <= lon_max
+                and lat_min <= tp.latitude <= lat_max)
+        ]
+        return TemplateGroup(kept, self.network)
+
+    def n_closest_stations(self, n: int, available_stations=None) -> dict:
+        """{tid: the n closest stations} (reference parity:
+        BPMF/dataset.py `TemplateGroup.n_closest_stations`)."""
+        return {
+            tp.tid: tp.n_closest_stations(n, available_stations)
+            for tp in self.templates
+        }
+
+    def n_best_SNR_stations(self, n: int, available_stations=None) -> dict:
+        """{tid: the n stations of best SNR}, the closest stations for a
+        template whose SNR cannot be computed (no waveforms)."""
+        for tp in self.templates:
+            if not hasattr(tp, "_snr"):
+                try:
+                    tp.compute_snr()
+                except (AttributeError, KeyError, ValueError):
+                    pass
+        return {
+            tp.tid: (
+                tp.n_best_SNR_stations(n, available_stations)
+                if hasattr(tp, "_snr")
+                else tp.n_closest_stations(n, available_stations)
+            )
+            for tp in self.templates
+        }
+
+    def read_catalog(self, db_path: str = "",
+                     extra_attributes=("cc", "n_dev"), **kwargs):
+        """The detection catalog of every template of the group, from the
+        per-template detection files (reference parity: BPMF/dataset.py
+        `TemplateGroup.read_catalog`); a template without a file adds
+        nothing.  Sets and returns `catalog`, a `data.Catalog`."""
+        from .catalog import Catalog
+
+        cats = []
+        for tp in self.templates:
+            try:
+                cats.append(tp.read_catalog(
+                    db_path=db_path, extra_attributes=extra_attributes,
+                    **kwargs,
+                ))
+            except (OSError, KeyError):
+                continue
+        if not cats:
+            raise FileNotFoundError(
+                f"no detection files under {db_path!r} for any template"
+            )
+        self.catalog = Catalog.concatenate(cats)
+        return self.catalog
+
+    def _no_plot(self, *args, **kwargs):
+        raise NotImplementedError(
+            "plotting is not ported yet (ROADMAP Queue 1 #20)")
+
+    plot_detection = plot_recurrence_times = _no_plot
 
     # ------------------------------------------------------------------
     # inter-template similarity and dedup

@@ -153,7 +153,25 @@ class Network:
     def elevation(self) -> np.ndarray:
         return self._elevation
 
+    def datelist(self) -> np.ndarray:
+        """The days from `start_date` to `end_date`, both included, as
+        datetime64[ns] (the JAX package's `pd.date_range` values)."""
+        start = np.datetime64(str(self.start_date), "D")
+        end = np.datetime64(str(self.end_date), "D")
+        return np.arange(start, end + np.timedelta64(1, "D"),
+                         np.timedelta64(1, "D")).astype("datetime64[ns]")
+
     # ------------------------------------------------------------------
+    def box(self, lat_min, lat_max, lon_min, lon_max) -> "Network":
+        """The stations strictly inside the geographic box."""
+        sel = (
+            (self.latitude > lat_min)
+            & (self.latitude < lat_max)
+            & (self.longitude > lon_min)
+            & (self.longitude < lon_max)
+        )
+        return self.subset(list(self.stations[sel]), self.components, "keep")
+
     def subset(self, stations, components, method: str = "keep") -> "Network":
         sub = copy.deepcopy(self)
         stations = list(np.atleast_1d(stations))

@@ -230,3 +230,38 @@ def data_reader_mseed(
                 f"{' or '.join(_resp_dirs(where))}"
             )
     return out
+
+
+def data_reader_pyasdf(
+    where,
+    network="*",
+    stations=None,
+    channels=None,
+    location="*",
+    starttime=None,
+    endtime=None,
+    tag="raw_recording",
+    **kwargs,
+) -> Stream:
+    """ASDF (pyasdf) reader (reference: BPMF/data_reader_examples.py:47-113)
+    into the package's Stream.  Needs the optional `pyasdf` package,
+    imported here."""
+    try:
+        import pyasdf
+    except ImportError as e:
+        raise ImportError(
+            "data_reader_pyasdf requires pyasdf; use data_reader_hdf5 or "
+            "data_reader_mseed instead"
+        ) from e
+
+    out = Stream()
+    with pyasdf.ASDFDataSet(where, mode="r") as ds:
+        for sta_code in ds.waveforms.list():
+            sta = sta_code.split(".")[-1]
+            if stations is not None and sta not in stations:
+                continue
+            st = getattr(ds.waveforms[sta_code], tag)
+            out += from_obspy(st)
+    if starttime is not None or endtime is not None:
+        out = out.slice(starttime, endtime)
+    return out

@@ -217,3 +217,77 @@ class TravelTimes:
                 gp = f.create_group(f"tt_{ph}")
                 for sta, v in stations.items():
                     gp.create_dataset(str(sta), data=np.asarray(v))
+
+
+def grid_travel_times(
+    source_longitudes,
+    source_latitudes,
+    source_depths,
+    receiver_longitudes,
+    receiver_latitudes,
+    receiver_depths,
+    vp_km_s: float = 6.0,
+    vs_km_s: float = 3.45,
+):
+    """Homogeneous-velocity travel times (s), P and S, (n_sources,
+    n_receivers) each: straight rays at `vp_km_s` and `vs_km_s`, for tests
+    and quick starts (production tables come from an eikonal solver with
+    the same HDF5 contract)."""
+    from ..utils.geo import compute_distances
+
+    d = compute_distances(
+        source_longitudes, source_latitudes, source_depths,
+        receiver_longitudes, receiver_latitudes, receiver_depths,
+    )
+    return d / vp_km_s, d / vs_km_s
+
+
+def load_travel_times(path, phases, source_indexes=None,
+                      return_coords=False, stations=None):
+    """Function-level travel-time loader (BPMF/utils.py:590-659 API):
+    ``{phase: {station: (n_sources,) seconds}}`` in sorted station order
+    (the JAX package returns the same vectors as a DataFrame's cells); with
+    `source_indexes`, the sources of those flat grid indexes, in grid
+    order.  With `return_coords`, also their coordinates as a
+    `SourceTable` indexed by the flat grid index."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        grid_shape = f["source_coordinates"]["depth"].shape
+        mask = sel = None
+        if source_indexes is not None:
+            # a boolean-mask gather returns ascending unique grid order
+            sel = np.unique(np.asarray(source_indexes))
+            mask = np.zeros(grid_shape, dtype=bool)
+            mask[np.unravel_index(sel, grid_shape)] = True
+
+        def values(v):
+            return v[mask].ravel() if mask is not None else v.ravel()
+
+        sta_all = sorted({s for ph in phases for s in f[f"tt_{ph}"].keys()})
+        rows = [s for s in sta_all if stations is None or s in stations]
+        tts = {ph: {sta: values(f[f"tt_{ph}"][sta][()]) for sta in rows
+                    if sta in f[f"tt_{ph}"]}
+               for ph in phases}
+        if return_coords:
+            idx = (sel if sel is not None
+                   else np.arange(int(np.prod(grid_shape))))
+            coords = SourceTable(
+                {c: values(f["source_coordinates"][c][()])
+                 for c in f["source_coordinates"].keys()}, index=idx)
+    if return_coords:
+        return tts, coords
+    return tts
+
+
+def get_moveout_array(tts, stations, phases) -> np.ndarray:
+    """(n_sources, n_stations, n_phases) seconds from `load_travel_times`'
+    tables (``tts[phase][station]``; the JAX package's DataFrame reads the
+    same way), ordered by `stations` and `phases` (BPMF/utils.py:563-588
+    API)."""
+    cols = np.stack(
+        [np.asarray(tts[ph][sta], dtype=float)
+         for sta in stations for ph in phases],
+        axis=-1,
+    )
+    return cols.reshape(-1, len(stations), len(phases))

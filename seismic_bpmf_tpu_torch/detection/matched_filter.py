@@ -29,6 +29,7 @@ from ..ops.reference import GAUSSIAN_SAMPLE_LEN, matched_filter_at
 from ..ops.thresholds import (
     _rms_plan, batch_candidates, detect_candidates, time_dependent_threshold,
 )
+from ..utils.observe import GLOBAL_TIMER
 from ..utils.time import sec_to_samp, utc_from_epoch
 
 logger = logging.getLogger("seismic_bpmf_tpu_torch.detection.matched_filter")
@@ -241,20 +242,22 @@ class MatchedFilter:
     def preupload_day(self, data):
         """Prepare `data` for a later `set_data(data)`: normalize and start
         the padded device upload on the calling (prefetch) thread.  One
-        day may be in flight at a time."""
-        arr, norm = self._prepare_data_arr(data)
-        bundle = {"arr": arr, "norm": norm, "ref": weakref.ref(data)}
-        n_samp = int(arr.shape[-1])
-        L = int(self.template_group.waveforms_arr.shape[-1])
-        pad_left, max_mv = self._bank_pad_overrides()
-        pad_left, ext = MatchedFilterPlan.data_layout(n_samp, L, pad_left,
-                                                      max_mv)
-        bundle["pad"] = (
-            pad_day_data(arr, arr.shape[0] * arr.shape[1], n_samp, pad_left,
-                         ext, dtype=self._upload_dtype(),
-                         device=self.device),
-            (id(arr), n_samp, pad_left, ext, self._upload_dtype()),
-        )
+        day may be in flight at a time.  Its host seconds go to the
+        `mf_set_data` stage of `utils.observe.GLOBAL_TIMER`."""
+        with GLOBAL_TIMER.stage("mf_set_data"):
+            arr, norm = self._prepare_data_arr(data)
+            bundle = {"arr": arr, "norm": norm, "ref": weakref.ref(data)}
+            n_samp = int(arr.shape[-1])
+            L = int(self.template_group.waveforms_arr.shape[-1])
+            pad_left, max_mv = self._bank_pad_overrides()
+            pad_left, ext = MatchedFilterPlan.data_layout(n_samp, L,
+                                                          pad_left, max_mv)
+            bundle["pad"] = (
+                pad_day_data(arr, arr.shape[0] * arr.shape[1], n_samp,
+                             pad_left, ext, dtype=self._upload_dtype(),
+                             device=self.device),
+                (id(arr), n_samp, pad_left, ext, self._upload_dtype()),
+            )
         pre = getattr(self, "_preloaded", None)
         if not isinstance(pre, dict):
             pre = {}
@@ -277,7 +280,8 @@ class MatchedFilter:
                 self.data_norm = bundle["norm"]
             self._data_pad, self._data_pad_key = bundle["pad"]
             return
-        self.data_arr, norm = self._prepare_data_arr(data)
+        with GLOBAL_TIMER.stage("mf_set_data"):
+            self.data_arr, norm = self._prepare_data_arr(data)
         if norm is not None:
             self.data_norm = norm
 
@@ -683,49 +687,53 @@ class MatchedFilter:
 
         In screen mode this is where exactness is restored: each
         candidate's CC is recomputed exactly and the threshold decision is
-        re-taken on the exact value."""
+        re-taken on the exact value.  The host seconds of the refine and of
+        the Events go to the `mf_refine` and `mf_events` stages of
+        `utils.observe.GLOBAL_TIMER`."""
         if self.precision == "screen" and len(cc_idx):
-            cc_vals = self._exact_cc_at(tid, tt, cc_idx)
+            with GLOBAL_TIMER.stage("mf_refine"):
+                cc_vals = self._exact_cc_at(tid, tt, cc_idx)
             keep = cc_vals > np.asarray(thr_vals)
             cc_idx = np.asarray(cc_idx)[keep]
             cc_vals = cc_vals[keep]
             thr_vals = np.asarray(thr_vals)[keep]
-        tg = self.template_group
-        sr = self.data.sr
-        template = tg.templates[tt]
-        stations = list(self.stations)
-        # per-template station-ordered moveout rows (seconds), cached: the
-        # bank is fixed for the engine's lifetime
-        mv_cache = getattr(self, "_tpl_mv_cache", None)
-        if mv_cache is None:
-            mv_cache = self._tpl_mv_cache = {}
-        mv = mv_cache.get(tt)
-        if mv is None:
-            mv = mv_cache[tt] = template.moveouts_at(stations)
-        mv_arr = tg.moveouts_arr[tt]
-        data_path, data_filename = os.path.split(str(self.data.where))
-        detections = []
-        for i, idx in enumerate(cc_idx):
-            det_idx = int(idx) * self.step
-            ot = self.data.date_epoch + det_idx / sr
-            event = Event(
-                utc_from_epoch(ot), mv, stations, template.phases,
-                data_filename, data_path, sampling_rate=sr,
-                data_reader=getattr(self.data, "data_reader", None),
-            )
-            event.inherit_location(template)
-            aux = {
-                "cc": float(cc_vals[i]),
-                "n_threshold": float(cc_vals[i] / thr_vals[i]),
-                "tid": tid,
-            }
-            aux["n_dev"] = aux["n_threshold"] * self.cfg.n_dev_mf_threshold
-            if getattr(self, "extract_peak_amplitudes", False):
-                aux["peak_amplitudes"] = self._peak_amplitudes(det_idx,
-                                                               mv_arr)
-            event.set_aux_data(aux)
-            detections.append(event)
-        return detections
+        with GLOBAL_TIMER.stage("mf_events"):
+            tg = self.template_group
+            sr = self.data.sr
+            template = tg.templates[tt]
+            stations = list(self.stations)
+            # per-template station-ordered moveout rows (seconds), cached: the
+            # bank is fixed for the engine's lifetime
+            mv_cache = getattr(self, "_tpl_mv_cache", None)
+            if mv_cache is None:
+                mv_cache = self._tpl_mv_cache = {}
+            mv = mv_cache.get(tt)
+            if mv is None:
+                mv = mv_cache[tt] = template.moveouts_at(stations)
+            mv_arr = tg.moveouts_arr[tt]
+            data_path, data_filename = os.path.split(str(self.data.where))
+            detections = []
+            for i, idx in enumerate(cc_idx):
+                det_idx = int(idx) * self.step
+                ot = self.data.date_epoch + det_idx / sr
+                event = Event(
+                    utc_from_epoch(ot), mv, stations, template.phases,
+                    data_filename, data_path, sampling_rate=sr,
+                    data_reader=getattr(self.data, "data_reader", None),
+                )
+                event.inherit_location(template)
+                aux = {
+                    "cc": float(cc_vals[i]),
+                    "n_threshold": float(cc_vals[i] / thr_vals[i]),
+                    "tid": tid,
+                }
+                aux["n_dev"] = aux["n_threshold"] * self.cfg.n_dev_mf_threshold
+                if getattr(self, "extract_peak_amplitudes", False):
+                    aux["peak_amplitudes"] = self._peak_amplitudes(det_idx,
+                                                                   mv_arr)
+                event.set_aux_data(aux)
+                detections.append(event)
+            return detections
 
     def _peak_amplitudes(self, detection_index: int, mv_arr: np.ndarray,
                          offset_sec: float = 1.0,

@@ -5,8 +5,9 @@ that its day scans need: `beamform` (the BP kernel's specification),
 `bp_detection_threshold`, `envelope`, `saturated_envelopes` and `kurtosis`
 (the backprojection features and threshold), `matched_filter` (the MF
 kernel's specification), `matched_filter_at` (the float64 refine of the
-`screen` rung), `time_dependent_threshold`, `select_cc_indexes` and
-`dedup_detection_indexes`.
+`screen` rung), `time_dependent_threshold`, `select_cc_indexes`,
+`dedup_detection_indexes` and `find_similar_sources` (redundant grid
+sources).
 
 Behavioral parity targets (reference file:line cited per function):
   - beamform .................. external `beampower` package as consumed at
@@ -19,6 +20,7 @@ Behavioral parity targets (reference file:line cited per function):
   - select_cc_indexes ......... BPMF/libc.c:441-485
   - kurtosis .................. BPMF/libc.c:11-53
   - envelope / saturation ..... BPMF/template_search.py:1525-1617
+  - find_similar_sources ...... BPMF/libc.c:55-387
 """
 
 from __future__ import annotations
@@ -443,6 +445,72 @@ def kurtosis(signal: np.ndarray, w: int) -> np.ndarray:
         )
         out[i, w:] = k
     return out.reshape(orig_shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Redundant source-grid detection
+# ---------------------------------------------------------------------------
+
+def find_similar_sources(
+    moveouts: np.ndarray,
+    source_longitude: np.ndarray,
+    source_latitude: np.ndarray,
+    cell_longitude: np.ndarray,
+    cell_latitude: np.ndarray,
+    threshold: float,
+    num_stations_for_diff: int | None = None,
+    method: str = "closest",
+) -> np.ndarray:
+    """Mark grid sources whose moveouts are redundant with an earlier source.
+
+    Two passes: cell-local, then global.  Sequential in the first source index
+    (a source already marked redundant cannot absorb others).  `method`:
+      - 'closest': sum squared moveout differences at the `k` stations closest
+        (smallest moveout) to source 1 (BPMF/libc.c:225-387).
+      - 'smallest': sum the `k` smallest squared differences
+        (BPMF/libc.c:55-223).
+    Returns a boolean (n_sources,) array.
+    """
+    mv = np.asarray(moveouts, dtype=np.float32)
+    n_src, n_sta = mv.shape
+    k = n_sta if num_stations_for_diff is None else int(num_stations_for_diff)
+    thr2 = np.float32(k * threshold**2)
+    lon = np.asarray(source_longitude, dtype=np.float32)
+    lat = np.asarray(source_latitude, dtype=np.float32)
+    cl = np.asarray(cell_longitude, dtype=np.float32)
+    ca = np.asarray(cell_latitude, dtype=np.float32)
+    redundant = np.zeros(n_src, dtype=bool)
+
+    def _sweep(candidate_mask: np.ndarray):
+        order = np.flatnonzero(candidate_mask)
+        for n1 in order:
+            if redundant[n1]:
+                continue
+            later = order[order > n1]
+            later = later[~redundant[later]]
+            if later.size == 0:
+                continue
+            d = mv[later] - mv[n1][None, :]
+            if method == "closest":
+                sel = np.argsort(mv[n1], kind="stable")[:k]
+                dt2 = (d[:, sel] ** 2).sum(axis=1)
+            else:  # 'smallest'
+                d2 = np.sort(d**2, axis=1)[:, :k]
+                dt2 = d2.sum(axis=1)
+            redundant[later[dt2 < thr2]] = True
+
+    # pass 1: cell-local
+    for i in range(len(cl) - 1):
+        for j in range(len(ca) - 1):
+            in_cell = (
+                (lon >= cl[i]) & (lon < cl[i + 1])
+                & (lat >= ca[j]) & (lat < ca[j + 1])
+            )
+            if in_cell.sum() > 1:
+                _sweep(in_cell)
+    # pass 2: global
+    _sweep(np.ones(n_src, dtype=bool))
+    return redundant
 
 
 # ---------------------------------------------------------------------------

@@ -558,3 +558,20 @@ def detect_candidates(cc, threshold, k: int = 2048, margin: float = 0.0):
         cc, threshold, k, float(margin))
     return (idx.cpu().numpy(), cc_vals.cpu().numpy(),
             thr_vals.cpu().numpy(), int(n_above), float(kurto))
+
+
+def time_dependent_threshold_pd(network_response, window: int,
+                                num_dev: float = 15.0) -> np.ndarray:
+    """The notebooks' host version of the BP detection threshold
+    (BPMF/template_search.py:1490-1517): a trailing-window running median
+    plus `num_dev` MADs, shifted by one sample so that each value uses
+    strictly past samples.  pandas' rolling windows, imported here; the
+    device pipeline uses `bp_detection_threshold`."""
+    import pandas as pd
+    from scipy.stats import median_abs_deviation
+
+    s = pd.Series(np.asarray(network_response, np.float64))
+    r = s.rolling(window=int(window))
+    run_med = r.median().shift(1)
+    run_mad = r.apply(median_abs_deviation, raw=True).shift(1)
+    return (run_med + num_dev * run_mad).values

@@ -780,3 +780,61 @@ def test_train_phasenet_and_checkpoint_on_card(card, tmp_path):
     day = rng.normal(size=(2, 3, 20000)).astype(np.float32)
     assert torch.equal(phasenet.phasenet_probas_device(model, day),
                        phasenet.phasenet_probas_device(back, day))
+
+
+@pytest.mark.cuda
+def test_svdwf_on_card_matches_the_host_version(card):
+    """The batched float64 SVD and Wiener filter on the card against the
+    scipy route on the host, within 1e-9 of the stacks' maximum; one SVD
+    launch on the card for every panel."""
+    from seismic_bpmf_tpu_torch.utils import stacking
+
+    rng = np.random.default_rng(45)
+    t = np.arange(500) / 25.0
+    burst = np.sin(2 * np.pi * 4.0 * t) * np.exp(-((t - 8.0) ** 2))
+    panels = (rng.uniform(0.5, 2.0, size=(30, 12, 1)) * burst
+              + 0.3 * rng.normal(size=(30, 12, 500)))
+    for kw in ({}, dict(freqmin=2.0, freqmax=10.0, sampling_rate=25.0,
+                        max_singular_values=3, expl_var=0.8)):
+        launches = stacking.svdwf_panels.launches
+        got = stacking.svdwf_panels(panels, device=card, **kw)
+        assert stacking.svdwf_panels.launches == launches + 1
+        want = stacking.svdwf_panels_host(panels, **kw)
+        assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_a_300_template_scan_crosses_a_plan_cut_on_card(card):
+    """300 tid-distinct copies of the year world's two templates on a
+    3,600 s day at 'screen': two plans (256 + 44) in one extraction chunk,
+    every template finds both injected events within a sample, and the
+    detections equal those of the two sub-banks scanned alone."""
+    from seismic_bpmf_tpu_torch.tools import year_scan
+    from seismic_bpmf_tpu_torch.tools.year_world import (
+        T0_EPOCH, build_bank, build_world,
+    )
+
+    w = build_world(day_sec=3600.0)
+    bank = build_bank(w, 300)
+    noise = np.random.default_rng(46).normal(size=500).astype(np.float32)
+    sr = w.cfg.sampling_rate_hz
+
+    def scan(tg):
+        launches = mf.mf_cc.launches
+        res = year_scan.campaign(w, tg, ["day000"], device=card,
+                                 white_noise=noise)["day000"]
+        return mf.mf_cc.launches - launches, {
+            str(t): [round((e.origin_time_epoch - T0_EPOCH) * sr)
+                     for e in evs] for t, evs in res.items()}
+
+    n, whole = scan(bank)
+    assert n == 2 and sorted(whole, key=int) == [str(i) for i in range(300)]
+    for tid, hits in whole.items():
+        for ev_t in w.event_times:
+            assert sum(abs(i - ev_t * sr) <= 1 for i in hits) == 1, (tid,
+                                                                     hits)
+    parts = {}
+    for lo, hi in ((0, 256), (256, 300)):
+        parts.update(scan(TemplateGroup(bank.templates[lo:hi],
+                                        w.network))[1])
+    assert parts == whole

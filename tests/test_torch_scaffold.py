@@ -783,3 +783,120 @@ def test_training_entry_points_need_cuda_unless_asked_for_the_cpu(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+YEAR_PATH = textwrap.dedent("""
+    import importlib.abc, contextlib, io, os, sys, tempfile
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)  # the suite's workers share the cores
+    from seismic_bpmf_tpu_torch.data import EventGroup
+    from seismic_bpmf_tpu_torch.models import PhaseNet, make_picker
+    from seismic_bpmf_tpu_torch.tools import year_scan
+    from seismic_bpmf_tpu_torch.tools.year_world import (
+        build_bank, build_world,
+    )
+
+    # the year tool at a cut, run twice (the second resumes and runs the
+    # third day only), then with churn
+    tmp = tempfile.mkdtemp()
+    argv = ["--templates", "3", "--day-sec", "900", "--cpu",
+            "--workdir", tmp]
+    for days, n_run in ((2, 2), (3, 1)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert year_scan.main(argv + ["--days", str(days)]) == 0
+        text = out.getvalue()
+        assert f"YEAR SCAN: {{n_run}} days" in text, text
+        assert "GSamples/s" in text and "mf_set_data" in text, text
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert year_scan.main(argv + ["--days", "1", "--churn", "2",
+                                      "--state",
+                                      os.path.join(tmp, "churn.json")]) == 0
+    assert "YEAR SCAN: 1 days" in out.getvalue()
+    # the family path on the year world's detections of one template
+    w = build_world(day_sec=900.0)
+    bank = build_bank(w, 2)
+    dets = year_scan.campaign(w, bank, ["day000", "day001"], device="cpu")
+    members = [ev for day in dets.values() for ev in day["0"]]
+    assert len(members) == 4, len(members)
+    group = EventGroup(members, w.network)
+    group.read_waveforms(8.0, offset_phase={{"P": 1.0, "S": 2.0}})
+    group.get_waveforms_arr()
+    group.normalize("rms")
+    stack = group.SVDWF_stack(2.0, 10.0, 25.0, device="cpu")
+    stack.read_waveforms(8.0)
+    for ev in members:
+        del ev.traces
+    model = PhaseNet(depth=3, filters_root=4).eval()
+    picks = stack.pick_PS_phases_family_mode(
+        40.0, make_picker(model), threshold_P=0.0, threshold_S=0.0,
+        offset_ot=10.0, picker_sampling_rate=25.0)
+    assert np.isfinite(picks["P_picks"]).all()
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("YEAR_PATH_OK")
+""")
+
+
+def test_year_and_family_path_run_without_jax_pandas_h5py_ml_dtypes():
+    """The year tool (`tools/year_world.py`, `tools/year_scan.py`: a cut,
+    a resume and the churn mode) and the family path (EventGroup -> SVDWF
+    stack -> Stack -> family picks) import neither JAX nor the JAX package,
+    and run with pandas and h5py blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", YEAR_PATH.format(blocked=BLOCKED)],
+        capture_output=True, text=True, cwd=str(REPO), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "YEAR_PATH_OK" in proc.stdout
+
+
+def test_year_and_family_entry_points_need_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from seismic_bpmf_tpu_torch.data import EventGroup
+    from seismic_bpmf_tpu_torch.tools import year_scan
+    from seismic_bpmf_tpu_torch.tools.year_world import (
+        build_bank, build_world,
+    )
+    from seismic_bpmf_tpu_torch.utils import stacking
+
+    w = build_world(n_sta=3, day_sec=300.0)
+    bank = build_bank(w, 2)
+    panels = np.random.default_rng(0).normal(size=(2, 3, 50))
+    wf = np.random.default_rng(1).normal(size=(3, 2, 3, 50))
+    group = EventGroup([], w.network)
+    group.waveforms_arr = wf
+    calls = [
+        lambda: stacking.svdwf(panels[0]),
+        lambda: stacking.svdwf_panels(panels),
+        lambda: stacking.stack_panels(wf),
+        lambda: stacking.svdwf_multiplets(bank.templates[0],
+                                          detection_waveforms=wf),
+        lambda: group.SVDWF_stack(2.0, 10.0, 25.0),
+        lambda: year_scan.campaign(w, bank, ["day000"]),
+        lambda: year_scan.main(["--days", "1", "--templates", "2",
+                                "--day-sec", "300"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for the CPU, they run
+    assert stacking.svdwf(panels[0], device="cpu").shape == (50,)
+    assert stacking.stack_panels(wf, device="cpu").shape == (2, 3, 50)

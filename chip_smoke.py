@@ -202,9 +202,33 @@ Phases (any failure exits non-zero; nothing is caught):
      22's trained picker on the card, the family's picks within
      `FAMILY_PICK_TOL` samples of the injected arrivals at
      `FAMILY_MIN_STATIONS` stations or more for each phase; ms a family.
+ 26. the sharded MF day (`parallel`, ROADMAP Queue 1 #19): phase 4's bank
+     and day 1 through both builds of kernel #1 and kernel #2, one launch
+     per (template shard, time shard) of two virtual meshes of the card,
+     {"tp": 2, "time": 4} and the ragged {"tp": 3, "time": 5}; every
+     rung's day equal to the unsharded kernel's bit for bit, and the 2 x 4
+     mesh's last time shard of template shard 1 (its lag bounds moved by
+     its base, the day's end) held to the rung's plain version (rtol=1e-4,
+     atol=1e-5); launches, the day's ms sharded and unsharded, each
+     shard's ms, the halo copies' ms; then `scan_days(stage="mf",
+     mesh=...)` over phase 4's two days at 'screen' on both meshes, the
+     detections (template, sample) identical to phase 4's, kernel #1's
+     default build only, s/day beside phase 4's, the peak device memory;
+ 27. the sharded BP day: kernel #3 per (source shard, time shard) of
+     {"src": 2, "time": 4} and {"src": 3, "time": 5} on phase 8's world
+     (day 1's envelopes), each time shard holding its own columns and a
+     halo from its absolute origin; (max, argmax) equal to the unsharded
+     kernel's bit for bit, the day's last tiles of one shard held to the
+     plain version (first-max rule), a source of the last source shard
+     made an exact copy of one of the first (a spike at their moveouts on
+     a 2^17 cut): the smaller index wins; reduce='none' on 3,000 sources x
+     2^14 samples equal to the unsharded beam; `scan_days(stage="bp",
+     mesh=...)` over day 1 on both meshes with phase 8's detections
+     (sample, source); launches, ms, each shard's ms, the halos' ms, s/day
+     by stage, the peak device memory.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
-#3's launches those of phases 8, 18, 19 and 23; kernel #1's default
-build's those of phases 4, 23 and 24), and as the last line
+#3's launches those of phases 8, 18, 19, 23 and 27; kernel #1's default
+build's those of phases 4, 23, 24 and 26), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -256,13 +280,16 @@ from seismic_bpmf_tpu_torch.location.eikonal import (  # noqa: E402
     travel_time_grids as eikonal_grids,
 )
 from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
-from seismic_bpmf_tpu_torch.ops.beamform import _flatten_moveouts  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.beamform import (  # noqa: E402
+    _flatten_moveouts, fold_components,
+)
 from seismic_bpmf_tpu_torch.ops.cf import saturated_envelopes  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
     PickTable, candidates, find_picks, get_picks, normalize_batch,
 )
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch  # noqa: E402
+from seismic_bpmf_tpu_torch.parallel import make_mesh, sharded  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import response  # noqa: E402
 from seismic_bpmf_tpu_torch.data import data_reader_mseed  # noqa: E402
 from seismic_bpmf_tpu_torch.data.mseed import read_mseed  # noqa: E402
@@ -2574,12 +2601,284 @@ print(f"family path on the card: template {tid25}'s {len(members25)} month "
       f"picker's on the CPU within {err25c:.3g} "
       f"({time.perf_counter() - t25:.1f} s) [{CARD}]", flush=True)
 
+# 26. the sharded MF day: phase 4's world on virtual meshes of the card
+t26 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+CARD0 = torch.device("cuda", torch.cuda.current_device())
+MESHES26 = {"2x4": make_mesh({"tp": 2, "time": 4}, devices=[CARD0] * 8),
+            "3x5": make_mesh({"tp": 3, "time": 5}, devices=[CARD0] * 15)}
+w26 = np.full((N_TP, N_STA, N_COMP), 1.0 / (N_STA * N_COMP), np.float32)
+RUNG26 = {"default": mf.mf_cc, "highest": mf.mf_cc_highest,
+          "high": mf.mf_cc_split}
+errs26, lines26 = {}, []
+for rung, wrapper in RUNG26.items():
+    plan26 = mf.MatchedFilterPlan(tg.waveforms_arr, tg.moveouts_arr, w26,
+                                  N_SAMP, precision=rung)
+    dp26 = plan26.pad_data(DAYS["d1"])
+    want26 = plan26(dp26)
+    unsharded_ms = cuda_ms(lambda: plan26(dp26), 3)
+    errs26[rung] = 0.0
+    for name, mesh26 in MESHES26.items():
+        sp26 = sharded.ShardedMatchedFilterPlan(
+            tg.waveforms_arr, tg.moveouts_arr, w26, N_SAMP, mesh26,
+            precision=rung)
+        sd26 = sp26.pad_data(DAYS["d1"])
+        n0 = wrapper.launches
+        got26 = sp26(sd26)
+        n_launch26 = wrapper.launches - n0
+        torch.cuda.synchronize()
+        if not torch.equal(got26, want26):
+            raise AssertionError(
+                f"sharded {rung} on {name} != unsharded kernel: max|diff| "
+                f"{float((got26 - want26).abs().max()):.3g}")
+        grid26, lay26 = sp26.grid, sp26.layout
+        shards26 = [(a, t) for a, _, _ in sp26.shards
+                    for t in range(lay26.n_t) if sp26.n_lags(t)]
+        if n_launch26 != len(shards26):
+            raise AssertionError(f"sharded {rung} on {name}: {n_launch26} "
+                                 f"launches for {len(shards26)} shards")
+        sharded_ms = cuda_ms(lambda: sp26(sd26), 3)
+        chunks26 = sharded._scatter(torch.from_numpy(
+            DAYS["d1"].reshape(N_STA * N_COMP, N_SAMP)), grid26, lay26)
+        halo_ms = cuda_ms(lambda: sharded._exchange(chunks26, grid26, lay26),
+                          5)
+        del chunks26
+        line = (f"{rung} {name}: {n_launch26} launches, day {sharded_ms:.2f} "
+                f"ms sharded / {unsharded_ms:.2f} unsharded, halos "
+                f"{halo_ms:.3f} ms")
+        if name == "2x4":
+            per26 = [cuda_ms(lambda: sp26.shard_cc(sd26, a, t), 3)
+                     for a, t in shards26]
+            line += (", per shard " + "/".join(f"{x:.2f}" for x in per26)
+                     + " ms")
+            # the last time shard of template shard 1 (the day's end, its
+            # lag bounds moved by its base) against the rung's plain version
+            a, t = 1, lay26.n_t - 1
+            p26 = sp26.plans[(a, grid26[a, t])]
+            base = t * lay26.chunk
+            ext26 = sd26.ext(t, grid26[a, t])
+            kw26 = dict(n_tp=p26.n_tp, L=L, n_corr=sp26.n_lags(t),
+                        lo_p=p26.lo_p - base, hi_p=p26.hi_p - base)
+            if rung == "high":
+                ref26 = mf.matched_filter_split_plain(
+                    ext26, *mf.split_rows_parts(p26.filt_rows, L),
+                    p26.mv_table, **kw26)
+            else:
+                ref26 = mf.matched_filter_plain(
+                    ext26, *mf.tf32_rows_parts(p26.filt_rows, L),
+                    p26.mv_table, **kw26)
+            k26 = sp26.shard_cc(sd26, a, t)
+            torch.cuda.synchronize()
+            errs26[rung] = float((k26 - ref26).abs().max())
+            if not torch.allclose(k26, ref26, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"sharded {rung}: shard ({a}, {t}) != "
+                                     f"plain: max|diff| {errs26[rung]:.3g}")
+            line += f", shard ({a}, {t}) vs plain {errs26[rung]:.3g}"
+            del ref26, k26
+        lines26.append(line)
+        del got26, sd26, sp26
+    del plan26, dp26, want26
+print("sharded MF kernels, phase 4's bank and day 1 (128 x 30 x 2,160,000) "
+      "on virtual meshes of the card, each equal to the unsharded kernel "
+      "bit for bit: " + "; ".join(lines26) + f" [{CARD}]", flush=True)
+
+
+def mf_samples(res):
+    return {d: {t: sorted(round(e.origin_time_epoch * SR) for e in evs)
+                for t, evs in r.items() if evs} for d, r in res.items()}
+
+
+scan26 = {}
+for name, mesh26 in MESHES26.items():
+    before = GLOBAL_TIMER.times["mf_scan"]
+    zero_counts()
+    res26 = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg, mesh=mesh26,
+                               **dict(kw, rng=np.random.default_rng(SEED + 2)))
+    n_launch = mf.mf_cc.launches
+    if (n_launch < 2 * 8 or mf.matched_filter_plain.calls
+            or mf.mf_cc_highest.launches or mf.mf_cc_split.launches):
+        raise AssertionError(f"sharded screen campaign ({name}): {n_launch} "
+                             f"launches, plain calls "
+                             f"{mf.matched_filter_plain.calls}")
+    if mf_samples(res26) != mf_samples(results):
+        raise AssertionError(f"sharded screen campaign ({name}): the "
+                             f"detections differ from phase 4's")
+    scan26[name] = ((GLOBAL_TIMER.times["mf_scan"] - before) / len(DATES),
+                    n_launch)
+launches26 = sum(n for _, n in scan26.values())
+peak26 = torch.cuda.max_memory_allocated() / 2**30
+# a warm sharded 'screen' day (2 x 4) under torch.profiler
+eng26 = MatchedFilter(tg, cfg=cfg, precision="screen", mesh=MESHES26["2x4"],
+                      **{k: v for k, v in kw.items()
+                         if k != "minimum_interevent_time"})
+workflow.matched_filter_day(tg, day1, cfg=cfg, mf=eng26,
+                            minimum_interevent_time=5.0)   # plans, warm-up
+with torch.profiler.profile(activities=acts) as prof26:
+    t0 = time.perf_counter()
+    workflow.matched_filter_day(tg, day1, cfg=cfg, mf=eng26,
+                                minimum_interevent_time=5.0)
+    torch.cuda.synchronize()
+    prof26_s = time.perf_counter() - t0
+busy26, top26 = device_profile(prof26, "chip_smoke_sharded_mf_profile.txt")
+print(f"sharded scan_days screen over phase 4's two days: detections "
+      f"identical to phase 4's ({n_det}); s/day "
+      + ", ".join(f"{k} {s:.3f} ({n} launches)" for k, (s, n) in scan26.items())
+      + f" beside phase 4's {scan_s:.3f}; a warm 2 x 4 day {prof26_s:.3f} s, "
+      f"device busy {busy26:.1f} ms ({100 * busy26 / (1e3 * prof26_s):.0f}%): "
+      f"{top26}; peak {peak26:.2f} GiB ({time.perf_counter() - t26:.1f} s) "
+      f"[{CARD}]", flush=True)
+del res26, eng26
+
+# 27. the sharded BP day: phase 8's lattice world on virtual meshes
+t27 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+MESHES27 = {"2x4": make_mesh({"src": 2, "time": 4}, devices=[CARD0] * 8),
+            "3x5": make_mesh({"src": 3, "time": 5}, devices=[CARD0] * 15)}
+feat27 = saturated_envelopes(BP_DAYS["d1"])[0]
+plan27 = bp.BeamformPlan(mv_bp, w_ph_bp, w_src_bp, N_SAMP)
+wv27, wi27 = plan27(feat27)
+unsharded27 = cuda_ms(lambda: plan27(feat27), 2)
+lines27, errs27 = [], []
+for name, mesh27 in MESHES27.items():
+    sp27 = sharded.ShardedBeamformPlan(mv_bp, w_ph_bp, w_src_bp, N_SAMP,
+                                       mesh27)
+    gd27 = sp27.fold_and_pad(feat27)
+    n0 = bp.bp_beam.launches
+    gv27, gi27 = sp27.call_folded(gd27)
+    n_launch27 = bp.bp_beam.launches - n0
+    torch.cuda.synchronize()
+    if not (torch.equal(gv27, wv27) and torch.equal(gi27, wi27)):
+        raise AssertionError(f"sharded bp on {name} != unsharded kernel")
+    grid27, lay27 = sp27.grid, sp27.layout
+    shards27 = [(a, t) for a, _, _ in sp27.shards for t in range(lay27.n_t)
+                if sp27.tile_range(t)[1]]
+    sharded27 = cuda_ms(lambda: sp27.call_folded(gd27), 2)
+    g27 = fold_components(feat27, plan27.weights_phases)
+    chunks27 = sharded._scatter(g27, grid27, lay27)
+    halo27 = cuda_ms(lambda: sharded._exchange(chunks27, grid27, lay27), 5)
+    del chunks27, g27
+    line = (f"{name}: {n_launch27} launches for {len(shards27)} shards, day "
+            f"{sharded27:.2f} ms sharded / {unsharded27:.2f} unsharded, "
+            f"halos {halo27:.3f} ms")
+    if name == "2x4":
+        per27 = [cuda_ms(lambda: sp27.shard_beam(gd27, a, t), 2)
+                 for a, t in shards27]
+        line += ", per shard " + "/".join(f"{x:.2f}" for x in per27) + " ms"
+        # the day's last 200 time tiles in source shard 1's last time shard,
+        # from that shard's own columns, against the plain version
+        a, t = 1, lay27.n_t - 1
+        tab27 = sp27.tables[(a, grid27[a, t])]
+        ext27 = gd27.ext(t, grid27[a, t])
+        tile0 = max(sp27.tile_range(t)[0], sp27.n_t_blocks - 200)
+        kw27 = dict(tile0=tile0, n_tt=sp27.n_t_blocks - tile0,
+                    origin=t * lay27.chunk)
+        kv, ki = bp.bp_beam(ext27, tab27, **kw27)
+        pv, pi = bp.beamform_plain(ext27, tab27, **kw27)
+        sel = torch.arange(kv.numel(), device=kv.device)
+        sel = sel[kw27["tile0"] * bp.TIME_TILE + sel < N_SAMP]
+        errs27.append(float((kv[sel] - pv[sel]).abs().max()))
+        near27 = check_first_max(tab27, ext27[:, kw27["tile0"] * bp.TIME_TILE
+                                             - kw27["origin"]:],
+                                 kv[sel], ki[sel], pv[sel], pi[sel],
+                                 "sharded, the day's end")
+        line += (f", the day's last 200 tiles of shard ({a}, {t}) vs plain "
+                 f"{errs27[-1]:.3g} ({near27} ties within {ATOL})")
+        del kv, ki, pv, pi
+    lines27.append(line)
+    del gd27, gv27, gi27, sp27
+del plan27, wv27, wi27
+# a tie across source shards: source 90,000 (the last source shard of both
+# meshes) made an exact copy of 12,345 (the first), and a spike at sample
+# 60,000 for them on a 2^17 cut: the smaller index must win
+TIE27 = (BP_EVENTS["d1"][0][1], N_SRC_BP * 9 // 10)   # 12,345, 90,000
+mv_tie, w_tie = mv_bp.copy(), w_src_bp.copy()
+mv_tie[TIE27[1]], w_tie[TIE27[1]] = mv_bp[TIE27[0]], w_src_bp[TIE27[0]]
+feat_tie = feat27[..., : 2**17].clone()
+for s in np.flatnonzero(w_src_bp[TIE27[0]]):
+    feat_tie[s, 2, 60_000 + mv_bp[TIE27[0], s, 0]] += 50.0
+    feat_tie[s, :2, 60_000 + mv_bp[TIE27[0], s, 1]] += 50.0
+tv, ti = bp.BeamformPlan(mv_tie, w_ph_bp, w_tie, 2**17)(feat_tie)
+for name, mesh27 in MESHES27.items():
+    sv, si = sharded.beamform_sharded_pallas(feat_tie, mv_tie, w_ph_bp,
+                                             w_tie, mesh27)
+    if not (torch.equal(sv, tv) and torch.equal(si, ti)
+            and int(si[60_000]) == TIE27[0]
+            and not bool((si == TIE27[1]).any())):
+        raise AssertionError(f"sharded bp tie ({name}): sample 60,000 went "
+                             f"to {int(si[60_000])}")
+# reduce='none' on a cut: 3,000 sources x 2^14 samples
+n27n, cut27 = 2**14, slice(0, 3000)
+want27n = bp.beamform(feat27[..., :n27n], mv_bp[cut27], w_ph_bp,
+                      w_src_bp[cut27], reduce="none")
+for name, mesh27 in MESHES27.items():
+    got27n = sharded.beamform_sharded_pallas(
+        feat27[..., :n27n], mv_bp[cut27], w_ph_bp, w_src_bp[cut27], mesh27,
+        reduce="none")
+    if not torch.equal(got27n, want27n):
+        raise AssertionError(f"sharded bp none ({name}) != unsharded")
+del want27n, got27n, feat_tie, feat27
+print("sharded BP kernel, phase 8's world (100,000 sources x 64 "
+      "station-phases x 2,160,000 samples, day 1's envelopes) on virtual "
+      "meshes of the card, (max, argmax) equal to the unsharded kernel's bit "
+      "for bit: " + "; ".join(lines27) + "; a tie across source shards to the "
+      "smaller index, reduce='none' on 3,000 sources x 2^14 equal "
+      f"[{CARD}]", flush=True)
+
+
+def bp_hits(res):
+    return {d: sorted((round(e.origin_time_epoch * SR),
+                       e.aux_data["source_index"]) for e in evs)
+            for d, evs in res.items()}
+
+
+stages27 = ("bp_features", "bp_backproject", "bp_detect")
+launches27_all = 0
+for name, mesh27 in MESHES27.items():
+    before = {k: GLOBAL_TIMER.times[k] for k in stages27}
+    zero_counts()
+    res27 = workflow.scan_days(["d1"], make_bp_data, cfg=cfg_bp, stage="bp",
+                               network=net_bp, travel_times=travel,
+                               mesh=mesh27)
+    launches27 = bp.bp_beam.launches
+    if launches27 < 8 or bp.beamform_plain.calls:
+        raise AssertionError(f"sharded bp campaign ({name}): {launches27} "
+                             f"launches, {bp.beamform_plain.calls} plain")
+    launches27_all += launches27
+    if bp_hits(res27)["d1"] != bp_hits(res_bp)["d1"]:
+        raise AssertionError(f"sharded bp campaign ({name}): the detections "
+                             f"differ from phase 8's")
+    scan27 = {k: GLOBAL_TIMER.times[k] - before[k] for k in stages27}
+    print(f"sharded scan_days bp ({name}), day 1: {len(res27['d1'])} "
+          f"detections identical to phase 8's; s/day "
+          + ", ".join(f"{k} {v:.3f}" for k, v in scan27.items())
+          + " beside phase 8's "
+          + ", ".join(f"{v:.3f}" for v in stage_s.values())
+          + f"; {launches27} launches [{CARD}]", flush=True)
+peak27 = torch.cuda.max_memory_allocated() / 2**30
+# a warm sharded BP day (2 x 4) under torch.profiler
+bf27 = Beamformer(network=net_bp, phases=["P", "S"], travel_times=travel,
+                  cfg=cfg_bp, mesh=MESHES27["2x4"])
+day27 = make_bp_data("d1")
+workflow.backproject_day(day27, net_bp, travel, cfg=cfg_bp, bf=bf27)
+with torch.profiler.profile(activities=acts) as prof27:
+    t0 = time.perf_counter()
+    workflow.backproject_day(day27, net_bp, travel, cfg=cfg_bp, bf=bf27)
+    torch.cuda.synchronize()
+    prof27_s = time.perf_counter() - t0
+busy27, top27 = device_profile(prof27, "chip_smoke_sharded_bp_profile.txt")
+print(f"sharded bp: a warm 2 x 4 day {prof27_s:.3f} s, device busy "
+      f"{busy27:.1f} ms ({100 * busy27 / (1e3 * prof27_s):.0f}%): {top27}; "
+      f"phase 27 peak {peak27:.2f} GiB ({time.perf_counter() - t27:.1f} s) "
+      f"[{CARD}]", flush=True)
+del res27, bf27, day27
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
       f"{t22 - t21:.0f} s, phase 22 {t23 - t22:.0f} s, phase 23 "
       f"{t24 - t23:.0f} s, phase 24 {t25 - t24:.0f} s, phase 25 "
-      f"{time.perf_counter() - t25:.0f} s", flush=True)
+      f"{t26 - t25:.0f} s, phase 26 {t27 - t26:.0f} s, phase 27 "
+      f"{time.perf_counter() - t27:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{
@@ -2587,8 +2886,8 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
-    "launches": launches + launches23_mf + launches24,
-    "max_abs_err": max(err5d, err3d, err23_mf, err24),
+    "launches": launches + launches23_mf + launches24 + launches26,
+    "max_abs_err": max(err5d, err3d, err23_mf, err24, errs26["default"]),
     "ms": ms5d,
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,
@@ -2600,7 +2899,7 @@ print(json.dumps({"kernels": [{
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
     "launches": launches5,
-    "max_abs_err": max(err, err3, err13_f32),
+    "max_abs_err": max(err, err3, err13_f32, errs26["highest"]),
     "ms": ms,
     "plain_ms": plain_ms,
     "bound_ms": bound_ms,
@@ -2612,7 +2911,7 @@ print(json.dumps({"kernels": [{
     "source": "seismic_bpmf_tpu_torch/csrc/mf_split.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:285",
     "launches": launches11,
-    "max_abs_err": max(err10, err12, err13),
+    "max_abs_err": max(err10, err12, err13, errs26["high"]),
     "ms": ms13,
     "plain_ms": plain13,
     "bound_ms": bound13,
@@ -2623,8 +2922,9 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/bp.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_bp.py:67",
-    "launches": launches_bp + launches_dense + launches23_bp,
-    "max_abs_err": max(errs_bp),
+    "launches": (launches_bp + launches_dense + launches23_bp
+                 + launches27_all),
+    "max_abs_err": max(errs_bp + errs27),
     "ms": ms_bp,
     "plain_ms": plain_ms_bp,
     "bound_ms": bound_bp,

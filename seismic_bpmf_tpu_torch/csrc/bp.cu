@@ -10,7 +10,9 @@
 // t + hi[i] >= n_samp (lo, hi: the source's used-moveout bounds; t is the
 // ABSOLUTE sample, so a call over a later range of time tiles masks
 // exactly as the whole-day call does).  The flexible policy needs no mask:
-// g is zero past the day.  reduce = max keeps, for each t, the largest
+// g is zero past the day.  g's column 0 is the absolute sample g_t0 (0 for
+// a whole day; a time shard's first sample on a mesh, so that the shard
+// holds only its own columns and a halo while the mask stays absolute).  reduce = max keeps, for each t, the largest
 // beam and the smallest source index that reaches it; sources >= n_src
 // (tile padding) take no part.  reduce = none writes the whole beam.
 //
@@ -176,7 +178,7 @@ __device__ __forceinline__ void bp_stage(
     long long ld, const int* __restrict__ stage_row,
     const int* __restrict__ stage_prog, const int4* __restrict__ prog,
     const int* __restrict__ ent_sp, const int* __restrict__ ent_lo,
-    const int* __restrict__ ent_span, long long t_abs0, int stride,
+    const int* __restrict__ ent_span, long long t_g0, int stride,
     int prog_bytes)
 {
     const int lane = threadIdx.x & 31;
@@ -195,7 +197,7 @@ __device__ __forceinline__ void bp_stage(
     float* rows = reinterpret_cast<float*>(slot + prog_bytes);
     for (int k = lane; k < ne; k += 32) {
         const float* row = g + (long long)__ldg(ent_sp + e_a + k) * ld
-                           + t_abs0 + __ldg(ent_lo + e_a + k);
+                           + t_g0 + __ldg(ent_lo + e_a + k);
         bulk_copy(rows + (long long)k * stride, row,
                   4u * (BP_T + ((__ldg(ent_span + e_a + k) + 3) & ~3)), full);
     }
@@ -214,10 +216,10 @@ bp_kernel(const float* __restrict__ g,          // (n_sp, ld) folded, padded
           const int* __restrict__ lo_src,       // (n_src,) strict bounds
           const int* __restrict__ hi_src,
           int n_src, int n_tiles, int tiles_per_split, long long tile0,
-          long long n_samp, int strict, int hi_max, int stride,
-          int prog_bytes, int slot_bytes,
+          long long n_samp, long long g_t0, long long beam_ld, int strict,
+          int hi_max, int stride, int prog_bytes, int slot_bytes,
           unsigned long long* __restrict__ keys,  // (n_tt * BP_T,) max
-          float* __restrict__ beam_out)           // (n_src, n_samp) or null
+          float* __restrict__ beam_out)           // (n_src, beam_ld) or null
 {
     extern __shared__ unsigned long long smem_u64[];
     unsigned long long* keys_s = smem_u64;                   // BP_T
@@ -253,7 +255,7 @@ bp_kernel(const float* __restrict__ g,          // (n_sp, ld) folded, padded
                 mbar_wait(bars + 8 * (BP_NSTAGE + s), (round - 1) & 1);
             bp_stage(slots + (long long)s * slot_bytes, bars + 8 * s,
                      j_a + jj, g, ld, stage_row, stage_prog, prog, ent_sp,
-                     ent_lo, ent_span, t_abs0, stride, prog_bytes);
+                     ent_lo, ent_span, t_abs0 - g_t0, stride, prog_bytes);
             if (++s == BP_NSTAGE) { s = 0; ++round; }
         }
     } else {
@@ -303,7 +305,8 @@ bp_kernel(const float* __restrict__ g,          // (n_sp, ld) folded, padded
                                 v = 0.0f;
                             if (beam_out != nullptr) {
                                 if (t < n_samp)
-                                    beam_out[(long long)src * n_samp + t] = v;
+                                    beam_out[(long long)src * beam_ld + t
+                                             - tile0 * BP_T] = v;
                             } else if (v > best_v[c]) {
                                 best_v[c] = v;
                                 best_i[c] = src;
@@ -393,17 +396,20 @@ long long bp_smem_bytes(int stride, int max_rows, int prog_bytes)
 }
 
 // Launches on `stream` over the n_tt time tiles that start at the absolute
-// tile tile0, with the source tiles cut into n_splits ranges (grid.y).
+// tile tile0, with the source tiles cut into n_splits ranges (grid.y);
+// g's column 0 is the absolute sample g_t0 (a multiple of 4).
 // reduce = max (beam_out == NULL): `keys` (n_tt * BP_T, zero-filled by the
 // caller) gets the per-sample maximum key, unpacked into val / idx;
-// reduce = none: the beam is written.  Returns the cudaError_t of the
-// launches (0 = ok).
+// reduce = none: the beam of those tiles is written, row stride beam_ld,
+// column 0 the first sample of tile tile0, samples >= n_samp left out.
+// Returns the cudaError_t of the launches (0 = ok).
 int bp_launch(const void* g, long long ld, const void* tile_stage,
               const void* stage_row, const void* stage_prog,
               const void* prog, const void* ent_sp, const void* ent_lo,
               const void* ent_span, const void* lo_src, const void* hi_src,
               int n_src, int n_tiles, int n_splits, long long tile0,
-              long long n_tt, long long n_samp, int strict, int hi_max,
+              long long n_tt, long long n_samp, long long g_t0,
+              long long beam_ld, int strict, int hi_max,
               int stride, int max_rows, int prog_bytes, void* keys,
               void* val, void* idx, void* beam_out, void* stream)
 {
@@ -420,8 +426,8 @@ int bp_launch(const void* g, long long ld, const void* tile_stage,
         (const float*)g, ld, (const int*)tile_stage, (const int*)stage_row,
         (const int*)stage_prog, (const int4*)prog, (const int*)ent_sp,
         (const int*)ent_lo, (const int*)ent_span, (const int*)lo_src,
-        (const int*)hi_src, n_src, n_tiles, tps, tile0, n_samp, strict,
-        hi_max, stride, prog_bytes, slot_bytes,
+        (const int*)hi_src, n_src, n_tiles, tps, tile0, n_samp, g_t0,
+        beam_ld, strict, hi_max, stride, prog_bytes, slot_bytes,
         (unsigned long long*)keys, (float*)beam_out);
     e = cudaGetLastError();
     if (e != cudaSuccess || beam_out != nullptr) return (int)e;

@@ -17,13 +17,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..config import Config, DEFAULT_CONFIG
 from ..data.events import Event
 from ..data.travel_times import SourceTable
 from ..ops.bp import BeamformPlan, _precision_mode
 from ..ops.picks import detect_peaks
 from ..ops.thresholds import bp_detection_threshold
+from ..parallel.mesh import mesh_device
+from ..parallel.sharded import ShardedBeamformPlan
 from ..utils.time import sec_to_samp, utc_from_epoch
 
 MAX_PLANS = 4  # device-resident plans kept per Beamformer
@@ -33,7 +34,10 @@ class Beamformer:
     """Holds data + network + phases + travel times; runs backprojection.
 
     `device` follows the package rule (CUDA unless 'cpu' is asked for);
-    there is no engine knob.  `precision` keeps the JAX package's rung
+    there is no engine knob.  With `mesh=` (`parallel.make_mesh`, axes
+    'src' and 'time') the beam runs sharded over the mesh
+    (`parallel.sharded.ShardedBeamformPlan`) and gathers on its first
+    device.  `precision` keeps the JAX package's rung
     names ('highest', 'high', 'default') as error classes: every rung runs
     the f32 kernel."""
 
@@ -49,20 +53,15 @@ class Beamformer:
         precision: str = "high",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded beamforming) is not ported yet (ROADMAP "
-                "Queue 1 #19)"
-            )
         _precision_mode(precision)  # an unknown rung raises here
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.data = data
         self.network = network
         self.phases = list(phases) if phases is not None else None
         self.travel_times = travel_times
         self.moveouts_relative_to_first = moveouts_relative_to_first
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.precision = precision
 
     # ------------------------------------------------------------------
@@ -226,7 +225,8 @@ class Beamformer:
         content: re-running set_weights* rebuilds, never reuses stale
         device tables.  A plan of the same content for another day length,
         reduction or policy shares the cached plan's tables
-        (`BPTables.retimed`).  At most MAX_PLANS stay cached."""
+        (`BPTables.retimed`).  At most MAX_PLANS stay cached.  With a mesh
+        the plans are `ShardedBeamformPlan`s, keyed the same way."""
         moveouts = self.moveouts
         content = tuple(
             # the bytes in place: a 1M-source grid's moveouts are GBs
@@ -239,12 +239,17 @@ class Beamformer:
             plans[key] = plans.pop(key)
         else:
             same = [p.tables for k, p in plans.items() if k[4] == content]
-            plans[key] = BeamformPlan(
-                moveouts, self.weights_phases, self.weights_sources, n_samp,
-                reduce=reduce, out_of_bounds=out_of_bounds,
-                precision=self.precision, device=self.device,
-                tables=same[-1] if same else None,
-            )
+            kw = dict(reduce=reduce, out_of_bounds=out_of_bounds,
+                      precision=self.precision,
+                      tables=same[-1] if same else None)
+            plans[key] = (
+                BeamformPlan(moveouts, self.weights_phases,
+                             self.weights_sources, n_samp,
+                             device=self.device, **kw)
+                if self.mesh is None else
+                ShardedBeamformPlan(moveouts, self.weights_phases,
+                                    self.weights_sources, n_samp, self.mesh,
+                                    **kw))
             while len(plans) > MAX_PLANS:
                 plans.pop(next(iter(plans)))
             self._plans = plans

@@ -19,7 +19,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..config import Config, DEFAULT_CONFIG
 from ..data.events import Event
 from ..ops.cf import scalar_kurtosis
@@ -29,6 +28,8 @@ from ..ops.reference import GAUSSIAN_SAMPLE_LEN, matched_filter_at
 from ..ops.thresholds import (
     _rms_plan, batch_candidates, detect_candidates, time_dependent_threshold,
 )
+from ..parallel.mesh import mesh_device
+from ..parallel.sharded import ShardedMatchedFilterPlan, mf_layout, shard_day
 from ..utils.observe import GLOBAL_TIMER
 from ..utils.time import sec_to_samp, utc_from_epoch
 
@@ -45,7 +46,10 @@ class MatchedFilter:
     split in bf16 parts on the tensor cores (`ops.mf`); 'screen' scans
     the bf16-rounded day, widens candidate extraction by `screen_margin`
     and recomputes every candidate's CC exactly (float64, host) before
-    the threshold decision."""
+    the threshold decision.  With `mesh=` (`parallel.make_mesh`, axes
+    'tp' and 'time') the scan runs sharded over the mesh
+    (`parallel.sharded.ShardedMatchedFilterPlan`) and the CC gathers on
+    its first device, where the extraction runs."""
 
     def __init__(
         self,
@@ -69,14 +73,9 @@ class MatchedFilter:
         device=None,
         rng: Optional[np.random.Generator] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded scans) is not ported yet (ROADMAP Queue 1 "
-                "#19)"
-            )
         if precision not in ("highest", "high", "default", "screen"):
             raise ValueError(f"unknown precision {precision!r}")
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.rng = rng if rng is not None else np.random.default_rng()
         self.template_group = template_group
         self.min_channels = min_channels
@@ -92,7 +91,7 @@ class MatchedFilter:
         self.anomalous_cdf_at_mean_plus_1sig = anomalous_cdf_at_mean_plus_1sig
         self.window_for_validation_Tmax = window_for_validation_Tmax
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.precision = precision
         self.screen_margin = float(screen_margin)
         # templates per plan (bounds the device-resident rows of one call)
@@ -101,7 +100,9 @@ class MatchedFilter:
     def _scan(self, run, templates, moveouts, weights):
         """CC of the `run` templates through per-chunk plans cached across
         days: the template rows move to the device once per template set;
-        only the day's data moves."""
+        only the day's data moves.  With a mesh, one
+        `parallel.sharded.ShardedMatchedFilterPlan` scans the run, its
+        template shards and the day's time shards over the mesh."""
         n_samp = self.data_arr.shape[-1]
         # the plans bake in template waveforms, moveouts AND channel
         # weights, so the cache key fingerprints their content
@@ -122,12 +123,16 @@ class MatchedFilter:
             plans[key] = plans.pop(key)
         else:
             plans[key] = [
+                ShardedMatchedFilterPlan(
+                    templates, moveouts, weights, n_samp, self.mesh,
+                    precision=self._rung(), pad_left=pad_left,
+                    max_moveout=max_mv)
+            ] if self.mesh is not None else [
                 MatchedFilterPlan(
                     templates[i : i + chunk], moveouts[i : i + chunk],
                     weights[i : i + chunk], n_samp,
-                    precision=("default" if self.precision == "screen"
-                               else self.precision),
-                    pad_left=pad_left, max_moveout=max_mv,
+                    precision=self._rung(), pad_left=pad_left,
+                    max_moveout=max_mv,
                     device=self.device,
                 )
                 for i in range(0, len(templates), chunk)
@@ -143,7 +148,8 @@ class MatchedFilter:
                 plans.pop(next(iter(plans)))
             self._plans = plans
         first = plans[key][0]
-        pad_key = (id(self.data_arr), n_samp, first.pad_left, first.ext,
+        pad_key = (id(self.data_arr), n_samp, first.pad_left,
+                   first.layout if self.mesh is not None else first.ext,
                    self._upload_dtype())
         if getattr(self, "_data_pad_key", None) == pad_key:
             data_pad = self._data_pad
@@ -159,6 +165,10 @@ class MatchedFilter:
                 out = out[:, :: self.step][:, : (n_samp - L) // self.step + 1]
             outs.append(out)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def _rung(self) -> str:
+        """The kernel rung of the scan: 'screen' scans at 'default'."""
+        return "default" if self.precision == "screen" else self.precision
 
     def _bank_pad_overrides(self):
         """(pad_left, max_moveout) of the FULL bank."""
@@ -250,14 +260,19 @@ class MatchedFilter:
             n_samp = int(arr.shape[-1])
             L = int(self.template_group.waveforms_arr.shape[-1])
             pad_left, max_mv = self._bank_pad_overrides()
-            pad_left, ext = MatchedFilterPlan.data_layout(n_samp, L,
-                                                          pad_left, max_mv)
+            if self.mesh is None:
+                pad_left, ext = MatchedFilterPlan.data_layout(
+                    n_samp, L, pad_left, max_mv)
+                pad = pad_day_data(arr, arr.shape[0] * arr.shape[1], n_samp,
+                                   pad_left, ext, dtype=self._upload_dtype(),
+                                   device=self.device)
+            else:
+                # the time shards on their devices, halos exchanged
+                grid = self.mesh.grid("tp", "time")
+                ext = mf_layout(n_samp, L, pad_left, max_mv, grid.shape[1])
+                pad = shard_day(arr, grid, ext, dtype=self._upload_dtype())
             bundle["pad"] = (
-                pad_day_data(arr, arr.shape[0] * arr.shape[1], n_samp,
-                             pad_left, ext, dtype=self._upload_dtype(),
-                             device=self.device),
-                (id(arr), n_samp, pad_left, ext, self._upload_dtype()),
-            )
+                pad, (id(arr), n_samp, pad_left, ext, self._upload_dtype()))
         pre = getattr(self, "_preloaded", None)
         if not isinstance(pre, dict):
             pre = {}

@@ -132,8 +132,9 @@ def train_phasenet(
     left on `device` in eval mode."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (data-parallel training) is not ported yet (ROADMAP "
-            "Queue 1 #19)")
+            "mesh= (data-parallel training, BatchNorm statistics over the "
+            "whole sharded batch) is not ported yet (ROADMAP Queue 1 #19, "
+            "its training half, now #28)")
     dev = resolve_device(device)
     if model is None:
         model = PhaseNet()

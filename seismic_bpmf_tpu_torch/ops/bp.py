@@ -24,8 +24,11 @@ window starts in it, how far apart the two sources are, their weights).
 station-phase; `bp_beam` uses it only for tensors on the CPU.
 
 Padded feature layout: ``(n_sp, n_t_blocks * TIME_TILE + M)`` f32, the day
-at column 0 and zeros after it, M > the largest moveout.  Moveouts must be
->= 0 (BPMF moveouts are relative to the first arrival).
+at column 0 and zeros after it, M > the largest moveout.  A call over a
+range of time tiles may take only the columns those tiles read, starting
+at an absolute sample `origin` (a time shard on a mesh,
+`parallel.sharded`); the mask stays absolute.  Moveouts must be >= 0
+(BPMF moveouts are relative to the first arrival).
 """
 
 from __future__ import annotations
@@ -77,8 +80,8 @@ def _lib():
     if "bp" not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bp_launch.argtypes = ([vp, i64] + [vp] * 9
-                                  + [i32, i32, i32, i64, i64, i64, i32, i32,
-                                     i32, i32, i32] + [vp] * 5)
+                                  + [i32, i32, i32, i64, i64, i64, i64, i64,
+                                     i32, i32, i32, i32, i32] + [vp] * 5)
         lib.bp_launch.restype = i32
         lib.bp_smem_bytes.argtypes = [i32, i32, i32]
         lib.bp_smem_bytes.restype = i64
@@ -366,28 +369,63 @@ def _range(tab: BPTables, reduce: str, tile0: int, n_tt):
     n_tt = tab.n_t_blocks - tile0 if n_tt is None else int(n_tt)
     if reduce not in ("max", "none"):
         raise ValueError(f"reduce must be 'max' or 'none', got {reduce!r}")
-    if reduce == "none" and (tile0 != 0 or n_tt != tab.n_t_blocks):
-        raise ValueError("reduce='none' covers the whole day in one call")
     if tile0 < 0 or n_tt < 1 or tile0 + n_tt > tab.n_t_blocks:
         raise ValueError(f"time tiles [{tile0}, {tile0 + n_tt}) outside "
                          f"[0, {tab.n_t_blocks})")
     return int(tile0), n_tt
 
 
+def _beam_cols(tab: BPTables, tile0: int, n_tt: int) -> int:
+    """Samples of a 'none' call over tiles [tile0, tile0 + n_tt): those
+    before the day's end."""
+    return min(n_tt * TIME_TILE, tab.n_samp - tile0 * TIME_TILE)
+
+
+def _check_window(g_pad, tab: BPTables, tile0: int, n_tt: int,
+                  origin: int) -> None:
+    """The features must hold, from their column 0 at absolute sample
+    `origin`, every column the tiles read: up to the tiles' end plus the
+    plan's moveout margin (the whole layout `tab.ext` for a day)."""
+    need = (tile0 + n_tt) * TIME_TILE + (tab.ext - tab.n_t_blocks
+                                         * TIME_TILE)
+    if (g_pad.shape[0] != tab.n_sp or origin < 0 or origin % 4
+            or origin > tile0 * TIME_TILE
+            or origin + g_pad.shape[1] < need or g_pad.shape[1] % 4):
+        raise ValueError(
+            f"padded features of shape {tuple(g_pad.shape)} from sample "
+            f"{origin} do not hold the plan's layout of time tiles "
+            f"[{tile0}, {tile0 + n_tt}): ({tab.n_sp}, samples "
+            f"[{tile0 * TIME_TILE}, {need})), origin a multiple of 4")
+
+
+def first_max(vals: torch.Tensor, idxs: torch.Tensor) -> tuple:
+    """The first-max rule, along axis 0: the largest value and, among the
+    rows that reach it, the smallest index (2**30 marks none).  The plain
+    version's source chunks and the cross-shard merge of
+    `parallel.sharded` both reduce with it; the kernel keeps the same rule
+    in its packed keys (csrc/bp.cu)."""
+    v = vals.max(dim=0).values
+    none = torch.tensor(2**30, dtype=idxs.dtype, device=idxs.device)
+    return v, torch.where(vals == v, idxs, none).min(dim=0).values
+
+
 def beamform_plain(g_pad, tab: BPTables, *, reduce: str = "max",
-                   tile0: int = 0, n_tt=None):
+                   tile0: int = 0, n_tt=None, origin: int = 0):
     """Plain PyTorch version of the kernel, on the tensors' device.
 
     reduce='max': (val, idx) of the n_tt * TIME_TILE samples from tile
-    `tile0` on; reduce='none': the (n_src, n_samp) beam.  A gather per
-    station-phase, summed in f32 in ascending station-phase order, and a
-    running (max, argmax) over chunks of about PLAIN_POINTS beam points in
-    which the first maximum wins."""
+    `tile0` on; reduce='none': the beam of those samples before the day's
+    end, (n_src, n_samp) for the whole day.  `origin` is the absolute
+    sample of g_pad's column 0.  A gather per station-phase, summed in f32
+    in ascending station-phase order, and a running (max, argmax) over
+    chunks of about PLAIN_POINTS beam points in which the first maximum
+    wins (`first_max`)."""
     beamform_plain.calls += 1
     tile0, n_tt = _range(tab, reduce, tile0, n_tt)
     dev = g_pad.device
     t_a = tile0 * TIME_TILE
-    n_t = tab.n_samp if reduce == "none" else n_tt * TIME_TILE
+    n_t = (_beam_cols(tab, tile0, n_tt) if reduce == "none"
+           else n_tt * TIME_TILE)
     t_abs = torch.arange(t_a, t_a + n_t, device=dev)
     src_chunk = max(1, PLAIN_POINTS // n_t)
     if reduce == "none":
@@ -405,7 +443,7 @@ def beamform_plain(g_pad, tab: BPTables, *, reduce: str = "max",
             if use.numel() == 0:
                 continue
             windows = g_pad[sp].unfold(0, n_t, 1)     # (n_pos, n_t) view
-            rows = windows[t_a + tab.mv[sp, s0 + use].long()]
+            rows = windows[t_a - origin + tab.mv[sp, s0 + use].long()]
             beam[use] = beam[use] + tab.w[sp, s0 + use, None] * rows
         if tab.strict:
             ok = ((t_abs[None, :] + tab.lo[s0:s1, None] >= 0)
@@ -414,13 +452,11 @@ def beamform_plain(g_pad, tab: BPTables, *, reduce: str = "max",
         if reduce == "none":
             out[s0:s1] = beam
             continue
-        v = beam.max(dim=0).values
-        ids = torch.arange(s0, s1, dtype=torch.int32, device=dev)[:, None]
-        first = torch.where(beam == v, ids, torch.full_like(ids, 2**30))
-        i = first.min(dim=0).values
-        take = v > best_v
-        best_v = torch.where(take, v, best_v)
-        best_i = torch.where(take, i, best_i)
+        ids = torch.arange(s0, s1, dtype=torch.int32, device=dev)
+        v, i = first_max(beam, ids[:, None].expand_as(beam))
+        # the earlier chunks hold the smaller indices
+        best_v, best_i = first_max(torch.stack([best_v, v]),
+                                   torch.stack([best_i, i]))
     return out if reduce == "none" else (best_v, best_i)
 
 
@@ -428,24 +464,24 @@ beamform_plain.calls = 0
 
 
 def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
-            n_tt=None):
-    """The beam of a plan's tables on padded folded features: (val, idx)
-    of the time tiles [tile0, tile0 + n_tt) for reduce='max', the
-    (n_src, n_samp) beam for 'none'.
+            n_tt=None, origin: int = 0):
+    """The beam of a plan's tables on padded folded features, over the
+    time tiles [tile0, tile0 + n_tt) (the whole day by default): (val,
+    idx) for reduce='max', the (n_src, samples) beam for 'none'.
+    `origin` is the absolute sample of g_pad's column 0: a time shard
+    holds only the columns its tiles read (`_check_window`).
 
     On CPU tensors this is `beamform_plain`; on CUDA tensors it launches
     the kernel of csrc/bp.cu or raises."""
     if g_pad.dtype != torch.float32 or not g_pad.is_contiguous():
         raise ValueError("the padded features must be contiguous float32")
-    if tuple(g_pad.shape) != (tab.n_sp, tab.ext):
-        raise ValueError(f"padded features have shape {tuple(g_pad.shape)}, "
-                         f"the plan's layout is {(tab.n_sp, tab.ext)}")
+    tile0, n_tt = _range(tab, reduce, tile0, n_tt)
+    _check_window(g_pad, tab, tile0, n_tt, int(origin))
     if g_pad.device.type == "cpu":
         return beamform_plain(g_pad, tab, reduce=reduce, tile0=tile0,
-                              n_tt=n_tt)
+                              n_tt=n_tt, origin=origin)
     if g_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {g_pad.device}")
-    tile0, n_tt = _range(tab, reduce, tile0, n_tt)
     for name in ("tile_stage", "stage_row", "stage_prog", "prog", "lo", "hi",
                  "ent_sp", "ent_lo", "ent_span"):
         t = getattr(tab, name)
@@ -458,7 +494,7 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
             or tab.stage_prog.shape[0] != tab.n_stages + 1
             or tab.ent_sp.shape != tab.ent_lo.shape
             or tab.ent_sp.shape != tab.ent_span.shape
-            or tab.stride % 4 or tab.prog_bytes % 16 or tab.ext % 4
+            or tab.stride % 4 or tab.prog_bytes % 16
             or _smem_bytes(tab.stride, tab.max_rows, tab.prog_bytes)
             > SMEM_LIMIT):
         raise ValueError("inconsistent beamforming plan tables")
@@ -468,8 +504,9 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
                          "a multiple of 16 bytes")
     dev = g_pad.device
     n_splits = min(tab.n_tiles, max(1, -(-TARGET_BLOCKS // n_tt)))
+    n_cols = _beam_cols(tab, tile0, n_tt)
     if reduce == "none":
-        beam = torch.empty((tab.n_src, tab.n_samp), dtype=torch.float32,
+        beam = torch.empty((tab.n_src, n_cols), dtype=torch.float32,
                            device=dev)
         keys = val = idx = None
     else:
@@ -485,11 +522,11 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bp_launch(
-            g_pad.data_ptr(), tab.ext, ptr(tab.tile_stage),
+            g_pad.data_ptr(), g_pad.shape[1], ptr(tab.tile_stage),
             ptr(tab.stage_row), ptr(tab.stage_prog), ptr(tab.prog),
             ptr(tab.ent_sp), ptr(tab.ent_lo), ptr(tab.ent_span),
             ptr(tab.lo), ptr(tab.hi), tab.n_src, tab.n_tiles, n_splits,
-            tile0, n_tt, tab.n_samp, int(tab.strict),
+            tile0, n_tt, tab.n_samp, int(origin), n_cols, int(tab.strict),
             tab.hi_max, tab.stride,
             tab.max_rows, tab.prog_bytes, ptr(keys), ptr(val), ptr(idx),
             ptr(beam), stream,

@@ -83,31 +83,15 @@ def matched_filter(templates, moveouts, weights, data, step: int = 1,
     n_ch = n_sta * n_comp
     n_corr = (n_samp - L) // step + 1
 
-    tp_flat = templates.reshape(n_tp, n_ch, L)
-    tp_dm_np = tp_flat - tp_flat.mean(axis=-1, keepdims=True)
-    x_norm = torch.from_numpy(
-        np.sqrt((tp_dm_np.astype(np.float64) ** 2).sum(-1)).astype(
-            np.float32)).to(dev)                      # (n_tp, n_ch)
-    tp_dm = torch.from_numpy(np.ascontiguousarray(
-        np.transpose(tp_dm_np, (1, 0, 2)))).to(dev)   # (n_ch, n_tp, L)
-    w_flat = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(weights, np.float32).reshape(n_tp, n_ch))).to(dev)
-
+    pad_left = -min(0, int(moveouts_np.min()) if moveouts_np.size else 0)
     max_mv = int(moveouts_np.max()) if moveouts_np.size else 0
-    min_mv = min(0, int(moveouts_np.min()) if moveouts_np.size else 0)
-    pad_left = -min_mv
-    mv_shift = torch.from_numpy(
-        moveouts_np.reshape(n_tp, n_ch) + pad_left).to(dev)   # >= 0
+    tp_dm, x_norm, w_flat, mv_shift = bank_tensors(
+        templates, moveouts_np, weights, pad_left, dev)
 
-    if network_sum:
-        out = torch.zeros((n_tp, max(n_corr, 0)), dtype=torch.float32,
-                          device=dev)
-    else:
-        out = torch.zeros((n_tp, max(n_corr, 0), n_ch), dtype=torch.float32,
-                          device=dev)
     if n_corr <= 0 or n_tp == 0:
-        return (out if network_sum
-                else out.reshape(n_tp, max(n_corr, 0), n_sta, n_comp))
+        shape = ((n_tp, max(n_corr, 0)) if network_sum
+                 else (n_tp, max(n_corr, 0), n_sta, n_comp))
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     K = min(int(n_corr_block), n_corr)
     n_blocks = -(-n_corr // K)
@@ -119,22 +103,61 @@ def matched_filter(templates, moveouts, weights, data, step: int = 1,
                            dtype=torch.float32, device=dev)
     data_pad[:, pad_left : pad_left + n_samp] = torch.from_numpy(
         np.ascontiguousarray(data.reshape(n_ch, n_samp))).to(dev)
+    out = mf_lags(tp_dm, x_norm, w_flat, mv_shift, data_pad, 0, n_corr,
+                  step=step, n_samp=n_samp, pad_left=pad_left, L=L,
+                  network_sum=network_sum, n_corr_block=K)
+    if not network_sum:
+        return out.reshape(n_tp, n_corr, n_sta, n_comp)
+    return out
 
+
+def bank_tensors(templates, moveouts, weights, pad_left: int, device):
+    """A bank's tensors for `mf_lags` on `device`: the demeaned rows
+    (n_ch, n_tp, L), their norms (n_tp, n_ch), the weights (n_tp, n_ch) and
+    the moveouts shifted by `pad_left` (n_tp, n_ch)."""
+    templates = np.asarray(templates, np.float32)
+    n_tp, L = templates.shape[0], templates.shape[-1]
+    n_ch = int(np.prod(templates.shape[1:-1]))
+    tp_flat = templates.reshape(n_tp, n_ch, L)
+    tp_dm = tp_flat - tp_flat.mean(axis=-1, keepdims=True)
+    x_norm = np.sqrt((tp_dm.astype(np.float64) ** 2).sum(-1)).astype(
+        np.float32)
+    mv = np.asarray(moveouts, np.int64).reshape(n_tp, n_ch) + pad_left
+    w = np.asarray(weights, np.float32).reshape(n_tp, n_ch)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (np.transpose(tp_dm, (1, 0, 2)), x_norm, w, mv))
+
+
+def mf_lags(tp_dm, x_norm, w_flat, mv_shift, data, start: int, n_lags: int,
+            *, step: int, n_samp: int, pad_left: int, L: int,
+            network_sum: bool = True, n_corr_block: int = 262144):
+    """`n_lags` lags of the scan on a slice of padded data: data (n_ch,
+    width) on the device, column 0 at padded position `start` (absolute
+    sample ``start - pad_left``), lag j reading padded columns ``j * step
+    + mv_shift`` on.  tp_dm (n_ch, n_tp, L) demeaned rows, x_norm (n_tp,
+    n_ch), w_flat (n_tp, n_ch), mv_shift (n_tp, n_ch) moveouts + pad_left.
+    Windows leaving [0, n_samp) give 0, so a time shard with its halos
+    (`parallel.sharded.matched_filter_sharded`) computes its lags as the
+    whole scan does.  Returns (n_tp, n_lags), or (n_tp, n_lags, n_ch)
+    without the network sum."""
+    n_ch, n_tp = tp_dm.shape[0], tp_dm.shape[1]
+    dev = data.device
+    shape = (n_tp, n_lags) if network_sum else (n_tp, n_lags, n_ch)
+    out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    K = max(1, min(int(n_corr_block), n_lags))
+    block_ext = (K - 1) * step + int(mv_shift.max()) + L
     k_idx = torch.arange(K, device=dev) * step
-    for b in range(n_blocks):
-        start = b * K * step
-        nb = min(K, n_corr - b * K)
+    for b0 in range(0, n_lags, K):
+        s0 = b0 * step
+        nb = min(K, n_lags - b0)
         for c in range(n_ch):
-            ccn = _channel_ccn(data_pad[c, start : start + block_ext],
-                               tp_dm[c], x_norm[:, c], start, pad_left,
-                               n_samp, L)
+            ccn = _channel_ccn(data[c, s0 : s0 + block_ext], tp_dm[c],
+                               x_norm[:, c], start + s0, pad_left, n_samp, L)
             # out[t, k] = ccn[t, k * step + mv[t, c]]
             idx = k_idx[None, :nb] + mv_shift[:, c, None]
             sel = torch.gather(ccn, 1, idx)
             if network_sum:
-                out[:, b * K : b * K + nb] += w_flat[:, c, None] * sel
+                out[:, b0 : b0 + nb] += w_flat[:, c, None] * sel
             else:
-                out[:, b * K : b * K + nb, c] = sel
-    if not network_sum:
-        return out.reshape(n_tp, n_corr, n_sta, n_comp)
+                out[:, b0 : b0 + nb, c] = sel
     return out

@@ -838,3 +838,76 @@ def test_a_300_template_scan_crosses_a_plan_cut_on_card(card):
         parts.update(scan(TemplateGroup(bank.templates[lo:hi],
                                         w.network))[1])
     assert parts == whole
+
+
+MESHES = {"tp2_time4": {"tp": 2, "time": 4}, "ragged_tp3_time2":
+          {"tp": 3, "time": 2}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", list(MESHES))
+@pytest.mark.parametrize("precision", ["highest", "default", "high"])
+def test_sharded_mf_kernels_match_unsharded_on_card(card, mesh_shape,
+                                                    precision):
+    """Each rung's kernel per (template shard, time shard) of a virtual
+    mesh on the one card, at the shard's lag offset: the stitched CC is
+    the unsharded kernel's, bit for bit (every shard's lag tiles are the
+    unsharded scan's, and the window sums depend on the window only)."""
+    from seismic_bpmf_tpu_torch.parallel import make_mesh, sharded
+
+    tp, mv, w, data = _bank(21, n_tp=40, L=37, n_samp=6000)
+    shape = MESHES[mesh_shape]
+    mesh = make_mesh(shape, devices=[card] * (shape["tp"] * shape["time"]))
+    want = mf.matched_filter(tp, mv, w, data, precision=precision,
+                             device=card)
+    wrapper = {"highest": mf.mf_cc_highest, "default": mf.mf_cc,
+               "high": mf.mf_cc_split}[precision]
+    plan = sharded.ShardedMatchedFilterPlan(tp, mv, w, data.shape[-1], mesh,
+                                            precision=precision)
+    day = plan.pad_data(data)
+    launches = wrapper.launches
+    got = plan(day)
+    n_shards = len(plan.shards) * sum(
+        plan.n_lags(t) > 0 for t in range(plan.layout.n_t))
+    assert wrapper.launches == launches + n_shards > launches + 1
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    got2 = sharded.matched_filter_sharded_pallas(tp, mv, w, data, mesh,
+                                                 step=3, precision=precision)
+    assert torch.equal(got2, want[:, ::3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [{"src": 2, "time": 4},
+                                        {"src": 3, "time": 2},
+                                        {"src": 1, "time": 4}])
+@pytest.mark.parametrize("oob", ["strict", "flexible"])
+def test_sharded_bp_kernel_matches_unsharded_on_card(card, mesh_shape, oob):
+    """The BP kernel per (source shard, time shard) of a virtual mesh, each
+    time shard holding only its columns and a halo from its absolute
+    origin: 'max' equal to the unsharded kernel's bit for bit, the tie
+    between the copies of source 9 (40 and 74, in another source shard)
+    going to 9; 'none' equal block by block."""
+    from seismic_bpmf_tpu_torch.parallel import make_mesh, sharded
+
+    feats, mv, w_ph, w_src = _bp_problem(19)
+    n_dev = int(np.prod(list(mesh_shape.values())))
+    mesh = make_mesh(mesh_shape, devices=[card] * n_dev)
+    for reduce in ("max", "none"):
+        want = bp.beamform(feats, mv, w_ph, w_src, reduce=reduce,
+                           out_of_bounds=oob, device=card)
+        plan = sharded.ShardedBeamformPlan(mv, w_ph, w_src, feats.shape[-1],
+                                           mesh, reduce=reduce,
+                                           out_of_bounds=oob)
+        launches, calls = bp.bp_beam.launches, bp.beamform_plain.calls
+        got = plan(feats)
+        assert bp.bp_beam.launches > launches + 1
+        assert bp.beamform_plain.calls == calls
+        torch.cuda.synchronize()
+        if reduce == "none":
+            assert torch.equal(got, want)
+            continue
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not bool(torch.isin(got[1], torch.tensor(
+            [40, mv.shape[0] - 1], device=card)).any())

@@ -226,15 +226,38 @@ Phases (any failure exits non-zero; nothing is caught):
      mesh=...)` over day 1 on both meshes with phase 8's detections
      (sample, source); launches, ms, each shard's ms, the halos' ms, s/day
      by stage, the peak device memory.
+ 28. the command line: `python -m seismic_bpmf_tpu_torch info` as a
+     subprocess (backend cuda, the card named), then the CLI's runners on
+     the in-memory worlds (this machine has no h5py for the file loaders):
+     `run_backproject` on phase 8's day 1 (kernel #3, the detections
+     (sample, source) of phase 8's day 1), `run_matched_filter --precision
+     high` on phase 4's bank and day 1 (kernel #2 only; every day-1 repeat
+     at its sample with CC >= 0.99), `run_scan` over phase 4's two days at
+     'screen' with a state file (kernel #1's default build only; every
+     repeat), its resume (0 days, no launch), `run_catalog` on the scan's
+     detections (the CSV read back by `Catalog.read`, every repeat one
+     unique event); each runner's seconds beside phases 4, 8 and 11;
+ 29. `train_phasenet(mesh=)` on virtual meshes of the card, {"data": 4} and
+     {"data": 3}: the first sharded step (batches of 32 and 30) against
+     the unsharded step on the card within phase 22's gates, then phase
+     22's training (256 windows x 6 epochs) on the 4-shard mesh, each
+     epoch's loss within 1e-3 relative of phase 22's; ms a step;
+ 30. `utils.observe.profile_trace` around a warm 'screen' day at phase 4's
+     shape in a fresh process (its one Chrome trace holds kernel #1's row)
+     and in this one on phase 4's bank and day 1 (the device rows counted:
+     a process that has kept the card busy for minutes loses some); `examples/synthetic_day_torch.py` as a subprocess,
+     ending in "OK: all injected events recovered".
 It then prints the card line, one JSON line of per-kernel numbers (kernel
-#3's launches those of phases 8, 18, 19, 23 and 27; kernel #1's default
-build's those of phases 4, 23, 24 and 26), and as the last line
-{"ok": true, "device": {...}}.
+#3's launches those of phases 8, 18, 19, 23, 27 and 28; kernel #1's
+default build's those of phases 4, 23, 24, 26 and 28; kernel #2's those of
+phases 11 and 28), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -254,18 +277,19 @@ T_START = time.perf_counter()
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from seismic_bpmf_tpu_torch import _build  # noqa: E402
-from seismic_bpmf_tpu_torch import workflow  # noqa: E402
+from seismic_bpmf_tpu_torch import cli, workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
 from seismic_bpmf_tpu_torch.data import (  # noqa: E402
-    Data, EventGroup, Network, Stream, TemplateGroup, Trace, TravelTimes,
-    WaveformTransform,
+    Catalog, Data, EventGroup, Network, Stream, TemplateGroup, Trace,
+    TravelTimes, WaveformTransform,
 )
 from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
     Beamformer, MatchedFilter,
 )
 from seismic_bpmf_tpu_torch.models import (  # noqa: E402
-    PhaseNet, init_phasenet, load_variables, make_picker, make_train_step,
-    phasenet_probas_device, save_variables,
+    PhaseNet, init_phasenet, load_variables, make_picker,
+    make_sharded_train_step, make_train_step, phasenet_probas_device,
+    save_variables, train_phasenet,
 )
 from seismic_bpmf_tpu_torch.models.phasenet import (  # noqa: E402
     _ieee_convolutions, cross_entropy_loss, gaussian_pick_labels,
@@ -321,7 +345,9 @@ from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
     KM_PER_DEG, closest_weights, lattice, smooth_grid_moveouts, travel_times,
 )
 from seismic_bpmf_tpu_torch.utils.geo import two_point_distance  # noqa: E402
-from seismic_bpmf_tpu_torch.utils.observe import GLOBAL_TIMER  # noqa: E402
+from seismic_bpmf_tpu_torch.utils.observe import (  # noqa: E402
+    GLOBAL_TIMER, profile_trace,
+)
 from seismic_bpmf_tpu_torch.utils.time import utc_from_epoch  # noqa: E402
 
 SEED = 20260816
@@ -2872,13 +2898,355 @@ print(f"sharded bp: a warm 2 x 4 day {prof27_s:.3f} s, device busy "
       f"[{CARD}]", flush=True)
 del res27, bf27, day27
 
+# 28. the command line on the card: `python -m seismic_bpmf_tpu_torch info`
+#     as a subprocess, then the CLI's runners (`cli.run_<command>`, what
+#     each `cmd_<command>` runs after its file loaders) on the in-memory
+#     worlds of phases 4 and 8: this machine has no h5py, so the loaders
+#     are held to the JAX CLI on the CPU (tests/test_torch_cli.py)
+t28 = time.perf_counter()
+HERE = os.path.dirname(os.path.abspath(__file__))
+proc28 = subprocess.run(
+    [sys.executable, "-m", "seismic_bpmf_tpu_torch", "info"],
+    capture_output=True, text=True, cwd=HERE, timeout=300,
+    env=dict(os.environ, PYTHONPATH=HERE))
+if proc28.returncode:
+    raise AssertionError(f"cli info: rc {proc28.returncode}: "
+                         f"{proc28.stderr[-2000:]}")
+info28 = json.loads(proc28.stdout)
+if (info28["backend"] != "cuda"
+        or torch.cuda.get_device_name(0) not in info28["devices"]):
+    raise AssertionError(f"cli info: {info28}")
+parser28 = cli.build_parser()
+work28 = tempfile.mkdtemp(prefix="cli_")
+captured28 = {}
+
+
+def captured(name):
+    """`workflow.<name>`, keeping what its last call returned."""
+    fn = getattr(workflow, name)
+
+    def call(*args, **kwargs):
+        captured28[name] = fn(*args, **kwargs)
+        return captured28[name]
+    return fn, call
+
+
+def run_cli(name, runner, argv, *objects):
+    """(stdout, host seconds, stage seconds) of one runner call, with
+    `workflow.<name>` wrapped to keep its result."""
+    fn, call = captured(name)
+    setattr(workflow, name, call)
+    before = dict(GLOBAL_TIMER.times)
+    out = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = runner(parser28.parse_args(argv), *objects)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(workflow, name, fn)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: rc {rc}")
+    return (out.getvalue(), wall,
+            {k: v - before.get(k, 0.0) for k, v in GLOBAL_TIMER.times.items()
+             if v != before.get(k, 0.0)})
+
+
+# backproject: phase 8's world, day 1, through kernel #3
+zero_counts()
+day28 = make_bp_data("d1")
+out28, bp28_s, bp28_st = run_cli(
+    "backproject_day", cli.run_backproject,
+    ["backproject", "--data", "memory/d1", "--network", "-",
+     "--travel-times", "-"], cfg_bp, net_bp, day28, travel)
+launches28_bp = bp.bp_beam.launches
+if launches28_bp < 1 or bp.beamform_plain.calls:
+    raise AssertionError(f"cli backproject: {launches28_bp} launches, "
+                         f"{bp.beamform_plain.calls} plain")
+dets28 = captured28["backproject_day"][1]
+if out28.split()[0] != str(len(dets28)):
+    raise AssertionError(f"cli backproject printed {out28!r}")
+hits28 = sorted((round(e.origin_time_epoch * SR), e.aux_data["source_index"])
+                for e in dets28)
+if hits28 != bp_hits(res_bp)["d1"]:
+    raise AssertionError("cli backproject: the detections differ from "
+                         "phase 8's day 1")
+del day28
+# matched-filter at `high`: phase 4's bank and day 1, through kernel #2
+zero_counts()
+mf_flags = ["--min-channels", "6", "--min-stations", "3", "--max-kurto",
+            "1e6", "--min-interevent-time", "5"]
+out28, mf28_s, mf28_st = run_cli(
+    "matched_filter_day", cli.run_matched_filter,
+    ["matched-filter", "--data", "memory/d1", "--network", "-",
+     "--templates", "-", "--precision", "high", *mf_flags],
+    cfg, make_data("d1"), tg)
+launches28_mf = mf.mf_cc_split.launches
+if (launches28_mf < 1 or mf.mf_cc.launches or mf.mf_cc_highest.launches
+        or mf.matched_filter_split_plain.calls):
+    raise AssertionError(f"cli matched-filter: {launches28_mf} split "
+                         f"launches; others {mf.mf_cc.launches}, "
+                         f"{mf.mf_cc_highest.launches}, "
+                         f"{mf.matched_filter_split_plain.calls}")
+det28 = captured28["matched_filter_day"]
+for day, tid, o in REPEATS:
+    if day != "d1":
+        continue
+    t_exp = T0_EPOCH + o / SR
+    hits = [e for e in det28[str(tid)]
+            if abs(e.origin_time_epoch - t_exp) < 0.5 / SR]
+    if not hits or hits[0].aux_data["cc"] < 0.99:
+        raise AssertionError(f"cli matched-filter: repeat of template {tid} "
+                             f"at sample {o} not detected with CC >= 0.99")
+n28_mf = sum(len(v) for v in det28.values())
+# scan: phase 4's two days at `screen` with a state file, then a resume
+zero_counts()
+state28 = os.path.join(work28, "state.json")
+scan_argv = ["scan", "--data", *DATES, "--network", "-", "--templates", "-",
+             "--state", state28, *mf_flags]
+out28, scan28_s, scan28_st = run_cli("scan_days", cli.run_scan, scan_argv,
+                                     cfg, tg, list(DATES), make_data)
+launches28_scan = mf.mf_cc.launches
+if (launches28_scan < len(DATES) or mf.mf_cc_split.launches
+        or mf.mf_cc_highest.launches or mf.matched_filter_plain.calls):
+    raise AssertionError(f"cli scan: {launches28_scan} launches of kernel "
+                         f"#1's default build; others "
+                         f"{mf.mf_cc_split.launches}, "
+                         f"{mf.mf_cc_highest.launches}, "
+                         f"{mf.matched_filter_plain.calls}")
+res28 = captured28["scan_days"]
+for day, tid, o in REPEATS:
+    t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
+    hits = [e for e in res28[day][str(tid)]
+            if abs(e.origin_time_epoch - t_exp) < 0.5 / SR]
+    if not hits or hits[0].aux_data["cc"] < 0.99:
+        raise AssertionError(f"cli scan: repeat of template {tid} at sample "
+                             f"{o} of {day} not detected with CC >= 0.99")
+with open(state28) as f:
+    if sorted(json.load(f)) != sorted(DATES):
+        raise AssertionError("cli scan: the state file lacks a day")
+zero_counts()
+again28, _, _ = run_cli("scan_days", cli.run_scan, scan_argv, cfg, tg,
+                        list(DATES), make_data)
+if ("0 new detections over 0 days" not in again28
+        or mf.mf_cc.launches):
+    raise AssertionError(f"cli scan resume: {again28!r}, "
+                         f"{mf.mf_cc.launches} launches")
+# catalog: the scan's detections -> CSV -> `Catalog.read`
+csv28 = os.path.join(work28, "catalog.csv")
+out28, cat28_s, _ = run_cli(
+    "assemble_catalog", cli.run_catalog,
+    ["catalog", "--network", "-", "--templates", "-", "--db", "-",
+     "--output", csv28],
+    tg, {tid: [e for day in DATES for e in res28[day][tid]]
+         for tid in res28["d1"]})
+cat28 = Catalog.read(csv28)
+if cat28.n_events != captured28["assemble_catalog"].n_events:
+    raise AssertionError("cli catalog: the CSV lost rows")
+for day, tid, o in REPEATS:
+    t_exp = T0_EPOCH + DAY_SEC * (int(day[1:]) - 1) + o / SR
+    rows = np.flatnonzero(
+        (np.abs(cat28.origin_times_epoch - t_exp) < 0.5 / SR)
+        & (cat28["tid"].astype(int).astype(str) == str(tid)))
+    if len(rows) != 1 or not cat28["unique_event"][rows[0]]:
+        raise AssertionError(f"cli catalog: repeat of template {tid} at "
+                             f"sample {o} of {day} is not one unique event")
+shutil.rmtree(work28)
+scan28_day = scan28_st["mf_scan"] / len(DATES)
+print(f"cli on the card: info {info28['backend']} {info28['devices']}; "
+      f"backproject day 1 {bp28_s:.3f} s ("
+      + ", ".join(f"{k} {bp28_st.get(k, 0.0):.3f}" for k in stages27)
+      + f"; phase 8 s/day " + ", ".join(f"{v:.3f}" for v in stage_s.values())
+      + f"), {len(dets28)} detections = phase 8's, {launches28_bp} launches "
+      f"of kernel #3; matched-filter high {mf28_s:.3f} s (mf_scan "
+      f"{mf28_st['mf_scan']:.3f}; phase 11 {scan11_s:.3f}), {n28_mf} "
+      f"detections, every day-1 repeat, {launches28_mf} launches of kernel "
+      f"#2; scan screen {scan28_s:.3f} s over {len(DATES)} days (mf_scan "
+      f"{scan28_day:.3f} s/day; phase 4 {scan_s:.3f}), {launches28_scan} "
+      f"launches of kernel #1, every repeat, resume scans 0 days; catalog "
+      f"{cat28_s:.2f} s, {cat28.n_events} rows, "
+      f"{int(cat28['unique_event'].sum())} unique "
+      f"({time.perf_counter() - t28:.1f} s) [{CARD}]", flush=True)
+
+# 29. `train_phasenet(mesh=)`: phase 22's training on virtual meshes of the
+#     card, the batch split over {"data": 4} and {"data": 3}
+t29 = time.perf_counter()
+cuda0 = torch.device("cuda", torch.cuda.current_device())
+MESHES29 = {n: make_mesh({"data": n}, devices=[cuda0] * n) for n in (4, 3)}
+step29 = {}
+for n29, mesh29 in MESHES29.items():
+    nb29 = MONTH_TRAIN["batch_size"] // n29 * n29
+    xb29 = torch.from_numpy(x22[first22[:nb29]]).cuda()
+    yb29 = torch.from_numpy(labels22[first22[:nb29]]).cuda()
+    out29 = []
+    for sharded in (False, True):
+        m29 = init_weights(PhaseNet(),
+                           torch.Generator().manual_seed(0)).cuda()
+        o29 = torch.optim.Adam(m29.parameters(), lr=LR22)
+        st29 = (make_sharded_train_step(m29, o29, mesh29) if sharded
+                else make_train_step(m29, o29))
+        loss29 = float(st29((xb29, yb29)))
+        out29.append((loss29, {k: p.grad.double().cpu()
+                               for k, p in m29.named_parameters()},
+                      {k: t.double().cpu() for k, t in m29.state_dict().items()
+                       if t.is_floating_point()}))
+    (l_u, g_u, s_u), (l_s, g_s, s_s) = out29
+    g_scale = max(float(g.abs().max()) for g in g_u.values())
+    err_g = max(float((g_s[k] - g_u[k]).abs().max()) for k in g_u) / g_scale
+    err_u = max(float(((s_s[k] - s_u[k])
+                       - (adam_first(g_u[k]) - adam_first(g_s[k])))
+                      .abs().max()) for k in g_u)
+    err_bn = max(float(((s_s[k] - s_u[k]).abs()
+                        / s_u[k].abs().clamp(min=1e-3)).max())
+                 for k in s_u if "running_" in k)
+    step29[n29] = (nb29, abs(l_s - l_u), err_g, err_u, err_bn)
+    if (abs(l_s - l_u) > 1e-5 or err_g > 1e-4 or err_u > 1e-6
+            or err_bn > 1e-4):
+        raise AssertionError(
+            f"sharded step ({n29} shards) vs unsharded on the card: loss "
+            f"{l_s} / {l_u} (gate 1e-5), gradients {err_g:.3g} of the "
+            f"largest (gate 1e-4), weights {err_u:.3g} beyond Adam's update "
+            f"of the two gradients (gate 1e-6), running statistics "
+            f"{err_bn:.3g} (gate 1e-4)")
+del m29, o29, xb29, yb29
+# the month script's training on the 4-shard mesh beside phase 22's
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+_, _, losses29 = train_phasenet(x22, picks22, seed=0, verbose=False,
+                                mesh=MESHES29[4], **MONTH_TRAIN)
+torch.cuda.synchronize()
+train29_s = time.perf_counter() - t0
+rel29 = max(abs(a - b) / abs(b) for a, b in zip(losses29, losses22))
+if len(losses29) != len(losses22) or rel29 > 1e-3:
+    raise AssertionError(f"sharded training: losses {losses29} against "
+                         f"phase 22's {losses22} (gate 1e-3 relative)")
+print(f"sharded training: first step against the unsharded on the card, "
+      + "; ".join(f"{n} shards (batch {v[0]}): loss {v[1]:.3g}, gradients "
+                  f"{v[2]:.3g} of the largest, weights {v[3]:.3g} beyond "
+                  f"Adam's update, running statistics {v[4]:.3g}"
+                  for n, v in step29.items())
+      + f"; the month training on 4 shards: losses "
+      + " ".join(f"{v:.4f}" for v in losses29)
+      + f" (within {rel29:.3g} relative of phase 22's), {n_steps22} steps "
+      f"in {train29_s:.2f} s, {1e3 * train29_s / n_steps22:.1f} ms a step "
+      f"(phase 22: {1e3 * train22_s / n_steps22:.1f}) "
+      f"({time.perf_counter() - t29:.1f} s) [{CARD}]", flush=True)
+
+# 30. `profile_trace` around a warm 'screen' day: in a fresh process, whose
+#     trace must hold kernel #1's row, and here on phase 4's bank and day 1,
+#     whose rows are counted only (a process that has kept the card busy for
+#     minutes loses device rows from its torch.profiler traces: PERF.md
+#     section 6); then examples/synthetic_day_torch.py as a subprocess
+TRACE30 = """
+import sys
+import numpy as np
+import torch
+from seismic_bpmf_tpu_torch import workflow
+from seismic_bpmf_tpu_torch.config import Config
+from seismic_bpmf_tpu_torch.data import Data, Stream, TemplateGroup, Trace
+from seismic_bpmf_tpu_torch.detection import MatchedFilter
+from seismic_bpmf_tpu_torch.utils.observe import profile_trace
+
+SR, N_TP, N_STA, L, N = 25.0, 128, 10, 200, 2_160_000
+rng = np.random.default_rng(0)
+day = rng.standard_normal((N_STA, 3, N), dtype=np.float32)
+stations = [f"ST{s:02d}" for s in range(N_STA)]
+tg = TemplateGroup.from_arrays(
+    rng.normal(size=(N_TP, N_STA, 3, L)).astype(np.float32),
+    rng.integers(-50, 300, size=(N_TP, N_STA, 3)),
+    [str(i) for i in range(N_TP)], stations, sampling_rate=SR,
+    locations=np.zeros((N_TP, 3)))
+
+
+def reader(where, starttime=None, endtime=None, **kwargs):
+    st = Stream()
+    for s, sta in enumerate(stations):
+        for c, comp in enumerate("NEZ"):
+            st += Trace(day[s, c], station=sta, network="XX",
+                        channel=f"HH{comp}", sampling_rate=SR,
+                        starttime=1343260800.0)
+    return st
+
+
+cfg = Config(sampling_rate_hz=SR, template_len_sec=L / SR)
+data = Data("2012-07-26", "memory/day", reader, duration=N / SR,
+            sampling_rate=SR).read_waveforms()
+engine = MatchedFilter(tg, cfg=cfg, precision="screen", max_kurto=1e6,
+                       rng=np.random.default_rng(1))
+for trace_dir in (None, sys.argv[1]):       # a warm-up day, the traced day
+    with profile_trace(trace_dir):
+        workflow.matched_filter_day(tg, data, cfg=cfg, mf=engine,
+                                    minimum_interevent_time=5.0)
+        torch.cuda.synchronize()
+"""
+
+
+def trace_rows(logdir):
+    """(trace files, events, device rows, kernel #1's rows) of the one
+    Chrome trace `profile_trace` wrote under `logdir` (then removed)."""
+    files = os.listdir(logdir)
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(logdir)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return (len(files), len(events), len(dev),
+            sum("mf_kernel" in e.get("name", "") for e in dev))
+
+
+t30 = time.perf_counter()
+fresh30 = tempfile.mkdtemp(prefix="trace_")
+proc30 = subprocess.run([sys.executable, "-c", TRACE30, fresh30],
+                        capture_output=True, text=True, cwd=HERE, timeout=600,
+                        env=dict(os.environ, PYTHONPATH=HERE))
+if proc30.returncode:
+    raise AssertionError(f"profile_trace in a fresh process: rc "
+                         f"{proc30.returncode}: {proc30.stderr[-2000:]}")
+rows30 = trace_rows(fresh30)
+if rows30[0] != 1 or rows30[3] != 1:
+    raise AssertionError(f"profile_trace in a fresh process: {rows30[0]} "
+                         f"files, {rows30[2]} device rows, {rows30[3]} of "
+                         f"kernel #1")
+screen30 = MatchedFilter(tg, cfg=cfg, precision="screen",
+                         **{k: v for k, v in kw.items()
+                            if k != "minimum_interevent_time"})
+workflow.matched_filter_day(tg, day1, cfg=cfg, mf=screen30,
+                            minimum_interevent_time=5.0)   # plans, warm-up
+here30 = tempfile.mkdtemp(prefix="trace_")
+with profile_trace(here30):
+    workflow.matched_filter_day(tg, day1, cfg=cfg, mf=screen30,
+                                minimum_interevent_time=5.0)
+    torch.cuda.synchronize()
+rows30_here = trace_rows(here30)
+del screen30
+ex30 = subprocess.run(
+    [sys.executable, os.path.join(HERE, "examples",
+                                  "synthetic_day_torch.py")],
+    capture_output=True, text=True, cwd=HERE, timeout=600,
+    env=dict(os.environ, PYTHONPATH=HERE))
+if (ex30.returncode
+        or "OK: all injected events recovered" not in ex30.stdout):
+    raise AssertionError(f"synthetic_day_torch: rc {ex30.returncode}: "
+                         f"{ex30.stdout[-1500:]} {ex30.stderr[-1500:]}")
+print(f"profile_trace of a warm screen day: a fresh process {rows30[1]} "
+      f"trace events, {rows30[2]} device rows, {rows30[3]} of kernel #1; "
+      f"this process ({time.perf_counter() - T_START:.0f} s old) "
+      f"{rows30_here[1]} events, {rows30_here[2]} device rows, "
+      f"{rows30_here[3]} of kernel #1; synthetic_day_torch: "
+      + " | ".join(line for line in ex30.stdout.splitlines()
+                   if line.startswith("["))
+      + f"; OK ({time.perf_counter() - t30:.1f} s) [{CARD}]", flush=True)
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
       f"{t22 - t21:.0f} s, phase 22 {t23 - t22:.0f} s, phase 23 "
       f"{t24 - t23:.0f} s, phase 24 {t25 - t24:.0f} s, phase 25 "
       f"{t26 - t25:.0f} s, phase 26 {t27 - t26:.0f} s, phase 27 "
-      f"{time.perf_counter() - t27:.0f} s", flush=True)
+      f"{t28 - t27:.0f} s, phase 28 {t29 - t28:.0f} s, phase 29 "
+      f"{t30 - t29:.0f} s, phase 30 {time.perf_counter() - t30:.0f} s",
+      flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{
@@ -2886,7 +3254,8 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
-    "launches": launches + launches23_mf + launches24 + launches26,
+    "launches": (launches + launches23_mf + launches24 + launches26
+                 + launches28_scan),
     "max_abs_err": max(err5d, err3d, err23_mf, err24, errs26["default"]),
     "ms": ms5d,
     "plain_ms": plain_ms,
@@ -2910,7 +3279,7 @@ print(json.dumps({"kernels": [{
     "route": "cuda",
     "source": "seismic_bpmf_tpu_torch/csrc/mf_split.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:285",
-    "launches": launches11,
+    "launches": launches11 + launches28_mf,
     "max_abs_err": max(err10, err12, err13, errs26["high"]),
     "ms": ms13,
     "plain_ms": plain13,
@@ -2923,7 +3292,7 @@ print(json.dumps({"kernels": [{
     "source": "seismic_bpmf_tpu_torch/csrc/bp.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_bp.py:67",
     "launches": (launches_bp + launches_dense + launches23_bp
-                 + launches27_all),
+                 + launches27_all + launches28_bp),
     "max_abs_err": max(errs_bp + errs27),
     "ms": ms_bp,
     "plain_ms": plain_ms_bp,

@@ -1,1 +1,3 @@
 """PyTorch and CUDA port of seismic_bpmf_tpu."""
+
+__version__ = "0.1.0"

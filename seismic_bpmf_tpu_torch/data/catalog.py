@@ -273,9 +273,29 @@ class Catalog:
         return cls.from_columns(cols)
 
     # ------------------------------------------------------------------
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Catalog plots are not ported yet (ROADMAP Queue 1 #20)")
+    # plots (reference: BPMF/dataset.py:298-854 Catalog plot methods)
+    # ------------------------------------------------------------------
+    def plot_map(self, network=None, **kwargs):
+        from ..viz import plot_catalog
 
-    plot_map = plot_time_statistics = plot_time_of_day = _no_plot
-    plot_space_time = plot_recurrence_times = _no_plot
+        return plot_catalog(self, network=network, **kwargs)
+
+    def plot_time_statistics(self, **kwargs):
+        from ..viz import plot_time_statistics
+
+        return plot_time_statistics(self, **kwargs)
+
+    def plot_time_of_day(self, **kwargs):
+        from ..viz import plot_time_of_day
+
+        return plot_time_of_day(self, **kwargs)
+
+    def plot_space_time(self, axis: str = "longitude", **kwargs):
+        from ..viz import plot_space_time
+
+        return plot_space_time(self, axis=axis, **kwargs)
+
+    def plot_recurrence_times(self, tid=None, **kwargs):
+        from ..viz import plot_recurrence_times
+
+        return plot_recurrence_times(self, tid=tid, **kwargs)

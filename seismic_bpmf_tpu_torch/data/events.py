@@ -1207,6 +1207,13 @@ class Event:
             event.path_database = os.path.join(db_path, filename)
         return event
 
+    def plot(self, **kwargs):
+        """Waveform gallery with pick markers (reference:
+        BPMF/dataset.py:3076-3240)."""
+        from ..viz import plot_event
+
+        return plot_event(self, **kwargs)
+
     def __repr__(self):
         return (
             f"Event(id={self.id}, ot={self.origin_time}, "
@@ -1410,11 +1417,47 @@ class Template(Event):
         with h5py.File(path, "r") as f:
             return {key: f[key][()] for key in f.keys()}
 
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError(
-            "plotting is not ported yet (ROADMAP Queue 1 #20)")
+    def plot(self, **kwargs):
+        """Waveform gallery (reference: BPMF/plotting_utils.py:23-124)."""
+        from ..viz import plot_template
 
-    plot = plot_recurrence_times = plot_detection = _no_plot
+        return plot_template(self, **kwargs)
+
+    def plot_recurrence_times(self, db_path: str = "", **kwargs):
+        """Inter-detection times from this template's detection file
+        (reference: BPMF/dataset.py:4003-4079)."""
+        from ..viz import plot_recurrence_times
+
+        cat = self.read_catalog(db_path=db_path)
+        return plot_recurrence_times(cat, **kwargs)
+
+    def plot_detection(self, idx_or_gid, filename: Optional[str] = None,
+                       db_path: str = "", duration: float = 60.0,
+                       phase_on_comp: Dict[str, str] = DEFAULT_PHASE_ON_COMP,
+                       offset_ot: float = 10.0, data_reader=None, **kwargs):
+        """Plot one detection from this template's detection file: read
+        the event group, fetch its waveforms in picking mode, and render
+        the gallery (reference parity: BPMF/dataset.py:3896-4000).
+
+        `idx_or_gid`: integer position in the (sorted) group list, or the
+        group name itself."""
+        import h5py
+
+        from ..viz import plot_event
+
+        filename = filename or f"detections_tp{self.tid}.h5"
+        path = os.path.join(db_path, filename)
+        with h5py.File(path, "r") as f:
+            gids = sorted(f.keys())
+        gid = (str(idx_or_gid) if str(idx_or_gid) in gids
+               else gids[int(idx_or_gid)])
+        ev = Event.read_from_file(path, gid=gid)
+        ev.data_reader = data_reader or self.data_reader
+        ev.read_waveforms(
+            duration, phase_on_comp=phase_on_comp, time_shifted=False,
+            offset_ot=offset_ot,
+        )
+        return plot_event(ev, **kwargs)
 
     def __repr__(self):
         return (

@@ -627,11 +627,30 @@ class TemplateGroup:
         self.catalog = Catalog.concatenate(cats)
         return self.catalog
 
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError(
-            "plotting is not ported yet (ROADMAP Queue 1 #20)")
+    def plot_detection(self, row_idx, db_path: str = "", **kwargs):
+        """Plot one event of `self.catalog` via the template that
+        detected it (reference parity: BPMF/dataset.py:5298-5353)."""
+        if not hasattr(self, "catalog"):
+            self.read_catalog(db_path=db_path)
+        row = int(row_idx)
+        tid = str(self.catalog["tid"][row])
+        tp = self.templates[int(self.tindexes[tid])]
+        ot = self.catalog["origin_time"][row]
+        cat_tp = tp.read_catalog(db_path=db_path)
+        idx = int(np.argmin(np.abs(cat_tp["origin_time"] - ot)))
+        # detection groups are written under the event id
+        # (Template.write_detections), carried as the event_id column
+        return tp.plot_detection(str(cat_tp["event_id"][idx]),
+                                 db_path=db_path, **kwargs)
 
-    plot_detection = plot_recurrence_times = _no_plot
+    def plot_recurrence_times(self, db_path: str = "", **kwargs):
+        """Recurrence times over the whole group's detections
+        (reference parity: BPMF/dataset.py `plot_recurrence_times`)."""
+        from ..viz import plot_recurrence_times
+
+        if not hasattr(self, "catalog"):
+            self.read_catalog(db_path=db_path)
+        return plot_recurrence_times(self.catalog, **kwargs)
 
     # ------------------------------------------------------------------
     # inter-template similarity and dedup

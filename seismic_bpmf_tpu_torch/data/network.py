@@ -192,6 +192,23 @@ class Network:
         sub.__dict__.pop("_interstation_distances", None)
         return sub
 
+    def plot_map(self, margin_deg: float = 0.2, **kwargs):
+        """Station map (reference: BPMF/dataset.py:234-295)."""
+        from ..viz import initialize_map
+
+        return initialize_map(
+            (float(self.longitude.min()) - margin_deg,
+             float(self.longitude.max()) + margin_deg),
+            (float(self.latitude.min()) - margin_deg,
+             float(self.latitude.max()) + margin_deg),
+            seismic_stations={
+                "longitude": self.longitude,
+                "latitude": self.latitude,
+                "stations": list(self.stations),
+            },
+            **kwargs,
+        )
+
     @property
     def interstation_distances(self) -> np.ndarray:
         """(n_sta, n_sta) hypocentral-style distances (km), rows and

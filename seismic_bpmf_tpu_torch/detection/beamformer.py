@@ -447,12 +447,62 @@ class Beamformer:
         lik = (beam_volume - beam_volume.min()) / rng
         return np.clip(lik, 0.0, 1.0)
 
-    def plot_detection(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Beamformer plots are not ported yet (ROADMAP Queue 1 #20)")
+    def plot_detection(self, detection, duration: float = 60.0,
+                       offset_ot: float = 10.0, data_reader=None, **kwargs):
+        """Waveform gallery of one detection over the day's max beam
+        (reference parity: BPMF/template_search.py:1040-1133)."""
+        from ..viz import plot_detection
 
-    plot_maxbeam = plot_detection
-    plot_likelihood = plot_detection
+        if not getattr(detection, "traces", None):
+            detection.read_waveforms(
+                duration, time_shifted=False, offset_ot=offset_ot,
+                data_reader=data_reader or getattr(
+                    self.data, "data_reader", None
+                ),
+            )
+        if hasattr(self.data, "date_epoch"):
+            detection._context_time = (
+                detection.origin_time_epoch - self.data.date_epoch
+            )
+        return plot_detection(
+            detection, context=getattr(self, "maxbeam", None),
+            context_sr=self.data.sr, context_label="max beam", **kwargs,
+        )
+
+    def plot_maxbeam(self, detection_indices=None, **kwargs):
+        """Max-beam time series with detections marked (reference parity:
+        BPMF/template_search.py 'plot_maxbeam')."""
+        from ..viz import plot_maxbeam
+
+        return plot_maxbeam(self, detection_indices=detection_indices,
+                            **kwargs)
+
+    def plot_likelihood(self, beam_over_sources, ax=None, figsize=(10, 8),
+                        **kwargs):
+        """Source-grid likelihood map (min-max normalized beam) with the
+        maximum marked (reference parity:
+        BPMF/template_search.py:1135-1200)."""
+        from ..viz.plots import _host, _plt
+
+        lik = self._likelihood(_host(beam_over_sources))
+        src = self.source_coordinates
+        if ax is None:
+            fig, ax = _plt().subplots(figsize=figsize)
+        else:
+            fig = ax.get_figure()
+        sc = ax.scatter(
+            src["longitude"], src["latitude"], c=lik,
+            s=kwargs.pop("s", 8), cmap=kwargs.pop("cmap", "magma"),
+            **kwargs,
+        )
+        best = int(np.argmax(lik))
+        ax.plot(float(src["longitude"][best]),
+                float(src["latitude"][best]), "*", color="C0",
+                ms=14, mec="k")
+        fig.colorbar(sc, ax=ax, label="likelihood")
+        ax.set_xlabel("Longitude")
+        ax.set_ylabel("Latitude")
+        return fig
 
     def _rectangular_domain(self, lon0, lat0, side_km: float = 100.0):
         """Boolean mask of grid sources inside a `side_km` box centered at

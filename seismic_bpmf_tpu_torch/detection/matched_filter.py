@@ -792,11 +792,72 @@ class MatchedFilter:
                       f"events.")
         return detections
 
-    def plot_detection(self, *args, **kwargs):
-        raise NotImplementedError(
-            "plotting is not ported yet (ROADMAP Queue 1 #20)")
+    def plot_detection(self, detection, duration: float = 60.0,
+                       offset_ot: float = 10.0, data_reader=None, **kwargs):
+        """Waveform gallery of one detection over its template's CC series
+        (reference parity: BPMF/similarity_search.py:922-1020; requires
+        the CC series, i.e. `compute_cc_time_series` ran with the series
+        kept)."""
+        from ..viz import plot_detection
 
-    plot_cc = plot_detection
+        tid = detection.aux_data.get("tid")
+        cc_t = getattr(self, "cc", {}).get(tid)
+        if not getattr(detection, "traces", None):
+            detection.read_waveforms(
+                duration, time_shifted=False, offset_ot=offset_ot,
+                data_reader=data_reader or getattr(
+                    self.data, "data_reader", None
+                ),
+            )
+        if hasattr(self.data, "date_epoch"):
+            detection._context_time = (
+                detection.origin_time_epoch - self.data.date_epoch
+            )
+        return plot_detection(
+            detection, context=cc_t, context_sr=self.data.sr,
+            context_label=f"network CC (template {tid})", **kwargs,
+        )
+
+    def plot_cc(self, tid, ax=None, detection=None, figsize=(15, 7)):
+        """CC time series + detection threshold for one template
+        (reference parity: BPMF/similarity_search.py:812-900)."""
+        from ..viz.plots import _host, _plt
+
+        if tid not in getattr(self, "cc", {}):
+            raise KeyError(
+                f"{tid!r} not in self.cc — run compute_cc_time_series first"
+            )
+        if ax is None:
+            fig, ax = _plt().subplots(figsize=figsize)
+        else:
+            fig = ax.get_figure()
+        sr = self.data.sr
+        cc_t = _host(self.cc[tid]).astype(np.float32)
+        # threshold_window_dur/overlap are set by the detection entry
+        # points; fall back to their defaults so plot_cc works right
+        # after compute_cc_time_series
+        threshold = time_dependent_threshold(
+            torch.from_numpy(cc_t),
+            int(sec_to_samp(
+                getattr(self, "threshold_window_dur", 1800.0), sr=sr
+            )),
+            self.cfg.n_dev_mf_threshold,
+            overlap=getattr(self, "overlap", 0.25),
+            threshold_type=self.threshold_type, rng=self.rng,
+        ).numpy()
+        t = np.arange(len(cc_t)) / sr
+        ax.plot(t, cc_t, lw=0.4, label=f"CC (template {tid})")
+        ax.plot(t, threshold, "--", color="C3", label="threshold")
+        if detection is not None:
+            i = int(
+                (detection.origin_time_epoch - self.data.date_epoch) * sr
+            ) if hasattr(self.data, "date_epoch") else None
+            if i is not None and 0 <= i < len(cc_t):
+                ax.plot(t[i], cc_t[i], "o", color="C3", ms=6)
+        ax.set_xlabel("Time (s)")
+        ax.set_ylabel("Network CC")
+        ax.legend(loc="upper right")
+        return fig
 
     def run_matched_filter_search(
         self,

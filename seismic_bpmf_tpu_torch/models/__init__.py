@@ -19,7 +19,11 @@ from .phasenet import (
     ps_channels,
     sliding_window_probas,
 )
-from .training import train_phasenet, windows_from_events
+from .training import (
+    make_sharded_train_step,
+    train_phasenet,
+    windows_from_events,
+)
 
 __all__ = [
     "PhaseNet",
@@ -30,6 +34,7 @@ __all__ = [
     "load_train_state",
     "load_variables",
     "make_picker",
+    "make_sharded_train_step",
     "make_train_step",
     "phasenet_probas_device",
     "ps_channels",

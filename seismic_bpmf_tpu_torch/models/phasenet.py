@@ -26,7 +26,8 @@ Layouts are torch's, (batch, channels, time).  The convolutions are
 cuDNN's; on the card they run in float32 with TF32 off and deterministic
 algorithms, set around each forward and training step
 (`_ieee_convolutions`).  BatchNorm keeps Flax's running statistics in
-training (`_BatchNorm`).
+training (`_BatchNorm`), also over a batch split across the devices of
+a mesh (`Shards`, `models.training.make_sharded_train_step`).
 """
 
 from __future__ import annotations
@@ -54,16 +55,94 @@ def _same_pad(n: int, k: int, s: int) -> tuple:
     return total // 2, total - total // 2
 
 
+class Shards:
+    """A batch split over devices, run through a model in lockstep.
+
+    `parts` are the shards, each on its device, equal but for their batch
+    size.  Every torch function applied to `Shards` runs once a shard, on
+    the shard's device, with the other tensor arguments (the weights)
+    copied there by a differentiable `.to()`, and returns `Shards`; so a
+    model's own forward runs the whole split batch, layer by layer, in one
+    autograd graph.  `_BatchNorm` normalizes it with the whole batch's
+    statistics (`_shards_batch_norm`).  `shape` is the first shard's."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.parts[0].shape
+
+    def __getitem__(self, index) -> "Shards":
+        return Shards(p[index] for p in self.parts)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        flat = [*args, *kwargs.values()]
+        flat += [v for a in flat if isinstance(a, (list, tuple)) for v in a]
+        shards = next(a for a in flat if isinstance(a, Shards))
+
+        def pick(a, k, dev):
+            if isinstance(a, Shards):
+                return a.parts[k]
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
+            if isinstance(a, (list, tuple)):
+                return type(a)(pick(v, k, dev) for v in a)
+            return a
+
+        out = []
+        for k, part in enumerate(shards.parts):
+            dev = part.device
+            out.append(func(*(pick(a, k, dev) for a in args),
+                            **{key: pick(v, k, dev)
+                               for key, v in kwargs.items()}))
+        return Shards(out)
+
+
+def _shards_batch_norm(bn: nn.BatchNorm1d, x: Shards) -> Shards:
+    """Train-mode BatchNorm of a batch split over devices: the whole
+    batch's mean and biased variance, totalled from the shards' sums on
+    the first shard's device, normalize every shard on its own; the
+    running statistics move once, as `_BatchNorm` moves them."""
+    first = x.parts[0].device
+
+    def total(values):
+        out = values[0].to(first)
+        for v in values[1:]:
+            out = out + v.to(first)
+        return out
+
+    count = sum(p.shape[0] * p.shape[2] for p in x.parts)
+    mean = total([p.sum(dim=(0, 2)) for p in x.parts]) / count
+    ds = [p - mean.to(p.device)[None, :, None] for p in x.parts]
+    var = total([(d * d).sum(dim=(0, 2)) for d in ds]) / count
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.device),
+                                           alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.to(bn.running_var.device),
+                                          alpha=m)
+        bn.num_batches_tracked.add_(1)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight.to(first)
+    return Shards(d * scale.to(d.device)[None, :, None]
+                  + bn.bias.to(d.device)[None, :, None] for d in ds)
+
+
 class _BatchNorm(nn.BatchNorm1d):
     """`nn.BatchNorm1d` whose running statistics follow Flax's BatchNorm in
     training: Flax (momentum 0.9, torch's 0.1) folds in the biased batch
     variance, torch the unbiased one.  The batch is normalized as torch
     does it (biased variance); in eval mode this is `nn.BatchNorm1d`.  The
-    state-dict keys are unchanged."""
+    state-dict keys are unchanged.  On `Shards` in training the
+    statistics are the whole split batch's (`_shards_batch_norm`)."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if isinstance(x, Shards):
+            return _shards_batch_norm(self, x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
             m = self.momentum

@@ -4,11 +4,12 @@ Counterpart of `seismic_bpmf_tpu.models.training`: the picker (re)trained
 on the user's own region, with Gaussian-blurred pick labels plus a noise
 class (the PhaseNet convention) and a cross-entropy loss:
 
-  windows_from_events : picked Events -> (windows, pick labels)
-  train_phasenet      : the epoch loop over `make_train_step` (Adam)
+  windows_from_events     : picked Events -> (windows, pick labels)
+  make_sharded_train_step : one step of a batch split over a mesh
+  train_phasenet          : the epoch loop over `make_train_step` (Adam),
+                            or over `make_sharded_train_step` with `mesh=`
 
-Windows are in torch's layout, (n, 3, window).  `mesh=` (data-parallel
-batches) is not ported yet (ROADMAP Queue 1 #19).
+Windows are in torch's layout, (n, 3, window).
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._device import resolve_device
+from ..parallel.mesh import mesh_device
 from .phasenet import (
-    WINDOW, PhaseNet, SeisBenchPhaseNet, from_flax_variables,
-    gaussian_pick_labels, init_weights, make_train_step,
+    WINDOW, PhaseNet, SeisBenchPhaseNet, Shards, _ieee_convolutions,
+    from_flax_variables, gaussian_pick_labels, init_weights,
+    make_train_step,
 )
 
 
@@ -102,6 +104,48 @@ def _state_dict(model: nn.Module,
     return variables
 
 
+def make_sharded_train_step(model: nn.Module,
+                            optimizer: torch.optim.Optimizer, mesh):
+    """`step((x, labels)) -> loss`: `make_train_step`'s step with the
+    batch split over the devices of `mesh` (a `parallel.Mesh`, every axis;
+    its devices in row-major order), the JAX package's `jit` over a batch
+    sharded on all the mesh's axes.  `model` and `optimizer` live on the
+    mesh's first device, the batch (divisible by the mesh's size) too.
+
+    One autograd graph: the model's forward runs over the shards in
+    lockstep (`phasenet.Shards`: each layer once a shard, on the shard's
+    device, the weights copied there by a differentiable `.to()`); each
+    BatchNorm normalizes with the whole batch's statistics, totalled on
+    the first device, and the loss is the whole batch's mean, so the
+    gradients are the global batch's.  The running statistics move once
+    a step; Adam steps on the first device."""
+    devices = list(mesh.devices.flat)
+    n = len(devices)
+
+    def step(batch):
+        x, labels = batch
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                             f"{n} devices")
+        b = x.shape[0] // n
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with _ieee_convolutions():
+            probas = model(Shards(x[k * b: (k + 1) * b].to(devices[k])
+                                  for k in range(n)))
+            total = None
+            for k, p in enumerate(probas.parts):
+                part = torch.sum(labels[k * b: (k + 1) * b].to(p.device)
+                                 * torch.log(p + 1e-7)).to(devices[0])
+                total = part if total is None else total + part
+            loss = -total / (x.shape[0] * x.shape[2])
+            loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def train_phasenet(
     x: np.ndarray,
     picks: np.ndarray,
@@ -128,14 +172,15 @@ def train_phasenet(
     of `batch_size` run in its order and the remainder is dropped; Adam
     at `learning_rate`.
 
+    With `mesh` (a `parallel.Mesh`) each batch is split over the mesh's
+    devices (`make_sharded_train_step`: the whole batch's BatchNorm
+    statistics, loss and gradients) and the model lives on its first
+    device; as in the JAX package the batch size is rounded to
+    ``max(batch_size // n_dev * n_dev, n_dev)``.
+
     Returns (model, its state dict, per-epoch mean losses); the model is
-    left on `device` in eval mode."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel training, BatchNorm statistics over the "
-            "whole sharded batch) is not ported yet (ROADMAP Queue 1 #19, "
-            "its training half, now #28)")
-    dev = resolve_device(device)
+    left on `device` (the mesh's first) in eval mode."""
+    dev = mesh_device(mesh, device)
     if model is None:
         model = PhaseNet()
     if variables is not None:
@@ -149,7 +194,12 @@ def train_phasenet(
     yt = torch.from_numpy(gaussian_pick_labels(
         np.asarray(picks), window, sigma=sigma)).to(device=dev, dtype=dtype)
     optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate)
-    step = make_train_step(model, optimizer)
+    if mesh is None:
+        step = make_train_step(model, optimizer)
+    else:
+        n_dev = mesh.devices.size
+        batch_size = max(batch_size // n_dev * n_dev, n_dev)
+        step = make_sharded_train_step(model, optimizer, mesh)
 
     rng = np.random.default_rng(seed)
     n = len(x)

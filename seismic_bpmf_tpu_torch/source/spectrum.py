@@ -474,11 +474,47 @@ class Spectrum:
         self.num_valid_channels = SpectrumTable(count, spec.frequencies)
         return self.average_spectrum
 
-    def _no_plot(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Spectrum plots are not ported yet (ROADMAP Queue 1 #20)")
+    def plot_spectrum(self, phase: str, ax=None, figsize=(8, 6), **kwargs):
+        """Log-log per-channel amplitude spectra for one phase
+        (reference parity: BPMF/spectrum.py `plot_spectrum`)."""
+        from ..viz.plots import _plt
 
-    plot_spectrum = plot_average_spectrum = _no_plot
+        if ax is None:
+            fig, ax = _plt().subplots(figsize=figsize)
+        else:
+            fig = ax.get_figure()
+        spec = self.spectra[phase.lower()]
+        for row, values in zip(spec.rows, spec.values):
+            ax.loglog(spec.frequencies, values, lw=0.7, label=str(row),
+                      **kwargs)
+        ax.set_xlabel("Frequency (Hz)")
+        ax.set_ylabel("Amplitude spectrum")
+        ax.legend(fontsize=6, ncol=2, loc="lower left")
+        return fig
+
+    def plot_average_spectrum(self, ax=None, figsize=(8, 6), **kwargs):
+        """Log-log network-average spectrum with the model fit overlaid
+        when available (reference parity: BPMF/spectrum.py
+        `plot_average_spectrum`)."""
+        from ..viz.plots import _plt
+
+        if ax is None:
+            fig, ax = _plt().subplots(figsize=figsize)
+        else:
+            fig = ax.get_figure()
+        avg = self.average_spectrum
+        ax.loglog(avg.frequencies, avg.values, color="k", lw=1.2,
+                  label="network average", **kwargs)
+        if getattr(self, "fit_success", False):
+            f = np.asarray(avg.frequencies, np.float64)
+            model = getattr(self, "model_name", "brune")
+            fn = brune if model == "brune" else boatwright
+            ax.loglog(f, fn(f, self.M0, self.fc), "--", color="C3",
+                      label=f"{model} fit (fc={self.fc:.2f} Hz)")
+        ax.set_xlabel("Frequency (Hz)")
+        ax.set_ylabel("Amplitude spectrum")
+        ax.legend(loc="lower left")
+        return fig
 
     def _scale(self, phase: str, average: bool, angular: bool, op):
         phase = phase.lower()

@@ -351,8 +351,15 @@ def test_unported_options_raise(world):
     event = tdata.Event(0.0, np.zeros((1, 2)), ["A"], ["P", "S"])
     with pytest.raises(ValueError, match="unknown relocation routine"):
         event.relocate(routine="hypoinverse")
+    # the plots are ported (tests/test_torch_viz.py): the max beam's line
+    # holds the beam
+    pytest.importorskip("matplotlib")
     _, tbf = _engines(w)
-    with pytest.raises(NotImplementedError, match="Queue 1 #20"):
-        tbf.plot_maxbeam()
+    tbf.maxbeam = np.linspace(0.0, 1.0, 50, dtype=np.float32)
+    fig = tbf.plot_maxbeam(detection_indices=[3, 40])
+    lines = fig.axes[0].get_lines()
+    np.testing.assert_array_equal(lines[0].get_ydata(), tbf.maxbeam)
+    np.testing.assert_array_equal(lines[-1].get_ydata(),
+                                  tbf.maxbeam[[3, 40]])
     with pytest.raises(ValueError, match="unknown precision"):
         Beamformer(device="cpu", precision="screen")

@@ -227,8 +227,12 @@ def test_catalog_columns_match_jax(tmp_path):
     np.testing.assert_array_equal(back["unique_event"], tcat["unique_event"])
     np.testing.assert_array_equal(back["n_dev"], tcat["n_dev"])
     assert list(back["event_id"]) == list(tcat["event_id"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcat.plot_map()
+    # the plots are ported (tests/test_torch_viz.py): the map's scatter
+    # holds the epicentres
+    pytest.importorskip("matplotlib")
+    offsets = tcat.plot_map().axes[0].collections[0].get_offsets()
+    np.testing.assert_array_equal(
+        offsets, np.stack([tcat.longitude, tcat.latitude], axis=1))
     assert tdata.Catalog([], [], [], []).n_events == 0
     with pytest.raises(ValueError, match="rows"):
         tdata.Catalog([1.0], [2.0], [3.0], ["2012-01-01"], cc=[1.0, 2.0])

@@ -911,3 +911,37 @@ def test_sharded_bp_kernel_matches_unsharded_on_card(card, mesh_shape, oob):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert not bool(torch.isin(got[1], torch.tensor(
             [40, mv.shape[0] - 1], device=card)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_train_step_on_a_virtual_card_mesh(card, n_dev):
+    """`make_sharded_train_step` on a virtual mesh of the card against the
+    unsharded step on the card, from the same weights and batch: the loss
+    within 1e-5, the gradients within 1e-4 of the largest, the running
+    statistics within 1e-4 (chip_smoke.py phase 22's gates)."""
+    from seismic_bpmf_tpu_torch.models import training
+    from seismic_bpmf_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(8, 3, 600)).astype(np.float32))
+    picks_ = np.stack([rng.uniform(50, 250, 8), rng.uniform(300, 550, 8)], 1)
+    y = torch.from_numpy(phasenet.gaussian_pick_labels(picks_, 600))
+    out = []
+    for mesh in (None, make_mesh({"data": n_dev}, devices=[card] * n_dev)):
+        m = phasenet.init_weights(phasenet.PhaseNet(depth=3),
+                                  torch.Generator().manual_seed(0)).to(card)
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        step = (phasenet.make_train_step(m, opt) if mesh is None
+                else training.make_sharded_train_step(m, opt, mesh))
+        loss = float(step((x.to(card), y.to(card))))
+        out.append((loss, {k: p.grad for k, p in m.named_parameters()},
+                    {k: t for k, t in m.state_dict().items()
+                     if "running" in k}))
+    (loss, grads, stats), (sloss, sgrads, sstats) = out
+    assert abs(sloss - loss) <= 1e-5
+    scale = max(float(g.abs().max()) for g in grads.values())
+    for k in grads:
+        assert float((sgrads[k] - grads[k]).abs().max()) <= 1e-4 * scale, k
+    for k in stats:
+        assert torch.allclose(sstats[k], stats[k], rtol=1e-4, atol=1e-6), k

@@ -182,8 +182,11 @@ def _imports(path):
 
 @pytest.mark.parametrize("forbidden", ["jax", "seismic_bpmf_tpu"])
 def test_no_port_file_imports_jax_or_the_jax_package(forbidden):
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("*_torch.py")))
     assert len(files) > 15
+    assert PORT / "__main__.py" in files and PORT / "cli.py" in files
+    assert PORT / "viz" / "plots.py" in files
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f)
            if name == forbidden or name.startswith(forbidden + ".")]
@@ -248,7 +251,7 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     assert bp.beamform(data, bmv, w_ph, w_src, device="cpu")[0].shape == (64,)
     assert Beamformer(network=net, travel_times=tts,
                       device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="process-group mesh"):
         MatchedFilter(tg, device="cpu", mesh=object())
 
 
@@ -437,7 +440,8 @@ def _module_level_imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("forbidden", ["pandas", "h5py", "ml_dtypes"])
+@pytest.mark.parametrize("forbidden",
+                         ["pandas", "h5py", "ml_dtypes", "matplotlib"])
 def test_no_port_module_imports_pandas_h5py_at_import(forbidden):
     files = sorted(PORT.rglob("*.py"))
     assert any(f.name == "phasenet.py" for f in files)
@@ -900,3 +904,71 @@ def test_year_and_family_entry_points_need_cuda_unless_asked_for_the_cpu():
     # asked for the CPU, they run
     assert stacking.svdwf(panels[0], device="cpu").shape == (50,)
     assert stacking.stack_panels(wf, device="cpu").shape == (2, 3, 50)
+
+
+CLI_PATH = textwrap.dedent("""
+    import importlib.abc, io, json, runpy, sys
+    from contextlib import redirect_stdout
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import argparse
+    import numpy as np
+    import torch
+    from seismic_bpmf_tpu_torch import cli, viz
+    from seismic_bpmf_tpu_torch.data import TemplateGroup
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert cli.main(["--device", "cpu", "info"]) == 0
+    assert json.loads(out.getvalue())["backend"] == "cpu"
+    sys.argv = ["seismic_bpmf_tpu_torch", "--help"]
+    try:
+        with redirect_stdout(io.StringIO()):
+            runpy.run_module("seismic_bpmf_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    if not torch.cuda.is_available():
+        assert cli.main(["info"]) == 1
+    # a runner on in-memory objects: no file, no h5py
+    rng = np.random.default_rng(0)
+    tg = TemplateGroup.from_arrays(
+        rng.normal(size=(2, 3, 3, 40)).astype(np.float32),
+        rng.integers(0, 20, size=(2, 3, 3)), ["0", "1"], ["A", "B", "C"],
+        locations=np.zeros((2, 3)))
+    args = cli.build_parser().parse_args(
+        ["--device", "cpu", "catalog", "--network", "-", "--templates", "-",
+         "--db", "-", "--output", {csv!r}])
+    with redirect_stdout(io.StringIO()):
+        assert cli.run_catalog(args, tg, {{}}) == 0
+    # the plots need matplotlib, imported on use
+    try:
+        viz.plot_detection_matrix(np.zeros((2, 10)), ["A", "B"], 25.0)
+    except ImportError as e:
+        assert "matplotlib" in str(e)
+    else:
+        raise AssertionError("a plot ran without matplotlib")
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not loaded, loaded
+    print("CLI_PATH_OK")
+""")
+
+
+def test_cli_and_viz_run_without_jax_pandas_h5py_matplotlib(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = CLI_PATH.format(blocked=BLOCKED + ["matplotlib"],
+                             csv=str(tmp_path / "catalog.csv"))
+    proc = subprocess.run([sys.executable, "-c", script],
+                          capture_output=True, text=True, cwd=str(REPO),
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_PATH_OK" in proc.stdout
+    assert (tmp_path / "catalog.csv").read_text().startswith("longitude")

@@ -186,8 +186,15 @@ def test_resample_and_target_frequencies():
     _same_table(t.spectra["s"], j.spectra["s"])
     np.testing.assert_array_equal(t.frequencies, j.frequencies)
     assert t.frequencies.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="#20"):
-        t.plot_spectrum("p")
+    # the plots are ported (tests/test_torch_viz.py): the same lines as
+    # the JAX package's
+    pytest.importorskip("matplotlib")
+    lines = [[(ln.get_label(), ln.get_xydata())
+              for ln in s.plot_spectrum("p").axes[0].get_lines()]
+             for s in (t, j)]
+    assert [k for k, _ in lines[0]] == [k for k, _ in lines[1]]
+    for (_, a), (_, b) in zip(*lines):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
 
 
 def test_snr_based_weights_equal():

@@ -17,6 +17,12 @@ batches of 8).
   noise into up to 2 lr in f32, so SeisBench is held in float64 only.)
 - `train_phasenet` over 2 epochs: the JAX package's per-epoch losses
   within 1e-10 (float64, the same seed and permutations).
+- `train_phasenet(mesh=)`: one `make_sharded_train_step` step on virtual
+  meshes of 2 and 3 CPU devices equal to the unsharded step in float64
+  (loss within 1e-12, gradients, weights and running statistics within
+  1e-10), a batch of 32 on 3 devices trained as 30, and the f32 epoch
+  losses on a 4-device mesh within 1e-5 of the JAX `train_phasenet` on a
+  4-device mesh of conftest's virtual CPU devices.
 - `windows_from_events` equal to the JAX function on a picked event
   resampled from 50 to 100 Hz.
 - Checkpoints: variables and train state round trips, and a run resumed
@@ -228,9 +234,78 @@ def test_train_phasenet_from_a_seed_and_mesh_raises():
     for name in sd_a:
         assert torch.equal(sd_a[name], sd_b[name]), name
     assert run(10)[1] != losses_a
-    with pytest.raises(NotImplementedError, match="Queue 1 #19"):
+    # a mesh that is not a `parallel.Mesh` raises through mesh_device
+    with pytest.raises(NotImplementedError, match="process-group mesh"):
         ttr.train_phasenet(x, picks, n_epochs=1, mesh=object(),
                            device="cpu")
+
+
+def _cpu_mesh(n):
+    from seismic_bpmf_tpu_torch.parallel import make_mesh
+
+    return make_mesh({"data": n}, devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("arch,n_dev", [("phasenet", 2), ("phasenet", 3),
+                                        ("seisbench", 3)])
+def test_sharded_step_equals_the_unsharded_step_float64(arch, n_dev):
+    x, picks = _batch(8, n=12)
+    labels = torch.from_numpy(tpn.gaussian_pick_labels(picks, W)).double()
+    out = []
+    for mesh in (None, _cpu_mesh(n_dev)):
+        tm = _models(arch, np.float64)[2]
+        opt = torch.optim.Adam(tm.parameters(), lr=LR)
+        step = (tpn.make_train_step(tm, opt) if mesh is None
+                else ttr.make_sharded_train_step(tm, opt, mesh))
+        loss = float(step((torch.from_numpy(x), labels)))
+        out.append((loss, {k: p.grad for k, p in tm.named_parameters()},
+                    tm.state_dict()))
+    (loss, grads, sd), (sloss, sgrads, ssd) = out
+    assert abs(sloss - loss) <= 1e-12
+    for k in grads:
+        assert float((sgrads[k] - grads[k]).abs().max()) <= 1e-10, k
+    for k in sd:
+        assert sd[k].dtype == ssd[k].dtype, k
+        assert float((ssd[k].double() - sd[k].double()).abs().max()) \
+            <= 1e-10, k
+    assert int(ssd[next(k for k in sd if "num_batches" in k)]) == 1
+
+
+def test_train_phasenet_on_a_mesh_rounds_the_batch_to_the_mesh():
+    x, picks = _train_set(n=64)
+
+    def run(batch_size, mesh=None):
+        return ttr.train_phasenet(
+            x, picks, n_epochs=2, batch_size=batch_size,
+            model=tpn.PhaseNet(depth=DEPTH, filters_root=ROOT).double(),
+            mesh=mesh, verbose=False, device="cpu", seed=4)
+
+    model, sd, losses = run(32, _cpu_mesh(3))
+    _, sd30, losses30 = run(30)
+    np.testing.assert_allclose(losses, losses30, rtol=0, atol=1e-10)
+    for k in sd30:
+        assert float((sd[k].double() - sd30[k].double()).abs().max()) \
+            <= 1e-9, k
+    assert abs(losses[0] - run(32)[2][0]) > 1e-6
+    assert not model.training
+    with pytest.raises(ValueError, match="mesh's first device"):
+        ttr.train_phasenet(x, picks, mesh=_cpu_mesh(2), device="meta")
+
+
+def test_train_phasenet_mesh_matches_jax_epoch_losses():
+    from seismic_bpmf_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    jm, v, tm = _models("phasenet", np.float32, seed=2)
+    x, picks = _train_set(n=48, seed=7)
+    x = x.astype(np.float32)
+    _, _, jlosses = jtr.train_phasenet(
+        x.transpose(0, 2, 1), picks, n_epochs=2, batch_size=B, model=jm,
+        variables=v, seed=5, verbose=False,
+        mesh=jmake_mesh({"data": 4}, devices=jax.devices()[:4]))
+    _, _, losses = ttr.train_phasenet(
+        x, picks, n_epochs=2, batch_size=B, model=tm, variables=v, seed=5,
+        verbose=False, device="cpu", mesh=_cpu_mesh(4))
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-5)
 
 
 def _picked_events(rng, sr=50.0, n=3000):

@@ -458,3 +458,24 @@ def test_load_travel_times_and_moveout_array_match_jax(tmp_path, sel,
 def test_data_reader_pyasdf_needs_pyasdf():
     with pytest.raises(ImportError, match="pyasdf"):
         data_reader_pyasdf("no_file.h5")
+
+
+def test_profile_trace_writes_a_chrome_trace_with_op_rows(tmp_path):
+    import json
+
+    from seismic_bpmf_tpu_torch.utils.observe import profile_trace
+
+    with profile_trace(None) as prof:
+        assert prof is None
+    logdir = tmp_path / "traces"
+    with profile_trace(str(logdir)) as prof:
+        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+    assert any(e.key == "aten::matmul" for e in prof.key_averages())
+    with profile_trace(str(logdir)):
+        torch.ones(8).cumsum(0)
+    files = sorted(logdir.iterdir())
+    assert [f.suffix for f in files] == [".json", ".json"]
+    ops = [{e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
+           for f in files]
+    assert "aten::matmul" in ops[0] and "aten::matmul" not in ops[1]
+    assert "aten::cumsum" in ops[1]

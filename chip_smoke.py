@@ -246,7 +246,16 @@ Phases (any failure exits non-zero; nothing is caught):
      shape in a fresh process (its one Chrome trace holds kernel #1's row)
      and in this one on phase 4's bank and day 1 (the device rows counted:
      a process that has kept the card busy for minutes loses some); `examples/synthetic_day_torch.py` as a subprocess,
-     ending in "OK: all injected events recovered".
+     ending in "OK: all injected events recovered";
+ 31. the port's benchmark program in fresh processes:
+     `python3 -m seismic_bpmf_tpu_torch bench --check` (every parity rung
+     of kernels #1 (both builds), #2 and #3), `python3 bench_torch.py`
+     (the parity gate, the `high` headline and its four extras, written
+     to a temporary file), `bench_torch.py --bp --budget-s 20` and
+     `bench_torch.py --phasenet`; each must exit 0 with a JSON line last
+     whose value is above 0, and each extra must hold a value above 0;
+     the four lines and the bench's `#` lines are printed, its stderr goes
+     to chiprun_out/chip_smoke_bench.txt.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
 #3's launches those of phases 8, 18, 19, 23, 27 and 28; kernel #1's
 default build's those of phases 4, 23, 24, 26 and 28; kernel #2's those of
@@ -346,7 +355,8 @@ from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
 )
 from seismic_bpmf_tpu_torch.utils.geo import two_point_distance  # noqa: E402
 from seismic_bpmf_tpu_torch.utils.observe import (  # noqa: E402
-    GLOBAL_TIMER, profile_trace,
+    BF16_PEAK_FLOPS, GLOBAL_TIMER, TF32_PEAK_FLOPS, bp_bound_ms,
+    mf_bound_ms, profile_trace,
 )
 from seismic_bpmf_tpu_torch.utils.time import utc_from_epoch  # noqa: E402
 
@@ -358,12 +368,8 @@ DAY_SEC = 86400.0
 N_SAMP = int(DAY_SEC * SR)          # 2,160,000
 T0_EPOCH = 1343260800.0             # 2012-07-26T00:00:00
 DATES = {"d1": "2012-07-26", "d2": "2012-07-27"}
-F32_PEAK_FLOPS = 67e12              # H100 SXM, f32 outside tensor cores
-TF32_PEAK_FLOPS = 495e12            # H100 SXM, dense TF32 on tensor cores
-BF16_PEAK_FLOPS = 989e12            # H100 SXM, dense bf16 on tensor cores
 ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
 ATOL_HIGHEST = 1e-6                 # the `highest` rung against the oracle
-HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 DENSE_CLOSEST = 20                  # scripts/dense_array.py's --closest
 N_YEAR = 1024                       # scripts/year_scan.py's --templates
@@ -459,27 +465,6 @@ def timed(fn, seconds: dict, key: str):
         finally:
             seconds[key] += time.perf_counter() - t
     return call
-
-
-def kernel_bound_ms(plan, data_pad) -> tuple:
-    """Least time for one plan call: the multiply-adds of the (template,
-    channel) pairs that add something, as three products of split operands
-    each at the tensor cores' dense rate (bf16 for a 'high' plan, TF32 for
-    'highest'/'default'), against each input read and the output written
-    once (the rows' hi and lo parts, L taps each).  Also returns the
-    multiply-adds and the time they would take at the f32 FMA rate."""
-    pairs = int((plan.mv_table[:, : plan.n_tp] >= 0).sum())
-    flops = 2.0 * pairs * plan.L * plan.n_corr_unit
-    high = plan.precision_name == "high"
-    t_ops = 3.0 * flops / (BF16_PEAK_FLOPS if high else TF32_PEAK_FLOPS)
-    filt_bytes = (2.0 if high else 4.0) * 2 * plan.n_ch * plan.n_tp * plan.L
-    nbytes = filt_bytes + 4.0 * (data_pad.numel() + plan.mv_table.numel()
-                                 + plan.tile_lo.numel()
-                                 + plan.n_tp * plan.n_corr_unit)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops / 2.0,
-            1e3 * flops / F32_PEAK_FLOPS)
 
 
 # --------------------------------------------------------------------------
@@ -702,7 +687,7 @@ print(f"highest: {n_checked} detections within {worst:.3g} of the float64 "
 
 plan = next(iter(engine._plans.values()))[0]
 dp = engine._data_pad
-bound_ms, bound_by, macs, fma_ms = kernel_bound_ms(plan, dp)
+bound_ms, bound_by, macs, fma_ms = mf_bound_ms(plan, dp)
 got = plan(dp)
 t0 = time.perf_counter()
 ref = plain_of(plan, dp)
@@ -779,22 +764,6 @@ print(f"warm screen day: {warm_s:.3f} s ({macs_day / warm_s / 1e9:.0f} "
 
 
 # 7. the BP kernel against its plain version at the main path's width
-def bp_bound_ms(tab, g_pad) -> tuple:
-    """Least time for one day through a plan: f32 multiply-adds of the used
-    (source, station-phase) pairs, against the padded features, the tables
-    and the (max, argmax) output each moved once."""
-    flops = 2.0 * tab.n_pairs * tab.n_samp
-    nbytes = (4.0 * g_pad.numel()
-              + 4.0 * (tab.prog.numel() + tab.tile_stage.numel()
-                       + tab.stage_prog.numel() + tab.stage_row.numel()
-                       + tab.lo.numel() + tab.hi.numel()
-                       + 3 * tab.ent_sp.numel())
-              + 8.0 * tab.n_samp)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def check_first_max(tab, g_pad, kv, ki, pv, pi, what: str) -> int:
     """Hold a 'max' result (kv, ki) to the plain version's (pv, pi): values
     within RTOL/ATOL, and wherever the indices differ the kernel's source
@@ -1365,7 +1334,7 @@ workflow.matched_filter_day(tg, day1, cfg=cfg, mf=engine11,
                             minimum_interevent_time=5.0)
 plan13 = next(iter(engine11._plans.values()))[0]
 dp13 = engine11._data_pad
-bound13, bound_by13, _, _ = kernel_bound_ms(plan13, dp13)
+bound13, bound_by13, _, _ = mf_bound_ms(plan13, dp13)
 got13 = plan13(dp13)
 t0 = time.perf_counter()
 ref13 = plain_of(plan13, dp13)
@@ -3238,6 +3207,49 @@ print(f"profile_trace of a warm screen day: a fresh process {rows30[1]} "
                    if line.startswith("["))
       + f"; OK ({time.perf_counter() - t30:.1f} s) [{CARD}]", flush=True)
 
+# 31. the port's benchmark program in fresh processes: the CLI's `bench
+#     --check`, the default run (its extras to a temporary file), `--bp` on
+#     a 20 s budget and `--phasenet`; each exits 0 with a JSON line last
+#     whose value is above 0
+t31 = time.perf_counter()
+torch.cuda.empty_cache()
+extras31 = os.path.join(tempfile.mkdtemp(prefix="bench_"), "extras.json")
+log31 = os.path.join(HERE, "chiprun_out", "chip_smoke_bench.txt")
+os.makedirs(os.path.dirname(log31), exist_ok=True)
+for argv31 in (["-m", "seismic_bpmf_tpu_torch", "bench", "--check"],
+               ["bench_torch.py", "--extras", extras31],
+               ["bench_torch.py", "--bp", "--budget-s", "20"],
+               ["bench_torch.py", "--phasenet"]):
+    t = time.perf_counter()
+    proc31 = subprocess.run([sys.executable, *argv31], capture_output=True,
+                            text=True, cwd=HERE, timeout=600,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    with open(log31, "a") as f:
+        f.write(f"$ python3 {' '.join(argv31)}  [{CARD}]\n{proc31.stderr}"
+                f"{proc31.stdout}\n")
+    try:
+        result31 = json.loads(proc31.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        result31 = {}
+    if proc31.returncode or not result31.get("value", 0) > 0:
+        raise AssertionError(f"python3 {' '.join(argv31)}: rc "
+                             f"{proc31.returncode}: {proc31.stdout[-1500:]}"
+                             f" {proc31.stderr[-2500:]}")
+    for line in proc31.stderr.splitlines():
+        if line.startswith("#"):
+            print(f"  {line}", flush=True)
+    print(f"bench_torch {' '.join(argv31[1:])}: {json.dumps(result31)} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+with open(extras31) as f:
+    extras31_got = json.load(f)
+shutil.rmtree(os.path.dirname(extras31))
+if (sorted(extras31_got) != ["beamform", "mf_extraction", "mf_screen",
+                             "phasenet"]
+        or not all(r["value"] > 0 for r in extras31_got.values())):
+    raise AssertionError(f"bench_torch extras: {extras31_got}")
+print(f"bench_torch: four runs and four extras OK "
+      f"({time.perf_counter() - t31:.1f} s) [{CARD}]", flush=True)
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
@@ -3245,8 +3257,8 @@ print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t24 - t23:.0f} s, phase 24 {t25 - t24:.0f} s, phase 25 "
       f"{t26 - t25:.0f} s, phase 26 {t27 - t26:.0f} s, phase 27 "
       f"{t28 - t27:.0f} s, phase 28 {t29 - t28:.0f} s, phase 29 "
-      f"{t30 - t29:.0f} s, phase 30 {time.perf_counter() - t30:.0f} s",
-      flush=True)
+      f"{t30 - t29:.0f} s, phase 30 {t31 - t30:.0f} s, phase 31 "
+      f"{time.perf_counter() - t31:.0f} s", flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{

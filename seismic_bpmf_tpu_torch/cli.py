@@ -10,7 +10,7 @@ headless on a CUDA card:
   matched-filter  one-day template-matching scan
   scan            multi-day matched-filter campaign with JSON checkpoint/resume
   catalog         merge per-template detection files into a deduped catalog
-  bench           run the port's benchmark (bench_torch.py)
+  bench           run the port's benchmark (bench_torch.py) with its flags
 
 Every command runs on the card unless ``--device cpu`` is given; without
 a card it exits non-zero and never falls back to the CPU.
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import importlib.util
 import json
 import os
 import sys
@@ -285,17 +286,27 @@ def cmd_catalog(args) -> int:
     return run_catalog(args, tg, _load_detections(args.db, tg))
 
 
+def load_bench(path: str):
+    """The benchmark program at `path` (bench_torch.py) as a module."""
+    spec = importlib.util.spec_from_file_location("bench_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def cmd_bench(args) -> int:
+    """bench_torch.py's `main` with the flags after ``bench``; the
+    top-level ``--device`` goes first, so a ``--device`` after ``bench``
+    wins.  The bench resolves the device itself: without a card it prints
+    its JSON line with value 0.0 and returns 1."""
     bench = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "bench_torch.py")
     if not os.path.isfile(bench):
         print("bench_torch.py not found next to the package",
               file=sys.stderr)
         return 1
-    with open(bench) as f:
-        code = f.read()
-    exec(compile(code, bench, "exec"), {"__name__": "__main__"})
-    return 0
+    device = [] if args.device is None else ["--device", args.device]
+    return load_bench(bench).main([*device, *args.bench_args])
 
 
 # ---------------------------------------------------------------------------
@@ -387,17 +398,26 @@ def build_parser() -> argparse.ArgumentParser:
     ct.add_argument("--similarity-criterion", type=float, default=0.33)
     ct.add_argument("--unique-only", action="store_true")
 
-    sub.add_parser("bench", help="run the port's benchmark (bench_torch.py)")
+    # bench_torch.py parses its own flags (--check, --bp, --phasenet, ...;
+    # `main` hands it whatever follows "bench"), -h included
+    sub.add_parser("bench", add_help=False,
+                   help="run the port's benchmark (bench_torch.py) with "
+                        "its flags")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    try:
-        _device(args)
-    except RuntimeError as e:
-        print(f"seismic_bpmf_tpu_torch: {e}", file=sys.stderr)
-        return 1
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    args.bench_args = rest
+    if args.command != "bench":
+        if rest:
+            parser.error(f"unrecognized arguments: {' '.join(rest)}")
+        try:
+            _device(args)
+        except RuntimeError as e:
+            print(f"seismic_bpmf_tpu_torch: {e}", file=sys.stderr)
+            return 1
     return {
         "info": cmd_info,
         "backproject": cmd_backproject,

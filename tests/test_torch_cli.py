@@ -278,3 +278,38 @@ def test_info_bench_engines_and_the_device_rule(world, capsys, monkeypatch):
     if not torch.cuda.is_available():
         assert cli.main(["info"]) == 1
         assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_bench_hands_its_flags_and_the_device_to_bench_torch(monkeypatch,
+                                                             capsys):
+    """`bench` loads bench_torch.py beside the package and calls its
+    `main` with the top-level --device first, then every flag after
+    `bench`; its return code is the command's."""
+    loaded, calls = [], []
+    real = cli.load_bench
+
+    def load(path):
+        module = real(path)
+        loaded.append(module)
+        monkeypatch.setattr(module, "main",
+                            lambda argv: calls.append(argv) or len(calls) - 1)
+        return module
+
+    monkeypatch.setattr(cli, "load_bench", load)
+    assert tmain(["bench", "--check"]) == 0
+    assert cli.main(["bench", "--device", "cpu", "--bp", "--n-src",
+                     "1000000", "--n-sta=128"]) == 1
+    assert tmain(["bench", "--precision", "default", "--no-check",
+                  "--extras", "x.json"]) == 2
+    assert calls == [
+        ["--device", "cpu", "--check"],
+        ["--device", "cpu", "--bp", "--n-src", "1000000", "--n-sta=128"],
+        ["--device", "cpu", "--precision", "default", "--no-check",
+         "--extras", "x.json"]]
+    assert os.path.basename(loaded[0].__file__) == "bench_torch.py"
+    assert callable(loaded[0].check_parity)
+    # the other subcommands still refuse flags they do not know
+    with pytest.raises(SystemExit) as e:
+        tmain(["info", "--check"])
+    assert e.value.code == 2
+    assert "unrecognized arguments: --check" in capsys.readouterr().err

@@ -182,7 +182,8 @@ def _imports(path):
 
 @pytest.mark.parametrize("forbidden", ["jax", "seismic_bpmf_tpu"])
 def test_no_port_file_imports_jax_or_the_jax_package(forbidden):
-    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py"))
+             + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
              + sorted((REPO / "examples").glob("*_torch.py")))
     assert len(files) > 15
     assert PORT / "__main__.py" in files and PORT / "cli.py" in files

@@ -256,6 +256,22 @@ Phases (any failure exits non-zero; nothing is caught):
      whose value is above 0, and each extra must hold a value above 0;
      the four lines and the bench's `#` lines are printed, its stderr goes
      to chiprun_out/chip_smoke_bench.txt.
+ 32. the native host scans (`ops.host_ops`: the package's copy of the C++
+     host runtime, built here by the C++ compiler) bit for bit against
+     their NumPy versions: `select_cc_indexes` and
+     `dedup_detection_indexes` on one template's whole 'screen' day of CC
+     (phase 4's day 1, kernel #1's default build) with its RMS threshold,
+     and the margin and search window of `MatchedFilter.select_cc_indexes`
+     (MF's host route); `flag_multiples` on phase 23's catalog with its
+     bank's distance and CC tables; `find_similar_sources` on phase 8's
+     100,000 lattice sources (64 station-phase moveouts in samples, 10 x
+     10 cells, the 10 smallest differences), and with `method='closest'`
+     (the 10 closest stations) on the first 10,000 with the ties at the
+     10th moveout broken by station index, the sources where the tied
+     moveouts as they are give other marks counted; each scan's native
+     and NumPy ms.  Of the four, MF's host route calls
+     `dedup_detection_indexes` (as in the JAX package); the other three
+     are the JAX module's API, bound for it and called by no path.
 It then prints the card line, one JSON line of per-kernel numbers (kernel
 #3's launches those of phases 8, 18, 19, 23, 27 and 28; kernel #1's
 default build's those of phases 4, 23, 24, 26 and 28; kernel #2's those of
@@ -274,6 +290,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -289,8 +306,7 @@ from seismic_bpmf_tpu_torch import _build  # noqa: E402
 from seismic_bpmf_tpu_torch import cli, workflow  # noqa: E402
 from seismic_bpmf_tpu_torch.config import Config  # noqa: E402
 from seismic_bpmf_tpu_torch.data import (  # noqa: E402
-    Catalog, Data, EventGroup, Network, Stream, TemplateGroup, Trace,
-    TravelTimes, WaveformTransform,
+    Catalog, EventGroup, Stream, TemplateGroup, Trace, WaveformTransform,
 )
 from seismic_bpmf_tpu_torch.detection import (  # noqa: E402
     Beamformer, MatchedFilter,
@@ -312,7 +328,7 @@ from seismic_bpmf_tpu_torch.location.eikonal import (  # noqa: E402
     solves_per_batch as eikonal_batch, travel_time_grid as eikonal_grid,
     travel_time_grids as eikonal_grids,
 )
-from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import bp, host_ops, mf  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.beamform import (  # noqa: E402
     _flatten_moveouts, fold_components,
 )
@@ -322,6 +338,9 @@ from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
 )
 from seismic_bpmf_tpu_torch.ops.reference import matched_filter_at  # noqa: E402
 from seismic_bpmf_tpu_torch.ops.signal import preprocess_batch  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.thresholds import (  # noqa: E402
+    time_dependent_threshold,
+)
 from seismic_bpmf_tpu_torch.parallel import make_mesh, sharded  # noqa: E402
 from seismic_bpmf_tpu_torch.ops import response  # noqa: E402
 from seismic_bpmf_tpu_torch.data import data_reader_mseed  # noqa: E402
@@ -350,8 +369,12 @@ from seismic_bpmf_tpu_torch.utils import stacking  # noqa: E402
 from seismic_bpmf_tpu_torch.tools.dense_world import (  # noqa: E402
     KM_PER_DEG as KM_PER_DEG_DENSE, build_world as build_dense_world,
 )
-from seismic_bpmf_tpu_torch.tools.lattice import (  # noqa: E402
-    KM_PER_DEG, closest_weights, lattice, smooth_grid_moveouts, travel_times,
+from seismic_bpmf_tpu_torch.tools.bp_world import (  # noqa: E402
+    BP_EVENTS, BPWorld,
+)
+from seismic_bpmf_tpu_torch.tools.lattice import KM_PER_DEG  # noqa: E402
+from seismic_bpmf_tpu_torch.tools.mf_world import (  # noqa: E402
+    DATES, L, MFWorld, N_COMP, N_STA, REPEATS, SR, T0_EPOCH,
 )
 from seismic_bpmf_tpu_torch.utils.geo import two_point_distance  # noqa: E402
 from seismic_bpmf_tpu_torch.utils.observe import (  # noqa: E402
@@ -361,13 +384,9 @@ from seismic_bpmf_tpu_torch.utils.observe import (  # noqa: E402
 from seismic_bpmf_tpu_torch.utils.time import utc_from_epoch  # noqa: E402
 
 SEED = 20260816
-SR = 25.0
-N_STA, N_COMP, L = 10, 3, 200
 N_TP = 128
 DAY_SEC = 86400.0
 N_SAMP = int(DAY_SEC * SR)          # 2,160,000
-T0_EPOCH = 1343260800.0             # 2012-07-26T00:00:00
-DATES = {"d1": "2012-07-26", "d2": "2012-07-27"}
 ATOL_HIGH = 5e-6                    # the `high` rung against the oracle
 ATOL_HIGHEST = 1e-6                 # the `highest` rung against the oracle
 RTOL, ATOL = 1e-4, 1e-5
@@ -548,82 +567,14 @@ print(f"kernel vs plain (128 x 30 x L=200, 2^17 samples): max|diff| "
       f"{ms3:.3f} ms, plain {plain3:.1f} ms [{CARD}]", flush=True)
 
 
-# 4. the main path at full size
-def burst(rng, n):
-    """A Hann-windowed random burst: the waveform of one event."""
-    return (rng.normal(size=n) * np.hanning(n)).astype(np.float32)
-
-
-world = np.random.default_rng(SEED + 1)
-mv_w = np.empty((N_TP, N_STA, N_COMP), np.int64)
-mv_w[:, :, 2] = world.integers(-50, 300, size=(N_TP, N_STA))      # Z
-mv_w[:, :, :2] = mv_w[:, :, 2:] + world.integers(0, 100,
-                                                  size=(N_TP, N_STA, 2))
-wave = np.stack([[[30.0 * burst(world, L) for _ in range(N_COMP)]
-                  for _ in range(N_STA)] for _ in range(N_TP)])
-# template i's event: day 1, origin sample 15000 + 16000 * i
-origins = 15000 + 16000 * np.arange(N_TP)
-# repeats: (day, template, origin sample), away from every other event
-REPEATS = [("d1", 3, 15000 + 16000 * 3 + 8000),
-           ("d1", 77, 15000 + 16000 * 77 + 8000),
-           ("d2", 3, 600000), ("d2", 50, 1200003), ("d2", 127, 2000011)]
-
-
-def make_day(key):
-    g = np.random.default_rng(SEED + 10 + int(key[1:]))
-    x = g.standard_normal((N_STA, N_COMP, N_SAMP), dtype=np.float32)
-    events = ([(i, int(o)) for i, o in enumerate(origins)]
-              if key == "d1" else [])
-    events += [(i, o) for d, i, o in REPEATS if d == key]
-    for i, o in events:
-        for s in range(N_STA):
-            for c in range(N_COMP):
-                st = o + mv_w[i, s, c]
-                x[s, c, st : st + L] += wave[i, s, c]
-    return x
-
-
-DAYS = {}
-
-
-def memory_reader(where, network=None, stations=None, channels=None,
-                  location=None, starttime=None, endtime=None, **kwargs):
-    """In-memory data reader (the package's reader protocol)."""
-    key = where.split("/")[-1]
-    if key not in DAYS:
-        DAYS[key] = make_day(key)
-    t0 = T0_EPOCH + DAY_SEC * (int(key[1:]) - 1)
-    out = Stream()
-    for s in range(N_STA):
-        for c, comp in enumerate("NEZ"):
-            out += Trace(DAYS[key][s, c], station=f"ST{s:02d}", network="XX",
-                         channel=f"HH{comp}", sampling_rate=SR, starttime=t0)
-    if starttime is not None or endtime is not None:
-        out = out.slice(starttime, endtime)
-    return out
-
-
-def make_data(key):
-    return Data(DATES[key], f"memory/{key}", memory_reader,
-                duration=DAY_SEC, sampling_rate=SR).read_waveforms()
-
-
+# 4. the main path at full size (the world: tools/mf_world.py)
 t0 = time.perf_counter()
-d1 = make_day("d1")
-DAYS["d1"] = d1
-templates = np.stack([
-    np.stack([np.stack([d1[s, c, origins[i] + mv_w[i, s, c]:
-                           origins[i] + mv_w[i, s, c] + L]
-                        for c in range(N_COMP)]) for s in range(N_STA)])
-    for i in range(N_TP)])
-stations = [f"ST{s:02d}" for s in range(N_STA)]
-tg = TemplateGroup.from_arrays(
-    templates, mv_w, [str(i) for i in range(N_TP)], stations,
-    components=("N", "E", "Z"), sampling_rate=SR, phases=("P", "S"),
-    moveouts_sec=np.stack([mv_w[:, :, 2], mv_w[:, :, 0]], -1) / SR,
-    locations=np.tile([30.0, 40.0, 8.0], (N_TP, 1)),
-    origin_times=T0_EPOCH + origins / SR,
-)
+W4 = MFWorld(SEED, n_tp=N_TP, day_sec=DAY_SEC, repeats=REPEATS)
+mv_w, wave, origins, DAYS = W4.mv, W4.wave, W4.origins, W4.days
+make_day, memory_reader, make_data = W4.make_day, W4.reader, W4.make_data
+d1 = W4.day("d1")
+templates, tg = W4.bank()
+stations = W4.stations
 print(f"world: {N_TP} templates x {N_STA * N_COMP} channels x {N_SAMP} "
       f"samples ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -788,11 +739,10 @@ def check_first_max(tab, g_pad, kv, ki, pv, pi, what: str) -> int:
 
 
 N_SRC_BP, N_STA_BP = 100_000, 32
-src_km, sta_km, spacing = lattice(N_SRC_BP, N_STA_BP)
-tt_bp = travel_times(src_km, sta_km)                       # seconds
-mv_bp = smooth_grid_moveouts(N_SRC_BP, N_STA_BP, SR)
-w_src_bp = closest_weights(mv_bp)
-w_ph_bp = workflow.default_weights_phases(N_STA_BP)
+W7 = BPWorld(SEED, n_src=N_SRC_BP, n_sta=N_STA_BP, day_sec=DAY_SEC,
+             events=BP_EVENTS)
+src_km, sta_km, spacing, tt_bp = W7.src_km, W7.sta_km, W7.spacing, W7.tt
+mv_bp, w_src_bp, w_ph_bp = W7.mv, W7.w_src, W7.w_ph
 # seeded exact ties: later copies of the sources that a spike makes best
 brng = np.random.default_rng(SEED + 3)
 tie_src = brng.choice(N_SRC_BP // 2, size=4, replace=False)
@@ -945,55 +895,9 @@ del g7, g7n, plan7, none7
 
 
 # 8. the BP main path at full size
-stations_bp = [f"B{s:02d}" for s in range(N_STA_BP)]
-travel = TravelTimes.from_arrays(
-    {ph: {name: tt_bp[:, s, p] for s, name in enumerate(stations_bp)}
-     for p, ph in enumerate(("P", "S"))},
-    {"longitude": src_km[:, 0] / KM_PER_DEG,
-     "latitude": src_km[:, 1] / KM_PER_DEG, "depth": src_km[:, 2]})
-travel.convert_to_samples(SR)
-net_bp = Network.from_arrays(stations_bp, longitude=sta_km[:, 0] / KM_PER_DEG,
-                             latitude=sta_km[:, 1] / KM_PER_DEG)
-# (origin sample, lattice source) of the injected events of each day
-BP_EVENTS = {"d1": [(400_000, 12_345), (1_100_003, 55_555),
-                    (1_800_007, 87_001)],
-             "d2": [(300_011, 33_333), (1_500_000, 70_707),
-                    (2_050_001, 5_000)]}
-BURST = (10.0 * np.hanning(13)).astype(np.float32)   # centred on arrival
-BP_DAYS = {}
-
-
-def make_bp_day(key):
-    g = np.random.default_rng(SEED + 20 + int(key[1:]))
-    x = g.standard_normal((N_STA_BP, 3, N_SAMP), dtype=np.float32)
-    for o, src in BP_EVENTS[key]:
-        for s, name in enumerate(stations_bp):
-            for c, ph in ((2, "P"), (0, "S"), (1, "S")):
-                a = o + int(travel.travel_times_samp[ph][name][src])
-                x[s, c, a - 6 : a + 7] += BURST
-    return x
-
-
-def bp_reader(where, network=None, stations=None, channels=None,
-              location=None, starttime=None, endtime=None, **kwargs):
-    """In-memory data reader of the BP days."""
-    key = where.split("/")[-1]
-    if key not in BP_DAYS:
-        BP_DAYS[key] = make_bp_day(key)
-    t0 = T0_EPOCH + DAY_SEC * (int(key[1:]) - 1)
-    out = Stream()
-    for s, name in enumerate(stations_bp):
-        for c, comp in enumerate("NEZ"):
-            out += Trace(BP_DAYS[key][s, c], station=name, network="XX",
-                         channel=f"HH{comp}", sampling_rate=SR, starttime=t0)
-    return out
-
-
-def make_bp_data(key):
-    return Data(DATES[key], f"bp/{key}", bp_reader, duration=DAY_SEC,
-                sampling_rate=SR).read_waveforms()
-
-
+stations_bp, travel, net_bp = W7.stations, W7.travel, W7.network
+BP_DAYS, make_bp_day, bp_reader = W7.days, W7.make_day, W7.reader
+make_bp_data = W7.make_data
 cfg_bp = Config(sampling_rate_hz=SR)
 zero_counts()
 t0 = time.perf_counter()
@@ -3250,6 +3154,117 @@ if (sorted(extras31_got) != ["beamform", "mf_extraction", "mf_screen",
 print(f"bench_torch: four runs and four extras OK "
       f"({time.perf_counter() - t31:.1f} s) [{CARD}]", flush=True)
 
+# 32. the native host scans (csrc/host_ops.cpp, built by the C++
+# compiler) against their NumPy versions: MF's host route (the overflow or
+# `anomalous_cdf` case) on a whole day's CC, the catalog dedup, the source
+# grid's redundancy scan
+t32 = time.perf_counter()
+t0 = time.perf_counter()
+if not host_ops.available():
+    raise AssertionError("the host library did not build")
+build32 = time.perf_counter() - t0
+times32 = {}
+
+
+def both32(name, *args, **kwargs):
+    """(native, plain) results of host scan `name`, timed."""
+    out = []
+    for fn in (getattr(host_ops, name), getattr(host_ops, name + "_plain")):
+        t0 = time.perf_counter()
+        out.append(fn(*args, **kwargs))
+        times32.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+    if not np.array_equal(out[0], out[1]):
+        raise AssertionError(f"native {name} != its NumPy version: "
+                             f"{np.flatnonzero(out[0] != out[1])[:10]}")
+    return out[0]
+
+
+# one template's whole-day CC at 'screen' (kernel #1's default build on the
+# bf16-rounded upload), its RMS threshold and the engine's margin and
+# search window (detection/matched_filter.py `select_cc_indexes`)
+eng32 = MatchedFilter(tg, cfg=cfg, precision="screen",
+                      **{k: v for k, v in kw.items()
+                         if k != "minimum_interevent_time"})
+# what find_detections sets (its defaults; phase 4's interevent time), and
+# the one field of the day that _search_win reads
+eng32.minimum_interevent_time = kw["minimum_interevent_time"]
+eng32.threshold_window_dur, eng32.overlap = 1800.0, 0.25
+eng32.data = SimpleNamespace(sr=SR)
+T32 = 3
+plan32 = mf.MatchedFilterPlan(
+    tg.waveforms_arr[[T32]], tg.moveouts_arr[[T32]],
+    np.full((1, N_STA, N_COMP), 1.0 / (N_STA * N_COMP), np.float32), N_SAMP,
+    precision="default")
+cc32 = plan32(plan32.pad_data(DAYS["d1"], dtype="bfloat16"))[0].cpu().numpy()
+thr32 = time_dependent_threshold(
+    torch.from_numpy(cc32), int(eng32.threshold_window_dur * SR),
+    cfg.n_dev_mf_threshold, overlap=eng32.overlap,
+    threshold_type=eng32.threshold_type,
+    white_noise=np.random.default_rng(SEED + 32).standard_normal(500)
+    .astype(np.float32)).numpy()
+win32 = eng32._search_win(T32)
+sel32 = both32("select_cc_indexes", cc32, thr32, int(win32))
+cand32 = np.flatnonzero(cc32 > thr32 - eng32._margin())
+kept32 = both32("dedup_detection_indexes", cand32, cc32, win32)
+if not (sel32.any() and len(kept32)):
+    raise AssertionError(f"host scans found nothing on template {T32}'s day")
+# phase 23's catalog, its bank's distance and CC tables
+flags32 = both32(
+    "flag_multiples", cat23.origin_times_epoch,
+    np.array([bank23.tindexes.get(t, -1) for t in cat23["tid"].astype(str)],
+             np.int64),
+    cat23["cc"], dist=bank23.ellipsoid_distances,
+    ccm=bank23.intertemplate_cc)
+# phase 8's lattice: 100,000 sources x 64 station-phase moveouts (samples),
+# 10 x 10 cells; every source compared on its 10 smallest differences
+lon32 = (W7.src_km[:, 0] / KM_PER_DEG).astype(np.float32)
+lat32 = (W7.src_km[:, 1] / KM_PER_DEG).astype(np.float32)
+edges32 = np.linspace(0.0, 100.0 / KM_PER_DEG + 1e-6, 11)
+mv32 = W7.mv.reshape(N_SRC_BP, -1).astype(np.float32)
+red32 = both32("find_similar_sources", mv32, lon32, lat32,
+               edges32, edges32, 2.0, num_stations_for_diff=10,
+               method="smallest")
+# 'closest' (the default method) on the lattice's first 10,000 sources (its
+# NumPy sweep of all 100,000 takes ~10 min): bit for bit once the ties at
+# the 10th smallest moveout are broken by station index, as the NumPy
+# version's stable argsort breaks them (+ station / 1024 samples: exact in
+# float32 below 2**14 samples, and every moveout difference unchanged); on
+# the moveouts as they are, the sources that differ and the tied ones are
+# counted (the native partial sort breaks ties in its own order)
+N32C = 10_000
+if np.abs(mv32).max() >= 2**14:
+    raise AssertionError("phase 32's tie-break needs moveouts below 2**14")
+args32c = (lon32[:N32C], lat32[:N32C], edges32, edges32, 2.0)
+kw32c = dict(num_stations_for_diff=10, method="closest")
+mvt32 = mv32[:N32C] + np.arange(mv32.shape[1], dtype=np.float32) / 1024
+redc32 = both32("find_similar_sources", mvt32, *args32c, **kw32c)
+times32["find_similar_sources 'closest'"] = times32[
+    "find_similar_sources"][2:]
+del times32["find_similar_sources"][2:]
+raw32 = [f(mv32[:N32C], *args32c, **kw32c) for f in (
+    host_ops.find_similar_sources, host_ops.find_similar_sources_plain)]
+kth32 = np.sort(mv32[:N32C], axis=1)[:, 9:11]
+tied32 = int((kth32[:, 0] == kth32[:, 1]).sum())
+differ32 = int((raw32[0] != raw32[1]).sum())
+if differ32 and not tied32:
+    raise AssertionError(f"'closest' differs on {differ32} sources "
+                         f"without a tie")
+print(f"host scans, native (built in {build32:.2f} s) against NumPy, bit "
+      f"for bit: select_cc_indexes on template {T32}'s 'screen' day "
+      f"({len(cc32):,} samples, window {win32:g}) {int(sel32.sum())} "
+      f"triggers; dedup_detection_indexes {len(cand32)} -> {len(kept32)}; "
+      f"flag_multiples on phase 23's catalog {int(flags32.sum())} of "
+      f"{len(flags32)} unique; find_similar_sources (smallest 10 of "
+      f"{mv32.shape[1]}) on "
+      f"phase 8's {N_SRC_BP:,} sources {int(red32.sum()):,} redundant; "
+      f"'closest' (10 of {mv32.shape[1]}) on its first {N32C:,}, the ties "
+      f"broken, {int(redc32.sum()):,} redundant; as they are, {differ32} "
+      f"sources differ, {tied32} tied at the 10th moveout; ms native / "
+      "NumPy: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.1f}"
+                            for k, v in times32.items())
+      + f" ({time.perf_counter() - t32:.1f} s) [{CARD}]", flush=True)
+del cc32, thr32, plan32, eng32, mv32, mvt32, raw32
+
 launches_dense = launches18 + launches19
 print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t16 - t15:.0f} s, phases 17-20 {t21 - t16:.0f} s, phase 21 "
@@ -3258,7 +3273,8 @@ print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s, phases 15-16 "
       f"{t26 - t25:.0f} s, phase 26 {t27 - t26:.0f} s, phase 27 "
       f"{t28 - t27:.0f} s, phase 28 {t29 - t28:.0f} s, phase 29 "
       f"{t30 - t29:.0f} s, phase 30 {t31 - t30:.0f} s, phase 31 "
-      f"{time.perf_counter() - t31:.0f} s", flush=True)
+      f"{t32 - t31:.0f} s, phase 32 {time.perf_counter() - t32:.0f} s",
+      flush=True)
 
 print(CARD)
 print(json.dumps({"kernels": [{

@@ -1,4 +1,5 @@
-"""Builds the package's CUDA kernels at first use and loads them.
+"""Builds the package's CUDA kernels and its host library at first use and
+loads them.
 
 Each ``csrc/<name>.cu`` has a plain C interface (the ``csrc/*.cuh`` headers
 are what the sources share; ``bp.cu`` also includes a header that
@@ -8,6 +9,12 @@ package, then loaded with ctypes.  Nothing is compiled when this module is
 imported: a kernel's library is built when a CUDA tensor first reaches its
 wrapper (or when `build_all` is called).  A failed build raises with
 nvcc's stderr.
+
+``csrc/host_ops.cpp``, the host scans of `ops.host_ops`, is compiled the
+same way by the C++ compiler (``c++``, else ``g++``) into
+``build/seismic_bpmf_tpu_torch/libhost_ops-<hash>.so`` (`load_host`); its
+hash also covers the compiler's version, so a library built by another
+toolchain is never loaded.
 """
 
 from __future__ import annotations
@@ -27,6 +34,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "seismic_bpmf_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# no -march=native: the library may be loaded on another machine than the
+# one that built it; -ffp-contract=off: no fused multiply-adds where a
+# target has them, so the scans round as their NumPy versions do
+CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -42,6 +53,15 @@ def _nvcc() -> str:
     if os.path.isfile(path):
         return path
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++ or g++) found: the host "
+                       "library cannot be built")
 
 
 def _generated(name: str, src: str, defines) -> tuple:
@@ -98,13 +118,15 @@ def _start(name: str, defines=(), extra_flags=()):
     return so, proc, tmp, time.perf_counter()
 
 
-def _finish(name: str, so: str, proc, tmp: str, t0: float) -> str:
-    """Wait for nvcc; returns its stderr ('' when nothing was built)."""
+def _finish(name: str, so: str, proc, tmp: str, t0: float,
+            tool: str = "nvcc") -> str:
+    """Wait for the compiler; returns its stderr ('' when nothing was
+    built)."""
     if proc is None:
         return ""
     _, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}:\n{err}")
+        raise RuntimeError(f"{tool} failed to build {name}:\n{err}")
     os.replace(tmp, so)
     build_seconds[name] = time.perf_counter() - t0
     return err
@@ -166,5 +188,37 @@ def load(name: str, defines=()) -> ctypes.CDLL:
         if k not in _LIBS:
             so, proc, tmp, t0 = _start(name, defines)
             _finish(k, so, proc, tmp, t0)
+            _LIBS[k] = ctypes.CDLL(so)
+    return _LIBS[k]
+
+
+def load_host(name: str = "host_ops") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cpp``, compiled by the C++
+    compiler (`CXX_FLAGS`) on first use; raises RuntimeError naming the
+    compiler when it is missing or fails."""
+    k = f"{name}.cpp"
+    lib = _LIBS.get(k)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if k not in _LIBS:
+            cxx = _cxx()
+            src = os.path.join(CSRC, f"{name}.cpp")
+            version = subprocess.run([cxx, "--version"], capture_output=True,
+                                     text=True).stdout
+            digest = hashlib.sha1(" ".join([version, *CXX_FLAGS]).encode())
+            with open(src, "rb") as f:
+                digest.update(f.read())
+            so = os.path.join(BUILD_DIR,
+                              f"lib{name}-{digest.hexdigest()[:12]}.so")
+            proc = tmp = None
+            t0 = time.perf_counter()
+            if not os.path.isfile(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                proc = subprocess.Popen([cxx, *CXX_FLAGS, "-o", tmp, src],
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+            _finish(k, so, proc, tmp, t0, tool=os.path.basename(cxx))
             _LIBS[k] = ctypes.CDLL(so)
     return _LIBS[k]

@@ -238,6 +238,7 @@ def cmd_info(args) -> int:
     import torch
 
     import seismic_bpmf_tpu_torch as pkg
+    from .ops import host_ops
 
     dev = _device(args)
     report = {
@@ -248,8 +249,7 @@ def cmd_info(args) -> int:
         "devices": ([torch.cuda.get_device_name(i)
                      for i in range(torch.cuda.device_count())]
                     if dev.type == "cuda" else [str(dev)]),
-        # the port's host scans are numpy (ROADMAP Queue 2 #6)
-        "host_ops_native": False,
+        "host_ops_native": host_ops.available(),
     }
     print(json.dumps(report, indent=2))
     return 0

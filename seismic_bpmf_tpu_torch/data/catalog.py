@@ -23,16 +23,6 @@ from .events import Event
 
 _BASE = ("longitude", "latitude", "depth", "origin_time")
 _NUMBER = re.compile(r"[-+]?(\d+\.?\d*(e[-+]?\d+)?|\.\d+|nan|inf)", re.I)
-_FREQ_NS = {"W": 7 * 86400 * 10**9, "D": 86400 * 10**9, "h": 3600 * 10**9,
-            "min": 60 * 10**9, "s": 10**9}
-
-
-def _to_ns(t) -> np.datetime64:
-    if isinstance(t, (int, float, np.integer, np.floating)):
-        return np.datetime64(int(round(float(t) * 1e9)), "ns")
-    return np.datetime64(str(t).replace(",", "-"), "ns")
-
-
 class Catalog:
     def __init__(self, longitudes, latitudes, depths, origin_times,
                  **extra_fields):
@@ -92,48 +82,29 @@ class Catalog:
         return self.catalog[key]
 
     def event_count(self, start_date=None, end_date=None, freq: str = "1D",
-                    mode: str = "end"):
-        """Binned seismicity rate: (bin times datetime64[ns], counts).
+                    offset: float = 0.0, trim_start: bool = True,
+                    trim_end: bool = False, mode: str = "end"):
+        """Binned seismicity rate: (bin times datetime64[ns], counts), the
+        series of `utils.stats.event_count` over the origin times (read to
+        the microsecond), as the JAX package's `Catalog.event_count` gives
+        it.  The range defaults to the first event's day to the day after
+        the last.  pandas is imported on call."""
+        from ..utils.stats import event_count
 
-        `freq` is a fixed duration, '<n><unit>' with unit W, D, h, min or
-        s; bins are aligned to midnight of `start_date`'s day, closed on
-        the left; ``mode='end'`` labels a bin by its right edge,
-        'beginning' by its left one; the series spans [start_date,
-        end_date] (by default the first event's day to the day after the
-        last).  The JAX package's `utils.event_count` gives the same
-        series for these frequencies (its bin offsets and calendar
-        frequencies are not carried over)."""
-        if mode not in ("end", "beginning"):
-            raise ValueError("mode should be 'end' or 'beginning'")
-        m = re.fullmatch(r"(\d*)(W|D|h|min|s)", freq)
-        if m is None:
-            raise ValueError(f"freq {freq!r} is not a fixed duration "
-                             f"'<n><unit>' with unit W, D, h, min or s")
-        step = int(m.group(1) or 1) * _FREQ_NS[m.group(2)]
-        times = self.catalog["origin_time"].astype("int64")
+        times = self.catalog["origin_time"]
         if len(times) == 0:
             raise ValueError("event_count on an empty catalog")
-        day = _FREQ_NS["D"]
-        start = (int(times.min()) // day * day if start_date is None
-                 else int(_to_ns(start_date).astype("int64")))
-        end = (-(-int(times.max()) // day) * day if end_date is None
-               else int(_to_ns(end_date).astype("int64")))
-        origin = min(start, int(times.min())) // day * day
-        k = (times - origin) // step
-        k_lo = min(int(k.min()), (start - origin) // step)
-        k_hi = max(int(k.max()), (end - origin) // step)
-        counts = np.bincount(k - k_lo, minlength=k_hi - k_lo + 1)
-        labels = origin + (np.arange(k_lo, k_hi + 1)
-                           + (1 if mode == "end" else 0)) * step
-        if labels[0] > start:
-            labels = np.concatenate([[labels[0] - step], labels])
-            counts = np.concatenate([[0], counts])
-        if labels[-1] < end:
-            labels = np.concatenate([labels, [labels[-1] + step]])
-            counts = np.concatenate([counts, [0]])
-        keep = (labels >= start) & (labels <= end)
-        return (labels[keep].astype("datetime64[ns]"),
-                counts[keep].astype(np.int64))
+        if start_date is None:
+            start_date = times.min().astype("datetime64[D]")
+        if end_date is None:
+            end_date = (times.max() + np.timedelta64(1, "D")
+                        - np.timedelta64(1, "ns")).astype("datetime64[D]")
+        s = event_count(np.datetime_as_string(times.astype("datetime64[us]")),
+                        str(start_date), str(end_date), freq=freq,
+                        offset=offset, trim_start=trim_start,
+                        trim_end=trim_end, mode=mode)
+        return (s.index.values.astype("datetime64[ns]"),
+                s.values.astype(np.int64))
 
     # ------------------------------------------------------------------
     @classmethod

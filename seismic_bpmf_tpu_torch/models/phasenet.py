@@ -58,13 +58,17 @@ def _same_pad(n: int, k: int, s: int) -> tuple:
 class Shards:
     """A batch split over devices, run through a model in lockstep.
 
-    `parts` are the shards, each on its device, equal but for their batch
-    size.  Every torch function applied to `Shards` runs once a shard, on
-    the shard's device, with the other tensor arguments (the weights)
-    copied there by a differentiable `.to()`, and returns `Shards`; so a
-    model's own forward runs the whole split batch, layer by layer, in one
-    autograd graph.  `_BatchNorm` normalizes it with the whole batch's
-    statistics (`_shards_batch_norm`).  `shape` is the first shard's."""
+    `parts` are the shards, each on its device, equal in shape.  Every
+    torch function applied to `Shards` runs once a shard, on the shard's
+    device, and returns `Shards`; so a model's own forward runs the whole
+    split batch, layer by layer, in one autograd graph.  A tensor
+    argument (a weight) is taken from `replicas` where it is there (one
+    copy a device for the whole forward, `replicate`), else copied to the
+    shard's device by a differentiable `.to()`.  `_BatchNorm` normalizes
+    with the whole batch's statistics (`_ShardsBatchNorm`).  `shape` is
+    the first shard's."""
+
+    replicas: Dict[int, list] = {}
 
     def __init__(self, parts):
         self.parts = list(parts)
@@ -87,7 +91,8 @@ class Shards:
             if isinstance(a, Shards):
                 return a.parts[k]
             if isinstance(a, torch.Tensor):
-                return a.to(dev)
+                rep = cls.replicas.get(id(a))
+                return a.to(dev) if rep is None else rep[k]
             if isinstance(a, (list, tuple)):
                 return type(a)(pick(v, k, dev) for v in a)
             return a
@@ -101,33 +106,94 @@ class Shards:
         return Shards(out)
 
 
-def _shards_batch_norm(bn: nn.BatchNorm1d, x: Shards) -> Shards:
-    """Train-mode BatchNorm of a batch split over devices: the whole
-    batch's mean and biased variance, totalled from the shards' sums on
-    the first shard's device, normalize every shard on its own; the
-    running statistics move once, as `_BatchNorm` moves them."""
-    first = x.parts[0].device
+@contextlib.contextmanager
+def replicate(params, devices):
+    """Within the block, `Shards` takes each of `params` (on
+    `devices[0]`, of one dtype) from one copy a device: the parameters
+    flattened into one tensor, copied once to each other device and split
+    there into views (a differentiable copy: the gradients come back the
+    same way, one copy a device); on the first device the parameters
+    themselves."""
+    params = list(params)
+    flat = torch.cat([p.reshape(-1) for p in params])
+    sizes = [p.numel() for p in params]
+    on = {devices[0]: params}
+    for dev in devices:
+        if dev not in on:
+            on[dev] = [v.view_as(p) for v, p in zip(
+                flat.to(dev).split(sizes), params)]
+    Shards.replicas = {id(p): [on[dev][i] for dev in devices]
+                       for i, p in enumerate(params)}
+    try:
+        yield
+    finally:
+        Shards.replicas = {}
 
-    def total(values):
-        out = values[0].to(first)
-        for v in values[1:]:
-            out = out + v.to(first)
-        return out
 
-    count = sum(p.shape[0] * p.shape[2] for p in x.parts)
-    mean = total([p.sum(dim=(0, 2)) for p in x.parts]) / count
-    ds = [p - mean.to(p.device)[None, :, None] for p in x.parts]
-    var = total([(d * d).sum(dim=(0, 2)) for d in ds]) / count
-    with torch.no_grad():
+def _to_each(t: torch.Tensor, parts) -> list:
+    """`t` on each part's device, one copy a device."""
+    on = {t.device: t}
+    for p in parts:
+        if p.device not in on:
+            on[p.device] = t.to(p.device)
+    return [on[p.device] for p in parts]
+
+
+class _ShardsBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of a batch split over devices in equal
+    shards, with its gradient written out, so that a layer crosses
+    devices twice each way.  Forward: each shard's mean and biased
+    variance, gathered once to the first shard's device, give the whole
+    batch's (the shards' variances and the spread of their means); the
+    mean and scale (invstd * weight) and the bias go back once to each
+    device, where each shard is normalized as `F.batch_norm` does, (x -
+    mean) * scale + bias; the running statistics move once, as
+    `_BatchNorm` moves them.  Backward: each shard's sums of dy and of dy
+    * (x - mean), gathered once and totalled on the first device, give
+    the weight's and the bias's gradients and, sent back once, each
+    shard's dx = (dy - sum dy / N - (x - mean) invstd^2 sum dy (x - mean)
+    / N) * scale."""
+
+    @staticmethod
+    def forward(ctx, bn, weight, bias, *parts):
+        first = parts[0].device
+        if len({p.shape for p in parts}) > 1:
+            raise ValueError(f"shards of unequal shapes "
+                             f"{[tuple(p.shape) for p in parts]}")
+        stats = torch.stack([
+            torch.stack(torch.var_mean(p, dim=(0, 2), correction=0))
+            .to(first) for p in parts])               # (shard, var|mean, C)
+        mean = stats[:, 1].mean(dim=0)
+        var = (stats[:, 0] + (stats[:, 1] - mean).square()).mean(dim=0)
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.device),
                                            alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var.to(bn.running_var.device),
                                           alpha=m)
         bn.num_batches_tracked.add_(1)
-    scale = torch.rsqrt(var + bn.eps) * bn.weight.to(first)
-    return Shards(d * scale.to(d.device)[None, :, None]
-                  + bn.bias.to(d.device)[None, :, None] for d in ds)
+        invstd = torch.rsqrt(var + bn.eps)
+        scale = invstd * weight
+        msb = _to_each(torch.stack([mean, scale, bias])[:, None, :, None],
+                       parts)
+        xmu = [p - c[0] for p, c in zip(parts, msb)]
+        ctx.save_for_backward(invstd, scale, *xmu)
+        ctx.n = len(parts) * parts[0].shape[0] * parts[0].shape[2]
+        return tuple(torch.addcmul(c[2], d, c[1]) for d, c in zip(xmu, msb))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        invstd, scale, *xmu = ctx.saved_tensors
+        first = invstd.device
+        sums = torch.stack([
+            torch.stack([g.sum(dim=(0, 2)), (g * d).sum(dim=(0, 2))])
+            .to(first) for g, d in zip(grads, xmu)]).sum(dim=0)
+        grad_bias, grad_weight = sums[0], sums[1] * invstd
+        coef = _to_each(torch.stack([
+            sums[0] / ctx.n, sums[1] * invstd.square() / ctx.n,
+            scale])[:, None, :, None], grads)
+        dx = [torch.addcmul(g - c[0], d, c[1], value=-1.0) * c[2]
+              for g, d, c in zip(grads, xmu, coef)]
+        return (None, grad_weight, grad_bias, *dx)
 
 
 class _BatchNorm(nn.BatchNorm1d):
@@ -136,13 +202,14 @@ class _BatchNorm(nn.BatchNorm1d):
     variance, torch the unbiased one.  The batch is normalized as torch
     does it (biased variance); in eval mode this is `nn.BatchNorm1d`.  The
     state-dict keys are unchanged.  On `Shards` in training the
-    statistics are the whole split batch's (`_shards_batch_norm`)."""
+    statistics are the whole split batch's (`_ShardsBatchNorm`)."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         if isinstance(x, Shards):
-            return _shards_batch_norm(self, x)
+            return Shards(_ShardsBatchNorm.apply(self, self.weight,
+                                                 self.bias, *x.parts))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
             m = self.momentum

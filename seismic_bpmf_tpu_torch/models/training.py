@@ -24,7 +24,7 @@ from ..parallel.mesh import mesh_device
 from .phasenet import (
     WINDOW, PhaseNet, SeisBenchPhaseNet, Shards, _ieee_convolutions,
     from_flax_variables, gaussian_pick_labels, init_weights,
-    make_train_step,
+    make_train_step, replicate,
 )
 
 
@@ -114,11 +114,12 @@ def make_sharded_train_step(model: nn.Module,
 
     One autograd graph: the model's forward runs over the shards in
     lockstep (`phasenet.Shards`: each layer once a shard, on the shard's
-    device, the weights copied there by a differentiable `.to()`); each
-    BatchNorm normalizes with the whole batch's statistics, totalled on
-    the first device, and the loss is the whole batch's mean, so the
-    gradients are the global batch's.  The running statistics move once
-    a step; Adam steps on the first device."""
+    device, the weights copied to each device once a step by
+    `phasenet.replicate`); each BatchNorm normalizes with the whole
+    batch's statistics, gathered to the first device, and the loss is the
+    whole batch's mean, so the gradients are the global batch's.  The
+    running statistics move once a step; Adam steps on the first
+    device."""
     devices = list(mesh.devices.flat)
     n = len(devices)
 
@@ -130,7 +131,7 @@ def make_sharded_train_step(model: nn.Module,
         b = x.shape[0] // n
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with _ieee_convolutions():
+        with _ieee_convolutions(), replicate(model.parameters(), devices):
             probas = model(Shards(x[k * b: (k + 1) * b].to(devices[k])
                                   for k in range(n)))
             total = None

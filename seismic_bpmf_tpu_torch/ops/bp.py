@@ -33,6 +33,7 @@ at an absolute sample `origin` (a time shard on a mesh,
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
@@ -405,8 +406,9 @@ def first_max(vals: torch.Tensor, idxs: torch.Tensor) -> tuple:
     `parallel.sharded` both reduce with it; the kernel keeps the same rule
     in its packed keys (csrc/bp.cu)."""
     v = vals.max(dim=0).values
-    none = torch.tensor(2**30, dtype=idxs.dtype, device=idxs.device)
-    return v, torch.where(vals == v, idxs, none).min(dim=0).values
+    # a Python scalar, not a device tensor made from one: that copy would
+    # wait for the device, and so serialize the cards of a sharded day
+    return v, torch.where(vals == v, idxs, 2**30).min(dim=0).values
 
 
 def beamform_plain(g_pad, tab: BPTables, *, reduce: str = "max",
@@ -536,10 +538,12 @@ def bp_beam(g_pad, tab: BPTables, *, reduce: str = "max", tile0: int = 0,
             f"bp kernel launch failed: {lib.bp_error_string(rc).decode()}"
         )
     bp_beam.launches += 1
+    bp_beam.launches_on[dev.index] += 1
     return beam if reduce == "none" else (val, idx)
 
 
 bp_beam.launches = 0
+bp_beam.launches_on = collections.Counter()   # by card index
 
 
 class BeamformPlan:

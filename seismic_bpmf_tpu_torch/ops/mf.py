@@ -40,6 +40,7 @@ zeros there.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -382,6 +383,7 @@ def _mf_cc(wrapper, defines, data_pad, filt_rows, mv_table, tile_lo, *,
         )
     _check_launch(lib, "mf", rc)
     wrapper.launches += 1
+    wrapper.launches_on[data_pad.device.index] += 1
     return out
 
 
@@ -401,6 +403,7 @@ def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
 
 
 mf_cc.launches = 0
+mf_cc.launches_on = collections.Counter()   # by card index
 
 
 def mf_cc_highest(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
@@ -416,6 +419,7 @@ def mf_cc_highest(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
 
 
 mf_cc_highest.launches = 0
+mf_cc_highest.launches_on = collections.Counter()   # by card index
 
 
 def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
@@ -484,10 +488,12 @@ def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
         )
     _check_launch(lib, "mf_split", rc)
     mf_cc_split.launches += 1
+    mf_cc_split.launches_on[data_pad.device.index] += 1
     return out
 
 
 mf_cc_split.launches = 0
+mf_cc_split.launches_on = collections.Counter()   # by card index
 
 
 def pad_day_data(data, n_ch: int, n_samp: int, pad_left: int, ext: int,

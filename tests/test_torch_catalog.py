@@ -251,8 +251,51 @@ def test_event_count_matches_jax(freq, mode):
                                   want.index.values.astype("datetime64[ns]"))
     np.testing.assert_array_equal(counts, want.values)
     assert counts.sum() == 25
-    with pytest.raises(ValueError, match="fixed duration"):
-        tcat.event_count(freq="1M")
+    # '1M' is refused, as the JAX package's pandas refuses it; the calendar
+    # months are 'MS' and 'ME'
+    for cat in (jcat, tcat):
+        with pytest.raises(ValueError):
+            cat.event_count(freq="1M")
+    want = jcat.event_count(freq="ME")
+    times, counts = tcat.event_count(freq="ME")
+    np.testing.assert_array_equal(times,
+                                  want.index.values.astype("datetime64[ns]"))
+    np.testing.assert_array_equal(counts, want.values)
+    with pytest.raises(ValueError, match="calendar-dependent"):
+        tcat.event_count(freq="MS", offset=0.5)
+
+
+# every keyword of the JAX package's `Catalog.event_count` (its
+# `utils.event_count`: pandas' resample rules) on a 40-day catalog, its
+# default range and an explicit one
+EVENT_COUNT_CASES = [
+    dict(freq="1D"), dict(freq="1D", mode="beginning"),
+    dict(freq="6h"), dict(freq="6h", offset=0.5, mode="beginning"),
+    dict(freq="W"), dict(freq="W", mode="beginning"),
+    dict(freq="W", offset=0.5, trim_start=False, trim_end=True),
+    dict(freq="MS"), dict(freq="MS", mode="beginning"),
+    dict(freq="ME"), dict(freq="ME", mode="beginning"),
+    dict(freq="7D", offset=0.25, mode="beginning"),
+    dict(freq="1D", offset=0.5, trim_start=False),
+    dict(freq="2h", offset=0.25, trim_end=True),
+]
+
+
+@pytest.mark.parametrize("span", [None, ("2012-07-20", "2012-09-03")])
+@pytest.mark.parametrize("kw", EVENT_COUNT_CASES,
+                         ids=lambda kw: "-".join(f"{v}" for v in kw.values()))
+def test_event_count_keywords_and_calendars_match_jax(kw, span):
+    rng = np.random.default_rng(36)
+    ot = T0 + np.sort(rng.uniform(0.0, 40 * 86400.0, 60))
+    ot[0] = T0                                   # an event at midnight
+    iso = [str(np.datetime64(int(round(t * 1e6)), "us")) for t in ot]
+    cols = [np.zeros(len(ot))] * 3
+    want = JCatalog(*cols, iso).event_count(*(span or ()), **kw)
+    times, counts = tdata.Catalog(*cols, iso).event_count(*(span or ()),
+                                                          **kw)
+    np.testing.assert_array_equal(times,
+                                  want.index.values.astype("datetime64[ns]"))
+    np.testing.assert_array_equal(counts, want.values)
 
 
 def test_detection_file_round_trip(tmp_path):

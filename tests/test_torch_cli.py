@@ -29,6 +29,7 @@ from seismic_bpmf_tpu.data import (  # noqa: E402
 from seismic_bpmf_tpu.data.stream import Stream, Trace  # noqa: E402
 from seismic_bpmf_tpu_torch import cli  # noqa: E402
 from seismic_bpmf_tpu_torch import data as tdata  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import host_ops  # noqa: E402
 
 SR = 25.0
 DAY = 900.0
@@ -256,7 +257,7 @@ def test_info_bench_engines_and_the_device_rule(world, capsys, monkeypatch):
                             "devices", "host_ops_native"]
     assert report["backend"] == "cpu" and report["devices"] == ["cpu"]
     assert report["torch"] == torch.__version__
-    assert report["host_ops_native"] is False
+    assert report["host_ops_native"] is host_ops.available() is True
     # the XLA engines of the JAX beamformer are refused, not re-routed
     for engine in ("onehot", "gather"):
         assert tmain([*bp, "--engine", engine]) == 2

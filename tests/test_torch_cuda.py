@@ -945,3 +945,54 @@ def test_sharded_train_step_on_a_virtual_card_mesh(card, n_dev):
         assert float((sgrads[k] - grads[k]).abs().max()) <= 1e-4 * scale, k
     for k in stats:
         assert torch.allclose(sstats[k], stats[k], rtol=1e-4, atol=1e-6), k
+
+
+@pytest.mark.cuda
+def test_mesh_days_on_every_card():
+    """`tools/mesh_days.py` on a cut world over every visible card: the
+    sharded MF (all three builds) and BP days bit-equal to one card's,
+    every shard's tensors on its card, each card launching each kernel,
+    the campaigns' detections and the sharded training steps.  Needs two
+    cards or more, e.g. four H100s of one host."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    from seismic_bpmf_tpu_torch.tools import mesh_days
+
+    assert mesh_days.main(["--cut"]) == 0
+
+
+@pytest.mark.cuda
+def test_sharded_training_step_on_every_card_is_no_slower_than_one():
+    """ROADMAP Queue 3 #5, open: a `make_sharded_train_step` step of 256
+    windows split over every visible card takes no longer than the
+    unsharded step on one card.  It fails on four H100s (58.1-64.5 ms
+    against 37.0-37.6): the shards' ~1,450 launches a step come from one
+    host thread.  Needs two cards or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    from seismic_bpmf_tpu_torch.models import training
+    from seismic_bpmf_tpu_torch.parallel import make_mesh
+    from seismic_bpmf_tpu_torch.tools.mesh_days import wall_ms
+
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n, w = 256 // len(devs) * len(devs), phasenet.WINDOW
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(n, 3, w)).astype(np.float32))
+    picks_ = np.stack([rng.uniform(200, 1400, n),
+                       rng.uniform(1500, 2800, n)], 1)
+    batch = (x.to(devs[0]),
+             torch.from_numpy(phasenet.gaussian_pick_labels(picks_, w))
+             .to(devs[0]))
+    ms = {}
+    for where in ("one card", "mesh"):
+        m = phasenet.init_weights(phasenet.PhaseNet(),
+                                  torch.Generator().manual_seed(0))
+        m = m.to(devs[0])
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        step = (phasenet.make_train_step(m, opt) if where == "one card"
+                else training.make_sharded_train_step(
+                    m, opt, make_mesh({"data": len(devs)}, devs)))
+        ms[where] = wall_ms(lambda: step(batch), devs, 5)
+    assert ms["mesh"] <= ms["one card"], (
+        f"a step of {n} windows on {len(devs)} cards {ms['mesh']:.2f} ms, "
+        f"on one {ms['one card']:.2f}")

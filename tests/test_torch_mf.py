@@ -662,8 +662,8 @@ def test_plain_engine_matches_jax(network_sum, step):
     data[:, :, 500:640] = 0.0
     want = np.asarray(jmf_engine(tp, mv, w, data, step=step,
                                  network_sum=network_sum))
-    got = tmf_engine.matched_filter(tp, mv, w, data, step=step,
-                                    network_sum=network_sum, device="cpu")
+    got = tmf_engine(tp, mv, w, data, step=step, network_sum=network_sum,
+                     device="cpu")
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(
@@ -672,8 +672,61 @@ def test_plain_engine_matches_jax(network_sum, step):
                             network_sum=network_sum),
         rtol=1e-4, atol=1e-5)
     # the lag block is a memory knob only
-    blocked = tmf_engine.matched_filter(tp, mv, w, data, step=step,
-                                        network_sum=network_sum,
-                                        n_corr_block=200, device="cpu")
+    blocked = tmf_engine(tp, mv, w, data, step=step,
+                         network_sum=network_sum, n_corr_block=200,
+                         device="cpu")
     np.testing.assert_allclose(blocked.numpy(), got.numpy(), rtol=1e-6,
                                atol=1e-7)
+
+
+def test_host_route_dedups_like_the_device_route_at_a_fractional_window(
+        monkeypatch):
+    """At step 2 the search window is fractional (5 samples / 2): the
+    native dedup of the host route (taken on a candidate overflow) keeps
+    the device route's detections."""
+    from seismic_bpmf_tpu_torch.config import Config
+    from seismic_bpmf_tpu_torch.data.groups import TemplateGroup
+    from seismic_bpmf_tpu_torch.detection.matched_filter import MatchedFilter
+
+    tp, mv, w, data = _bank(5, n_tp=2, n_sta=4, n_comp=3, L=30,
+                            n_samp=6000, mv_range=(0, 3))
+    for at in (800, 2400, 4100):                 # repeats of template 0
+        for s in range(4):
+            for c in range(3):
+                a = at + mv[0, s, c]
+                data[s, c, a:a + 30] += 3.0 * tp[0, s, c]
+    tg = TemplateGroup.from_arrays(tp, mv, ["0", "1"], ["A", "B", "C", "D"],
+                                   sampling_rate=25.0)
+
+    def detect():
+        eng = MatchedFilter(tg, cfg=Config(data_buffer_sec=0.0,
+                                           sampling_rate_hz=25.0,
+                                           n_dev_mf_threshold=1.5),
+                            step=2, device="cpu", min_channels=3,
+                            min_stations=2, max_kurto=1e6)
+        eng.set_data(SimpleNamespace(
+            duration=6000 / 25.0, sr=25.0, where="day", date_epoch=0.0,
+            get_np_array=lambda stations, components=None: data))
+        eng.set_weights_channels(method="simple", normalize=True)
+        res = eng.run_matched_filter_search(
+            0.2, threshold_window_dur=60.0,
+            white_noise=np.ones(300, np.float32), verbose=-1)
+        assert eng._search_win(0) == 2.5
+        return {t: [e.origin_time_epoch for e in evs]
+                for t, evs in res.items()}
+
+    device = detect()
+    # every row overflows the batched extraction's candidates
+    monkeypatch.setattr(MatchedFilter, "MAX_CANDIDATES", 2)
+    host_rows = []
+    select = MatchedFilter.select_cc_indexes
+
+    def spy(self, cc_t, *a):
+        host_rows.append(len(cc_t))
+        return select(self, cc_t, *a)
+
+    monkeypatch.setattr(MatchedFilter, "select_cc_indexes", spy)
+    host = detect()
+    assert len(host_rows) == 2 and min(host_rows) > 2900
+    assert sum(map(len, device.values())) > 10
+    assert host == device

@@ -973,3 +973,85 @@ def test_cli_and_viz_run_without_jax_pandas_h5py_matplotlib(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CLI_PATH_OK" in proc.stdout
     assert (tmp_path / "catalog.csv").read_text().startswith("longitude")
+
+
+# where each name of `seismic_bpmf_tpu.ops.__all__` that has a counterpart
+# lives in the port (None: the name is a module of `ops`)
+OPS_HOME = {
+    "reference": None, "beamform": "bp", "fold_components": "beamform",
+    "bandpass_zerophase": "signal", "preprocess_batch": "signal",
+    "resample_fourier": "signal", "envelope": "cf", "kurtosis": "cf",
+    "saturated_envelopes": "cf", "scalar_kurtosis": "cf",
+    "matched_filter": "matched_filter",
+    "time_dependent_threshold": "thresholds",
+    "bp_detection_threshold": "thresholds",
+    "time_dependent_threshold_pd": "thresholds",
+    "cosine_sac_taper": "response", "remove_response_arr": "response",
+    "remove_response_stream": "response",
+}
+PALLAS_NAMES = {"PallasMatchedFilterPlan", "matched_filter_pallas",
+                "PallasBeamformPlan", "beamform_pallas"}
+
+
+@pytest.mark.parametrize("name", sorted(OPS_HOME))
+def test_ops_exports_are_their_modules_own_objects(name):
+    import importlib
+
+    import seismic_bpmf_tpu_torch.ops as tops
+
+    home = OPS_HOME[name]
+    module = importlib.import_module(
+        f"seismic_bpmf_tpu_torch.ops.{home or name}")
+    assert name in tops.__all__
+    assert getattr(tops, name) is (module if home is None
+                                   else getattr(module, name))
+
+
+def test_package_and_ops_export_the_jax_packages_names():
+    import seismic_bpmf_tpu as jpkg
+    import seismic_bpmf_tpu.ops as jops
+
+    import seismic_bpmf_tpu_torch as tpkg
+    import seismic_bpmf_tpu_torch.config as tconfig
+    import seismic_bpmf_tpu_torch.ops as tops
+
+    assert tpkg.__all__ == jpkg.__all__
+    assert tpkg.Config is tconfig.Config
+    assert tpkg.DEFAULT_CONFIG is tconfig.DEFAULT_CONFIG
+    assert set(jops.__all__) - set(tops.__all__) == PALLAS_NAMES
+    assert set(tops.__all__) == set(OPS_HOME)
+
+
+README_IMPORTS = textwrap.dedent("""
+    import importlib.abc, sys
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{{name}} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    from seismic_bpmf_tpu_torch import Config, DEFAULT_CONFIG
+    from seismic_bpmf_tpu_torch.data import (Network, Data, TravelTimes,
+                                             Template, TemplateGroup, Catalog,
+                                             data_reader_hdf5)
+    from seismic_bpmf_tpu_torch.detection import Beamformer, MatchedFilter
+    from seismic_bpmf_tpu_torch.ops import (saturated_envelopes, beamform,
+                                            matched_filter)
+    from seismic_bpmf_tpu_torch.ops import *
+    assert Config().sampling_rate_hz == DEFAULT_CONFIG.sampling_rate_hz
+    print("README_IMPORTS_OK")
+""")
+
+
+def test_readme_pipeline_imports_without_pandas_h5py_matplotlib():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    blocked = BLOCKED + ["matplotlib"]
+    proc = subprocess.run(
+        [sys.executable, "-c", README_IMPORTS.format(blocked=blocked)],
+        capture_output=True, text=True, cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "README_IMPORTS_OK" in proc.stdout

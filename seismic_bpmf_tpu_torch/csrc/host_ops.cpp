@@ -136,7 +136,8 @@ void flag_multiples(
 // n1, later sources whose summed squared moveout difference over k stations
 // falls below k*threshold^2 are marked redundant.  Two passes (geographic
 // cells, then global) like the reference; method selects which k stations:
-//   closest:  the k stations with the smallest moveouts at n1
+//   closest:  the k stations with the smallest moveouts at n1 (the lower
+//             station index first among equal moveouts)
 //   smallest: the k smallest squared differences per pair
 // ---------------------------------------------------------------------------
 static void sweep_pairs(
@@ -157,10 +158,14 @@ static void sweep_pairs(
         if (redundant[n1]) continue;
         const float* m1 = mv + n1 * n_sta;
         if (closest) {
+            // ties broken by station index, as a stable argsort breaks
+            // them (the NumPy version's order)
             std::iota(sel.begin(), sel.end(), 0);
             std::partial_sort(
                 sel.begin(), sel.begin() + k, sel.end(),
-                [&](int64_t x, int64_t y) { return m1[x] < m1[y]; });
+                [&](int64_t x, int64_t y) {
+                    return m1[x] < m1[y] || (m1[x] == m1[y] && x < y);
+                });
         }
         for (int64_t b = a + 1; b < n_order; ++b) {
             int64_t n2 = order[b];

@@ -23,12 +23,14 @@ There is one kernel per split:
   same function in plain PyTorch.
 
   `mf_cc_split` (`csrc/mf_split.cu`): bf16 parts (`split_bf16`); the rung
-  'high'.  `matched_filter_split_plain` is the same function in plain
-  PyTorch.
+  'high'.  A pre-pass (`split_day`) splits the day and computes its window
+  normalization once a call; the main kernel reads them through a ring of
+  shared-memory stages.  `matched_filter_split_plain` is the same function
+  in plain PyTorch, `split_day_plain` the pre-pass's.
 
 The plan splits the template rows once and lays them out as the kernel
-stages them (`stage_tf32_rows`, `stage_split_rows`); each kernel splits
-the day span by span.
+stages them (`stage_tf32_rows`, `stage_split_rows`); csrc/mf.cu splits the
+day span by span.
 
 A wrapper uses its plain version only for tensors on the CPU.
 
@@ -49,11 +51,14 @@ import torch
 from .._device import resolve_device
 
 LAG_TILE = 512       # lags per kernel block (MF_T in csrc/mf.cu)
-TEMPLATE_TILE = 32   # templates per kernel block (MF_TP, MFS_TP)
+TEMPLATE_TILE = 32   # templates per kernel block of csrc/mf.cu (MF_TP) and
+                     # per `tile_lo` entry of both kernels (MFS_TILE)
 TF32_K_STEP = 8      # taps per k-step of csrc/mf.cu: K = round_up(L + 7, 8)
-SPLIT_LAG_TILE = 512  # lags per block of the split kernel (MFS_T)
-SPLIT_ROW_FRONT = 8  # zeros in front of a staged row (MF_FRONT, MFS_FRONT)
-TAP_MULTIPLE = 16    # the split kernel's L_pad is L rounded up to this
+SPLIT_ROW_FRONT = 8  # zeros in front of a staged TF32 row (MF_FRONT)
+SPLIT_LAG_TILE = 4096   # lags per block of the split kernel (MFS_T)
+SPLIT_BLOCK_TEMPLATES = 4  # templates per block of the split kernel (MFS_TPB)
+SPLIT_ROW_OFF = 72   # zeros in front of a staged split row (MFS_OFF)
+SPLIT_STAGES = 3     # the split kernel's deepest ring (MFS_STAGES)
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 _BOUND: set = set()
@@ -85,18 +90,46 @@ def _smem_bytes(L: int, max_delta: int) -> int:
                    + 2 * _skewed_words(span)))
 
 
-def _split_smem_bytes(L: int, L_pad: int, max_delta: int) -> int:
-    """Mirror of `mf_split_smem_bytes` in csrc/mf_split.cu."""
-    K = _round_up(L + 7, 16)
-    KP = K + SPLIT_ROW_FRONT
-    n_y = SPLIT_LAG_TILE + max_delta
-    span2 = (n_y + K + 3) & ~1
-    n_sum = n_y + L_pad
-    n_w = span2 // 2
-    skw = n_w + 8 * (n_w >> 4) + 8    # words of one skewed bf16 span
-    return (2 * (2 * TEMPLATE_TILE * 2 * KP)
-            + 4 * (TEMPLATE_TILE + n_y + span2 + 2 * n_sum)
-            + 16 * skw)
+def _split_k(L: int) -> int:
+    """Taps of the split kernel's k-loop (`mfs_k`): every shift m < 64 and
+    delta < 8 of an L-tap row, in steps of 16."""
+    return _round_up(L + 70, 16)
+
+
+def _split_row_width(L: int) -> int:
+    """Elements of a staged split row (`mfs_row`): >= K + 72, and half of
+    it 16 mod 32, so the two copies of a row lie 16 banks apart."""
+    return _round_up(_split_k(L) + 40, 64) + 32
+
+
+def _split_stage_bytes(L: int, max_delta: int) -> int:
+    """Bytes of one ring stage of csrc/mf_split.cu (`mfs_layout_n`): the
+    data span's hi and lo parts (1 KB aligned), the block's template rows,
+    y with 8 pad words after every 128, the moveouts."""
+    span = _round_up(max_delta + 8 + SPLIT_LAG_TILE - 64 + _split_k(L), 64)
+    hb = _round_up(2 * span, 1024)
+    n_y4 = _round_up(max_delta + 8 + SPLIT_LAG_TILE, 4)
+    y_words = n_y4 + 8 * (-(-n_y4 // 128))
+    f_bytes = SPLIT_BLOCK_TEMPLATES * 8 * _split_row_width(L)
+    return _round_up(2 * hb + f_bytes + 4 * y_words
+                     + 4 * SPLIT_BLOCK_TEMPLATES, 1024)
+
+
+def split_stages(L: int, max_delta: int) -> int:
+    """Stages of the split kernel's ring at these sizes: the deepest up to
+    SPLIT_STAGES that fits shared memory, else 1 (`mfs_layout`)."""
+    stage = _split_stage_bytes(L, max_delta)
+    for n in range(SPLIT_STAGES, 1, -1):
+        if 1024 + n * (stage + 16) <= SMEM_LIMIT:
+            return n
+    return 1
+
+
+def _split_smem_bytes(L: int, max_delta: int) -> int:
+    """Mirror of `mf_split_smem_bytes` in csrc/mf_split.cu: the ring at
+    `split_stages`, its 1 KB alignment and mbarriers."""
+    n = split_stages(L, max_delta)
+    return 1024 + n * (_split_stage_bytes(L, max_delta) + 16)
 
 
 def _lib_split():
@@ -105,20 +138,29 @@ def _lib_split():
     lib = _build.load("mf_split")
     if "mf_split" not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_split_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32,
+        lib.mf_split_prepass_launch.argtypes = [vp, i64, i64, i32, i32, vp,
+                                                vp, vp, vp]
+        lib.mf_split_prepass_launch.restype = i32
+        lib.mf_split_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, i32,
                                         i32, i32, i32, i64, i64, i64, i32,
                                         vp]
         lib.mf_split_launch.restype = i32
-        lib.mf_split_smem_bytes.argtypes = [i32, i32, i32]
+        lib.mf_split_smem_bytes.argtypes = [i32, i32]
         lib.mf_split_smem_bytes.restype = i64
         lib.mf_split_error_string.argtypes = [i32]
         lib.mf_split_error_string.restype = ctypes.c_char_p
-        for fn in (lib.mf_split_tile_lags, lib.mf_split_tile_templates):
+        lib.mf_split_stages.argtypes = [i32, i32]
+        lib.mf_split_row_width.argtypes = [i32]
+        lib.mf_split_stages.restype = lib.mf_split_row_width.restype = i32
+        for fn in (lib.mf_split_tile_lags, lib.mf_split_block_templates):
             fn.argtypes, fn.restype = [], i32
         if (lib.mf_split_tile_lags() != SPLIT_LAG_TILE
-                or lib.mf_split_tile_templates() != TEMPLATE_TILE
-                or lib.mf_split_smem_bytes(200, 208, 450)
-                != _split_smem_bytes(200, 208, 450)):
+                or lib.mf_split_block_templates() != SPLIT_BLOCK_TEMPLATES
+                or any(lib.mf_split_row_width(L) != _split_row_width(L)
+                       for L in (37, 200))
+                or any(lib.mf_split_smem_bytes(L, d) != _split_smem_bytes(L, d)
+                       or lib.mf_split_stages(L, d) != split_stages(L, d)
+                       for L, d in ((200, 450), (37, 3), (200, 9000)))):
             raise RuntimeError("csrc/mf_split.cu and ops/mf.py disagree on "
                                "the kernel's tile sizes")
         _BOUND.add("mf_split")
@@ -206,28 +248,6 @@ def split_bf16(x: torch.Tensor) -> tuple:
     return hi, lo
 
 
-def _stage_rows(filt_hi, filt_lo, L: int, dtype, row_width: int,
-                shifted: bool) -> torch.Tensor:
-    """Rows of the parts as a kernel stages them: (n_ch, n_tiles, 2,
-    TEMPLATE_TILE[, 2], row_width), axis 2 (hi, lo), each row behind
-    SPLIT_ROW_FRONT zeros; with `shifted`, axis 4 holds it as it is and
-    shifted left by one element."""
-    n_ch, n_tp_pad = filt_hi.shape[:2]
-    n_tiles = n_tp_pad // TEMPLATE_TILE
-    copies = (2,) if shifted else ()
-    rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, *copies, row_width),
-                       dtype=dtype, device=filt_hi.device)
-    a = SPLIT_ROW_FRONT
-    for part, f in enumerate((filt_hi, filt_lo)):
-        f4 = f[..., :L].reshape(n_ch, n_tiles, TEMPLATE_TILE, L)
-        if shifted:
-            rows[:, :, part, :, 0, a : a + L] = f4
-            rows[:, :, part, :, 1, a - 1 : a - 1 + L] = f4
-        else:
-            rows[:, :, part, :, a : a + L] = f4
-    return rows
-
-
 def stage_tf32_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
                     L: int) -> torch.Tensor:
     """The f32-class kernel's template rows as it stages them in shared
@@ -235,42 +255,51 @@ def stage_tf32_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
     round_up(L + 7, 8) + 8.  Axis 2 is (hi, lo), the TF32 parts; each row
     is 8 zeros, the L taps, zeros.  One (channel, tile) block is one
     contiguous copy into the kernel's shared memory."""
-    return _stage_rows(filt_hi, filt_lo, L, torch.float32,
-                       _tf32_row_width(L), shifted=False)
-
-
-def _rows_parts(rows: torch.Tensor, L: int) -> tuple:
-    """(hi, lo), each (n_ch, n_tp_pad, L), of (n_ch, n_tiles, 2,
-    TEMPLATE_TILE, row width) staged rows."""
-    n_ch, n_tiles = rows.shape[:2]
+    n_ch, n_tp_pad = filt_hi.shape[:2]
+    n_tiles = n_tp_pad // TEMPLATE_TILE
+    rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, _tf32_row_width(L)),
+                       dtype=torch.float32, device=filt_hi.device)
     a = SPLIT_ROW_FRONT
-    return tuple(rows[:, :, part, :, a : a + L].reshape(
-        n_ch, n_tiles * TEMPLATE_TILE, L) for part in (0, 1))
+    for part, f in enumerate((filt_hi, filt_lo)):
+        rows[:, :, part, :, a : a + L] = f[..., :L].reshape(
+            n_ch, n_tiles, TEMPLATE_TILE, L)
+    return rows
 
 
 def tf32_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
     """(filt_hi, filt_lo), each (n_ch, n_tp_pad, L) f32, read back out of
     staged TF32 rows."""
-    return _rows_parts(filt_rows, L)
+    n_ch, n_tiles = filt_rows.shape[:2]
+    a = SPLIT_ROW_FRONT
+    return tuple(filt_rows[:, :, part, :, a : a + L].reshape(
+        n_ch, n_tiles * TEMPLATE_TILE, L) for part in (0, 1))
 
 
 def stage_split_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
                      L: int) -> torch.Tensor:
     """The split kernel's template rows as it stages them in shared
-    memory: (n_ch, n_tiles, 2, TEMPLATE_TILE, 2, KP) bf16 with KP =
-    round_up(L + 7, 16) + 8.  Axis 2 is (hi, lo); axis 4 is the row as it is
-    (8 zeros, the taps, zeros) and the same row shifted left by one
-    element, so that a pair of taps starting at an odd index is an aligned
-    32-bit word of the second copy.  One (channel, tile) block is one
-    contiguous copy into the kernel's shared memory."""
-    return _stage_rows(filt_hi, filt_lo, L, torch.bfloat16,
-                       _round_up(L + 7, 16) + SPLIT_ROW_FRONT, shifted=True)
+    memory: (n_ch, n_tp_pad, 2, 2, ROW) bf16, ROW = `_split_row_width(L)`.
+    Axis 2 is (hi, lo); axis 3 is the row as it is (SPLIT_ROW_OFF zeros,
+    the taps, zeros) and the same row one element on (element x holds tap
+    x + 1 - SPLIT_ROW_OFF), so that a pair of taps starting at an odd index
+    is an aligned 32-bit word of the second copy.  A block's
+    SPLIT_BLOCK_TEMPLATES templates of one channel are one contiguous copy
+    into a stage of the kernel's ring."""
+    n_ch, n_tp_pad = filt_hi.shape[:2]
+    rows = torch.zeros((n_ch, n_tp_pad, 2, 2, _split_row_width(L)),
+                       dtype=torch.bfloat16, device=filt_hi.device)
+    a = SPLIT_ROW_OFF
+    for part, f in enumerate((filt_hi, filt_lo)):
+        rows[:, :, part, 0, a : a + L] = f[..., :L]
+        rows[:, :, part, 1, a - 1 : a - 1 + L] = f[..., :L]
+    return rows
 
 
 def split_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
     """(filt_hi, filt_lo), each (n_ch, n_tp_pad, L) bf16, read back out of
     staged rows."""
-    return _rows_parts(filt_rows[:, :, :, :, 0], L)
+    a = SPLIT_ROW_OFF
+    return tuple(filt_rows[:, :, part, 0, a : a + L] for part in (0, 1))
 
 
 def _parts_plain(split, data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
@@ -440,6 +469,86 @@ def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
 matched_filter_split_plain.calls = 0
 
 
+SPLIT_YG = 16   # samples per partial of the window sums (MFS_YG)
+SPLIT_ALIGN = 64  # the pre-pass's rows are the day rounded up to this
+
+
+def _fma32(a, b, c):
+    """f32 a * b + c rounded once (the product is exact in float64), as
+    ``fmaf`` rounds it up to a rare double rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def split_day_plain(data_pad: torch.Tensor, L: int) -> tuple:
+    """Plain PyTorch version of the split kernel's pre-pass, on the
+    tensor's device: (hi, lo, y), each (n_ch, ext_al) with ext_al = ext
+    rounded up to SPLIT_ALIGN.  hi, lo = `split_bf16` of the day (zeros
+    past ext); y[c, p] = rsqrt of the L-sample window's f32 variance sum
+    at p (0 where it is <= 1e-10), the data read as zeros past ext, summed
+    in csrc/mf_window.cuh's order: SPLIT_YG-sample partials of sums and
+    fused squares, the partials in turn, the last L mod SPLIT_YG samples
+    one by one, var = fma(-r1 * r1, 1 / L, r2), and the reciprocal square
+    root rounded once (the card's ``rsqrtf`` lies within 2 ulp of it)."""
+    n_ch, ext = data_pad.shape
+    n = _round_up(ext, SPLIT_ALIGN)
+    d = torch.zeros((n_ch, n + L + SPLIT_YG), dtype=torch.float32,
+                    device=data_pad.device)
+    d[:, :ext] = data_pad
+    hi, lo = split_bf16(d[:, :n])
+    n_grp = L // SPLIT_YG
+    n_s = n + max(n_grp - 1, 0) * SPLIT_YG
+    s1 = torch.zeros((n_ch, n_s), dtype=torch.float32, device=d.device)
+    s2 = torch.zeros_like(s1)
+    if n_grp:
+        for k in range(SPLIT_YG):
+            v = d[:, k : k + n_s]
+            s1, s2 = s1 + v, _fma32(v, v, s2)
+    r1 = torch.zeros((n_ch, n), dtype=torch.float32, device=d.device)
+    r2 = torch.zeros_like(r1)
+    for m in range(n_grp):
+        r1 = r1 + s1[:, m * SPLIT_YG : m * SPLIT_YG + n]
+        r2 = r2 + s2[:, m * SPLIT_YG : m * SPLIT_YG + n]
+    for j in range(n_grp * SPLIT_YG, L):
+        v = d[:, j : j + n]
+        r1, r2 = r1 + v, _fma32(v, v, r2)
+    inv_l = torch.tensor(1.0, dtype=torch.float32) / L
+    var = _fma32(-(r1 * r1), inv_l.to(d.device).expand_as(r1), r2)
+    v = var.abs() + torch.tensor(1e-30, dtype=torch.float32)
+    y = torch.where(var > 1e-10, torch.rsqrt(v.double()).float(),
+                    torch.zeros_like(var))
+    return hi, lo, y
+
+
+def split_day(data_pad: torch.Tensor, L: int) -> tuple:
+    """The split kernel's pre-pass: (hi, lo, y) of the padded day as
+    `split_day_plain` describes them.  On a CPU tensor this is
+    `split_day_plain`; on a CUDA tensor it launches `mf_split_prepass` of
+    csrc/mf_split.cu (counted on `split_day.launches`) or raises."""
+    if data_pad.device.type == "cpu":
+        return split_day_plain(data_pad, L)
+    if data_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {data_pad.device}")
+    _check_plan_tensors(data_pad, (("data_pad", data_pad, torch.float32),))
+    n_ch, ext = data_pad.shape
+    n = _round_up(ext, SPLIT_ALIGN)
+    dev = data_pad.device
+    hi = torch.empty((n_ch, n), dtype=torch.bfloat16, device=dev)
+    lo = torch.empty_like(hi)
+    y = torch.empty((n_ch, n), dtype=torch.float32, device=dev)
+    lib = _lib_split()
+    with torch.cuda.device(dev):
+        rc = lib.mf_split_prepass_launch(
+            data_pad.data_ptr(), ext, n, n_ch, L, hi.data_ptr(),
+            lo.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, "mf_split", rc)
+    split_day.launches += 1
+    return hi, lo, y
+
+
+split_day.launches = 0
+
+
 def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
                 L: int, n_corr: int, lo_p: int, hi_p: int, max_delta: int,
                 lag_block: int = 4096) -> torch.Tensor:
@@ -448,7 +557,8 @@ def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
     two bf16 parts as `stage_split_rows` lays them out.
 
     On CPU tensors this is `matched_filter_split_plain`; on CUDA tensors
-    it launches the kernel of csrc/mf_split.cu or raises."""
+    it launches csrc/mf_split.cu's pre-pass (`split_day`) and then its
+    main kernel on the pre-pass's arrays, or raises."""
     if data_pad.device.type == "cpu":
         filt_hi, filt_lo = split_rows_parts(filt_rows, L)
         return matched_filter_split_plain(
@@ -463,28 +573,27 @@ def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
                    ("mv_table", mv_table, torch.int32),
                    ("tile_lo", tile_lo, torch.int32)))
     n_tp_pad = mv_table.shape[1]
-    L_pad = _round_up(L, TAP_MULTIPLE)
-    if (tuple(filt_rows.shape) != (
-            n_ch, n_tp_pad // TEMPLATE_TILE, 2, TEMPLATE_TILE, 2,
-            _round_up(L + 7, 16) + SPLIT_ROW_FRONT)
+    if (tuple(filt_rows.shape) != (n_ch, n_tp_pad, 2, 2,
+                                   _split_row_width(L))
             or mv_table.shape[0] != n_ch or n_tp_pad % TEMPLATE_TILE
             or n_tp > n_tp_pad
             or tuple(tile_lo.shape) != (n_ch, n_tp_pad // TEMPLATE_TILE)):
         raise ValueError("inconsistent matched-filter plan shapes")
-    if _split_smem_bytes(L, L_pad, max_delta) > SMEM_LIMIT:
+    if _split_smem_bytes(L, max_delta) > SMEM_LIMIT:
         raise ValueError("moveout span too wide for one kernel tile")
     out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
                       device=data_pad.device)
     if n_corr <= 0:
         return out
+    hi, lo, y = split_day(data_pad, L)
     lib = _lib_split()
     with torch.cuda.device(data_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mf_split_launch(
-            data_pad.data_ptr(), ext, filt_rows.data_ptr(),
-            mv_table.data_ptr(), tile_lo.data_ptr(),
-            out.data_ptr(), n_ch, n_tp, n_tp_pad, L, L_pad, int(n_corr),
-            int(lo_p), int(hi_p), int(max_delta), stream,
+            hi.data_ptr(), lo.data_ptr(), y.data_ptr(), hi.shape[1],
+            filt_rows.data_ptr(), mv_table.data_ptr(), tile_lo.data_ptr(),
+            out.data_ptr(), n_ch, n_tp, n_tp_pad, L, int(n_corr), int(lo_p),
+            int(hi_p), int(max_delta),
+            torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(lib, "mf_split", rc)
     mf_cc_split.launches += 1
@@ -603,8 +712,7 @@ class MatchedFilterPlan:
         t_hi = np.where(used, tiles, -1).max(-1)
         any_used = used.any(-1)
         self.max_delta = int((t_hi - t_lo)[any_used].max(initial=0))
-        smem = (_split_smem_bytes(L, _round_up(L, TAP_MULTIPLE),
-                                  self.max_delta)
+        smem = (_split_smem_bytes(L, self.max_delta)
                 if precision == "high"
                 else _smem_bytes(L, self.max_delta))
         if smem > SMEM_LIMIT:

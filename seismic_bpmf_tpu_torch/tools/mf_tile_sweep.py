@@ -14,17 +14,22 @@ first variant, with the card's name and power limit.
             or 8; MF_MINB blocks per SM for the register budget;
             MF_ACC_OUT 0 for the 'default' build, 1 for the 'highest'
             one), each at its rung's precision;
-  mf_split  csrc/mf_split.cu: (MFS_NSUB 128-lag sub-tiles per block,
-            MFS_MINB), at precision 'high'.
+  mf_split  csrc/mf_split.cu at precision 'high': (MFS_STAGES, the ring's
+            depth; MFS_DIAG, 0 the kernel, 1 a diagnostic build without
+            the products (staging, ring and epilogue), 2 one that only
+            stages (the consumers release each stage at once); the
+            diagnostic builds give wrong CC); the pre-pass's time
+            (`ops.mf.split_day`) is printed too.
 
 --reference-tree names a directory that holds another version of this
 package (say, the parent commit unpacked by `git archive`): the same day
 then runs there too, in a process of its own through that tree's
-`MatchedFilterPlan` at the same precision, and its time is printed with
-the largest difference between its CC and the first variant's, and
-whether the two agree within rtol 1e-4, atol 1e-5.  For `mf` that tree
-runs at 'highest' and is compared with the first variant, the default
+`MatchedFilterPlan` at the same precision, once before the variants and
+once after them, and each variant is held to it: the largest difference
+between the CC's, and whether they agree within rtol 1e-4, atol 1e-5.
+For `mf` that tree runs at 'highest' and the first variant is the default
 build: a kernel whose default build kept its bits gives max|diff| 0.
+Compare two trees' times only within one run of this tool.
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ KERNELS = {
     # default)
     "mf": (("MF_NSUB", "MF_MINB", "MF_ACC_OUT"), "highest",
            [(4, 2, 0), (4, 2, 1), (4, 1, 0), (2, 2, 0), (8, 1, 0)]),
-    "mf_split": (("MFS_NSUB", "MFS_MINB"), "high",
-                 [(4, 2), (4, 1), (3, 2), (2, 2), (2, 3)]),
+    "mf_split": (("MFS_STAGES", "MFS_DIAG"), "high",
+                 [(3, 0), (2, 0), (1, 0), (3, 1), (3, 2)]),
 }
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -85,7 +90,7 @@ def _route(name: str, variant, precision: str) -> tuple:
         if variant[2]:
             return _build.key("mf", mf.ACC_OUT), "highest"
         return "mf", "default"
-    mf.SPLIT_LAG_TILE = 128 * variant[0]
+    mf.SPLIT_STAGES = variant[0]
     return name, precision
 
 
@@ -136,40 +141,73 @@ def main():
     w = np.full((n_tp, n_sta, n_comp), 1.0 / 30, np.float32)
     d = rng.standard_normal((n_sta, n_comp, n), dtype=np.float32)
     macs = n_tp * n_sta * n_comp * L * (n - L + 1)
-    first = None
-    for var, lab, (so, _) in zip(variants, label, built):
-        lib_key, rung = _route(name, var, precision)
-        mf._BOUND.discard(lib_key)
-        _build._LIBS[lib_key] = ctypes.CDLL(so)
-        plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=rung)
-        dp = plan.pad_data(d)
-        out = plan(dp)
-        torch.cuda.synchronize()
-        if first is None:
-            first = out
-        err = float((out - first).abs().max())
-        ms, times = _day_ms(plan, dp)
-        print(f"{name} {lab}: {ms:.2f} ms/day "
-              f"({macs / ms / 1e6:.0f} GMAC/s; runs {times}), max|diff| vs "
-              f"first {err:.3g} [{card}]", flush=True)
-        del out, dp, plan
-    if args.reference_tree is None:
-        return
-    first = first.cpu()
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "day.npz")
-        np.savez(src, tp=tp, mv=mv, w=w, d=d)
-        out = os.path.join(tmp, "reference_day.pt")
-        subprocess.run([sys.executable, "-c", _REFERENCE, src, precision,
-                        out],
-                       cwd=os.path.abspath(args.reference_tree), check=True)
-        ref = torch.load(out)
-    err = float((first - ref["cc"]).abs().max())
-    agree = bool(torch.allclose(first, ref["cc"], rtol=RTOL, atol=ATOL))
-    print(f"reference tree {args.reference_tree}: {min(ref['times']):.2f} "
-          f"ms/day (runs {ref['times']}); {label[0]} max|diff| {err:.3g}, "
-          f"within rtol={RTOL}, atol={ATOL}: {agree} [{card}]", flush=True)
+        refs = []
+        if args.reference_tree is not None:
+            src = os.path.join(tmp, "day.npz")
+            np.savez(src, tp=tp, mv=mv, w=w, d=d)
+            refs.append(_reference(args.reference_tree, src, precision, tmp,
+                                   card))
+        first = None
+        for var, lab, (so, _) in zip(variants, label, built):
+            lib_key, rung = _route(name, var, precision)
+            mf._BOUND.discard(lib_key)
+            _build._LIBS[lib_key] = ctypes.CDLL(so)
+            plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=rung)
+            dp = plan.pad_data(d)
+            out = plan(dp)
+            torch.cuda.synchronize()
+            if first is None:
+                first = out
+            err = float((out - first).abs().max())
+            ms, times = _day_ms(plan, dp)
+            extra = ""
+            if name == "mf_split":
+                extra = (f"; pre-pass {_prepass_ms(dp, L):.3f} ms, "
+                         f"{mf.split_stages(L, plan.max_delta)} stages")
+            if refs:
+                cc = refs[0]["cc"]
+                outc = out.cpu()
+                extra += (f"; vs reference max|diff| "
+                          f"{float((outc - cc).abs().max()):.3g}, within "
+                          f"rtol={RTOL}, atol={ATOL}: "
+                          f"{bool(torch.allclose(outc, cc, rtol=RTOL, atol=ATOL))}")
+            print(f"{name} {lab}: {ms:.2f} ms/day "
+                  f"({macs / ms / 1e6:.0f} GMAC/s; runs {times}), max|diff| "
+                  f"vs first {err:.3g}{extra} [{card}]", flush=True)
+            del out, dp, plan
+        if refs:
+            del first
+            torch.cuda.empty_cache()
+            refs.append(_reference(args.reference_tree, src, precision, tmp,
+                                   card))
+
+
+def _prepass_ms(dp, L) -> float:
+    """Best of 2 x 3 runs of the split kernel's pre-pass, ms."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        e0.record()
+        for _ in range(3):
+            mf.split_day(dp, L)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 3)
+    return min(times)
+
+
+def _reference(tree, src, precision, tmp, card) -> dict:
+    """The day through `tree`'s plan in a process of its own: its CC (on
+    the CPU) and times, printed."""
+    out = os.path.join(tmp, "reference_day.pt")
+    subprocess.run([sys.executable, "-c", _REFERENCE, src, precision, out],
+                   cwd=os.path.abspath(tree), check=True)
+    ref = torch.load(out)
+    print(f"reference tree {tree}: {min(ref['times']):.2f} ms/day (runs "
+          f"{ref['times']}) [{card}]", flush=True)
+    return ref
 
 
 if __name__ == "__main__":

@@ -210,6 +210,88 @@ def test_split_kernel_matches_plain_on_card(card, case):
                        hi_p=plan.hi_p, max_delta=plan.max_delta)
 
 
+def _widest_split_span(L):
+    """The largest max_delta whose ring (one stage) fits shared memory."""
+    lo, hi = 0, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if mf._split_smem_bytes(L, mid) <= mf.SMEM_LIMIT
+                  else (lo, mid))
+    return lo
+
+
+def _ring_case(case):
+    T = mf.SPLIT_LAG_TILE
+    if case == "one_channel":
+        return _bank(60, n_tp=9, n_sta=1, n_comp=1, L=200, n_samp=T + 500)
+    if case == "channel_skipped_in_the_ring":
+        tp, mv, w, data = _bank(61, n_tp=6, n_sta=4, n_comp=2, L=64,
+                                n_samp=T + 900)
+        w[:, 2, 1] = 0.0             # no template uses channel 5 of 8
+        return tp, mv, w, data
+    if case == "ragged_templates_and_lags":
+        return _bank(62, n_tp=13, n_sta=3, n_comp=3, L=51,
+                     n_samp=2 * T + 301 + 50, mv_range=(-41, 333))
+    # the widest moveout span inside a template tile that shared memory
+    # holds (a ring of one stage)
+    L = 40
+    span = _widest_split_span(L)
+    tp, mv, w, data = _bank(63, n_tp=4, n_sta=2, n_comp=2, L=L,
+                            n_samp=span + T + 700, mv_range=(0, span))
+    mv[0, 0, 0], mv[1, 1, 1] = 0, span
+    return tp, mv, w, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_channel", "channel_skipped_in_the_ring",
+                                  "ragged_templates_and_lags",
+                                  "widest_span"])
+def test_split_kernel_ring_edges_on_card(card, case):
+    """csrc/mf_split.cu's ring at its edges against the plain version: a
+    single channel, a channel the tile skips between used ones, template
+    and lag counts that are not multiples of the block's, the widest span
+    that fits (one stage)."""
+    tp, mv, w, data = _ring_case(case)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
+                                device=card)
+    stages = mf.split_stages(plan.L, plan.max_delta)
+    assert stages == (1 if case == "widest_span" else mf.SPLIT_STAGES)
+    if case == "channel_skipped_in_the_ring":
+        assert plan.tile_lo[:, 0].tolist().count(-1) == 1
+        assert int(plan.tile_lo[5, 0]) == -1
+    dp = plan.pad_data(data)
+    pre = mf.split_day.launches
+    got = plan(dp)
+    assert mf.split_day.launches == pre + 1
+    want = mf.matched_filter_split_plain(
+        dp, *mf.split_rows_parts(plan.filt_rows, plan.L), plan.mv_table,
+        n_tp=plan.n_tp, L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
+        hi_p=plan.hi_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [200, 37])
+def test_split_prepass_on_card_matches_its_twin(card, L):
+    """The pre-pass's bf16 parts equal the plain twin's; its y lies within
+    2 ulp of the twin's (the same partial order and fused multiply-adds;
+    the card's rsqrtf within 2 ulp of the twin's once-rounded one), 0 at
+    the same window starts."""
+    tp, mv, w, data = _zero_variance(64)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
+                                device=card)
+    dp = plan.pad_data(data)
+    hi, lo, y = mf.split_day(dp, L)
+    h2, l2, y2 = mf.split_day_plain(dp.cpu(), L)
+    torch.cuda.synchronize()
+    assert torch.equal(hi.cpu(), h2) and torch.equal(lo.cpu(), l2)
+    y = y.cpu()
+    assert torch.equal(y == 0, y2 == 0) and bool((y >= 0).all())
+    ulp = (y.view(torch.int32) - y2.view(torch.int32)).abs()
+    assert int(ulp.max()) <= 2
+
+
 @pytest.mark.cuda
 def test_plain_engine_on_card_matches_oracle(card):
     from seismic_bpmf_tpu_torch.ops.matched_filter import matched_filter

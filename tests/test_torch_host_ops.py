@@ -29,9 +29,34 @@ def _same(name, *args, **kwargs):
     return got
 
 
+def _sweep_pairs_cut(text):
+    """(the text without `sweep_pairs`, `sweep_pairs`' own text)."""
+    a = text.index("static void sweep_pairs(")
+    b = text.index("\n}\n", a) + 3
+    return text[:a] + text[b:], text[a:b]
+
+
 def test_the_copy_is_the_jax_packages_host_runtime():
-    port = REPO / "seismic_bpmf_tpu_torch" / "csrc" / "host_ops.cpp"
-    assert port.read_text() == (REPO / "csrc" / "host_ops.cpp").read_text()
+    """The three other scans and the rest of the file are the JAX
+    package's text; `sweep_pairs` differs only in the comparator of the
+    'closest' selection, which breaks ties by station index."""
+    port = (REPO / "seismic_bpmf_tpu_torch" / "csrc" / "host_ops.cpp"
+            ).read_text()
+    jax_text = (REPO / "csrc" / "host_ops.cpp").read_text()
+    rest, sweep = _sweep_pairs_cut(port)
+    jax_rest, jax_sweep = _sweep_pairs_cut(jax_text)
+    assert rest.replace(
+        "moveouts at n1 (the lower\n//             station index first "
+        "among equal moveouts)\n", "moveouts at n1\n") == jax_rest
+    heap = "[&](int64_t x, int64_t y) { return m1[x] < m1[y]; });"
+    stable = ("[&](int64_t x, int64_t y) {\n"
+              "                    return m1[x] < m1[y] || (m1[x] == m1[y] "
+              "&& x < y);\n                });")
+    assert heap in jax_sweep and stable in sweep
+    assert "\n".join(ln for ln in sweep.replace(stable, heap).splitlines()
+                     if not ln.lstrip().startswith("//")) == "\n".join(
+        ln for ln in jax_sweep.splitlines()
+        if not ln.lstrip().startswith("//"))
 
 
 def test_the_library_builds_here():
@@ -144,3 +169,35 @@ def test_closest_on_the_lattice_with_its_ties_broken():
                 edges, edges, 2.0, num_stations_for_diff=k,
                 method="closest")
     assert 0 < red.sum() < n
+
+
+def test_closest_on_the_lattice_as_it_is():
+    """'closest' on the first sources of `chip_smoke.py` phase 8's lattice
+    as it is (integer-sample moveouts, many tied at the k-th): the port's
+    native marks are the NumPy version's and the JAX package's reference
+    (a stable argsort keeps the smaller station index), and differ from
+    the JAX package's native scan (heap order among ties) where the ties
+    decide."""
+    from seismic_bpmf_tpu.ops import reference as jref
+    from seismic_bpmf_tpu_torch.tools.lattice import (
+        KM_PER_DEG, lattice, smooth_grid_moveouts)
+
+    n, k = 2000, 10
+    src_km = lattice(100_000, 32)[0][:n]
+    mv = smooth_grid_moveouts(100_000, 32, 25.0).reshape(100_000, -1)[:n]
+    mv = mv.astype(np.float32)
+    s = np.sort(mv, axis=1)
+    assert (s[:, k - 1] == s[:, k]).sum() > 50       # ties at the k-th
+    lon, lat = (src_km[:, :2].T / KM_PER_DEG).astype(np.float32)
+    edges = np.linspace(0.0, 100.0 / KM_PER_DEG + 1e-6, 11)
+    args = (mv, lon, lat, edges, edges, 2.0)
+    kw = dict(num_stations_for_diff=k, method="closest")
+    got = host_ops.find_similar_sources(*args, **kw)
+    assert 0 < got.sum() < n
+    np.testing.assert_array_equal(
+        got, host_ops.find_similar_sources_plain(*args, **kw))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.find_similar_sources(*args, **kw), bool))
+    if jhost.available():
+        heap = jhost.find_similar_sources(*args, **kw)
+        assert (heap != got).sum() > 0

@@ -614,23 +614,23 @@ def test_split_wrapper_never_takes_the_plain_version_off_the_cpu():
 
 def test_staged_split_rows_layout():
     """The rows as the kernel stages them: hi and lo, each as it is behind
-    8 zeros and shifted left by one element."""
+    72 zeros and one element on, every template's four rows in a row."""
     tp, mv, w, data = _bank(29, n_tp=40, L=37)
     plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision="high",
                                 device="cpu")
     rows = plan.filt_rows
-    KP = 48 + 8                       # round_up(37 + 7, 16) + 8
-    assert rows.shape == (plan.n_ch, 2, 2, mf.TEMPLATE_TILE, 2, KP)
+    ROW = 192 + 32                    # round_up(112 + 40, 64) + 32
+    assert rows.shape == (plan.n_ch, 64, 2, 2, ROW)
     assert rows.dtype == torch.bfloat16 and rows.is_contiguous()
     parts = mf.split_bf16(torch.from_numpy(_scaled_rows(tp, w, 64, 48)))
     assert bool((parts[1].float() != 0).any())
     for part, f in enumerate(parts):
-        f4 = f.reshape(plan.n_ch, 2, mf.TEMPLATE_TILE, -1).float()
-        as_is = rows[:, :, part, :, 0].float()
-        shifted = rows[:, :, part, :, 1].float()
-        assert torch.equal(as_is[..., 8 : 8 + f4.shape[-1]], f4)
-        assert bool((as_is[..., :8] == 0).all())
-        assert bool((as_is[..., 8 + 37 :] == 0).all())
+        f = f.float()
+        as_is = rows[:, :, part, 0].float()
+        shifted = rows[:, :, part, 1].float()
+        assert torch.equal(as_is[..., 72 : 72 + f.shape[-1]], f)
+        assert bool((as_is[..., :72] == 0).all())
+        assert bool((as_is[..., 72 + 37 :] == 0).all())
         assert torch.equal(shifted[..., :-1], as_is[..., 1:])
         assert bool((shifted[..., -1] == 0).all())
     hi, lo = mf.split_rows_parts(rows, plan.L)
@@ -641,11 +641,13 @@ def test_staged_split_rows_layout():
 def test_split_smem_mirror_and_limit():
     """The Python mirror of the split kernel's shared-memory size, at the
     main path's shape, and the plan's refusal of a span that cannot fit."""
-    # 2 x (32 rows x 2 shifts x 216 bf16) + f32 (32 + 962 + 1172 + 2 x 1170)
-    # + 4 skewed bf16 spans of 586 + 8 * 36 + 8 words, for L = 200,
-    # max_delta = 450
-    assert mf._split_smem_bytes(200, 208, 450) == (
-        2 * 27648 + 4 * (32 + 962 + 1172 + 2 * 1170) + 16 * 882)
+    # three ring stages of: data hi and lo (4,800 bf16 each, 10 KB), 4
+    # templates x 4 rows of 352 bf16, y (4,556 words and 36 x 8 pads), 4
+    # moveouts, rounded up to 1 KB; 1 KB of alignment, 3 x 2 mbarriers;
+    # for L = 200, max_delta = 450
+    assert mf._split_smem_bytes(200, 450) == 1024 + 3 * (50 * 1024 + 16)
+    assert 50 * 1024 == -(-(2 * 10240 + 4 * 8 * 352 + 4 * (4556 + 8 * 36)
+                            + 16) // 1024) * 1024
     tp, mv, w, data = _bank(27, mv_range=(-30, 60))
     mv[1, 0, 0] = 200000
     with pytest.raises(ValueError, match="shared memory"):

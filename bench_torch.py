@@ -16,7 +16,7 @@ through `ops.mf.MatchedFilterPlan`.  Completion is forced by fetching a
 small decimated slice of the CC (the full CC stays on the card).
 
 Other modes (each prints its own JSON line):
-  --check           parity gate of every kernel (#1 both builds, #2, #3)
+  --check           parity gate of every kernel (#1 both designs, #2, #3)
   --bp [--n-src N]  beamforming throughput (Gpoints/s) on the smooth
                     lattice (`tools/lattice.py`); --n-src 1000000
                     --n-sta 128 is BASELINE config 5 as bench.py runs it
@@ -26,9 +26,10 @@ Each JSON line has bench.py's keys and metric names: {"metric", "value",
 "unit", "vs_baseline"}.  The unit names the card and its power limit
 (nvidia-smi); `vs_baseline` divides by bench.py's CPU constants.  The
 rungs keep the JAX package's names: 'highest' runs kernel #1's
-MF_ACC_OUT=1 build, 'high' kernel #2 (bf16 parts), 'default' kernel #1's
-default build (three TF32 products, f32 class, where the JAX package's
-'default' is one bf16 pass); every BP rung runs kernel #3 in f32.
+`mma.sync` design (csrc/mf_highest.cu), 'high' kernel #2 (bf16 parts),
+'default' kernel #1's default build (csrc/mf.cu: four TF32 products by
+`wgmma`, f32 class, where the JAX package's 'default' is one bf16 pass);
+every BP rung runs kernel #3 in f32.
 
 Everything runs on the card unless --device cpu is given, which runs the
 kernels' plain PyTorch versions (figures of the CPU, not of a card).
@@ -76,13 +77,13 @@ EXTRAS_FILE = "BENCH_TORCH_EXTRAS.json"
 
 # the kernel behind each MF rung: (wrapper, what it is)
 MF_KERNELS = {
-    "highest": (mf.mf_cc_highest, "kernel #1 csrc/mf.cu MF_ACC_OUT=1 build, "
-                                  "three TF32 products"),
+    "highest": (mf.mf_cc_highest, "kernel #1 csrc/mf_highest.cu, three "
+                                  "TF32 products by mma.sync"),
     "high": (mf.mf_cc_split, "kernel #2 csrc/mf_split.cu, three bf16 "
                              "products"),
-    "default": (mf.mf_cc, "kernel #1 csrc/mf.cu default build, three TF32 "
-                          "products (f32 class; one bf16 pass in the JAX "
-                          "package)"),
+    "default": (mf.mf_cc, "kernel #1 csrc/mf.cu default build, four TF32 "
+                          "products by wgmma (f32 class; one bf16 pass in "
+                          "the JAX package)"),
 }
 
 
@@ -220,7 +221,7 @@ def parity_oracles(x: dict, mf_only: bool = False) -> dict:
 
 def check_parity(quick: bool = False, device=None) -> bool:
     """Every kernel against the float64 oracles on bench.py's small
-    parity shapes: MF at 'highest' (kernel #1, MF_ACC_OUT=1 build),
+    parity shapes: MF at 'highest' (kernel #1, csrc/mf_highest.cu),
     'high' (kernel #2) and 'default' (kernel #1's default build), within
     5e-6; BP (kernel #3) at 'highest' and 'high' in both reduce modes
     (2e-5 / 2e-4, the argmax equal everywhere at 'highest' and at more
@@ -710,7 +711,7 @@ def main(argv=None) -> int:
         print(json.dumps({
             "metric": "tpu_kernel_parity",
             "value": 1 if ok else 0,
-            "unit": f"bool (MF kernels #1 both builds and #2, BP kernel #3, "
+            "unit": f"bool (MF kernels #1 both designs and #2, BP kernel #3, "
                     f"against the float64 oracles, on {card_label(dev)})",
             "vs_baseline": 1.0,
         }))

@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles every kernel of seismic_bpmf_tpu_torch/csrc with nvcc;
   3. the fused MF kernel (f32-class: TF32-split operands, tensor cores),
-     its 'highest' build and its default build ('default', 'screen'),
+     its 'highest' design (csrc/mf_highest.cu) and its default build
+     (csrc/mf.cu: a pre-pass and a `wgmma` ring; 'default', 'screen'),
      against its plain PyTorch version on the card, at full bank width (128
      templates x 10 stations x 3 components, L = 200, moveouts in
      [-50, 400)) on a 2^17-sample window with a zero-filled gap, f32 gate
@@ -20,9 +21,10 @@ Phases (any failure exits non-zero; nothing is caught):
   5. exactness: one day at 'highest' through `matched_filter_day`, whose
      plans launch the 'highest' build only, each detection's CC within
      1e-6 of the float64 oracle `ops.reference.matched_filter_at` (and,
-     checked after phase 11, closer than the `high` rung's); both builds'
-     day against the plain version, their times and their bound (three
-     TF32 products on the tensor cores, beside the f32 FMA figure);
+     checked after phase 11, closer than the `high` rung's); both kernels'
+     day against the plain version, their times, the default build's
+     pre-pass's time and their bound (three TF32 products on the tensor
+     cores, beside the f32 FMA figure);
   6. where a warm 'screen' day's time goes (host clock, torch.profiler);
   7. the BP kernel against its plain PyTorch version on the card at the
      BP configuration's width (100,000 lattice sources x 32 stations x 2
@@ -203,7 +205,7 @@ Phases (any failure exits non-zero; nothing is caught):
      `FAMILY_PICK_TOL` samples of the injected arrivals at
      `FAMILY_MIN_STATIONS` stations or more for each phase; ms a family.
  26. the sharded MF day (`parallel`, ROADMAP Queue 1 #19): phase 4's bank
-     and day 1 through both builds of kernel #1 and kernel #2, one launch
+     and day 1 through both designs of kernel #1 and kernel #2, one launch
      per (template shard, time shard) of two virtual meshes of the card,
      {"tp": 2, "time": 4} and the ragged {"tp": 3, "time": 5}; every
      rung's day equal to the unsharded kernel's bit for bit, and the 2 x 4
@@ -249,7 +251,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ending in "OK: all injected events recovered";
  31. the port's benchmark program in fresh processes:
      `python3 -m seismic_bpmf_tpu_torch bench --check` (every parity rung
-     of kernels #1 (both builds), #2 and #3), `python3 bench_torch.py`
+     of kernels #1 (both designs), #2 and #3), `python3 bench_torch.py`
      (the parity gate, the `high` headline and its four extras, written
      to a temporary file), `bench_torch.py --bp --budget-s 20` and
      `bench_torch.py --phasenet`; each must exit 0 with a JSON line last
@@ -470,7 +472,7 @@ def zero_counts():
     mf.mf_cc.launches = mf.matched_filter_plain.calls = 0
     mf.mf_cc_highest.launches = 0
     mf.mf_cc_split.launches = mf.matched_filter_split_plain.calls = 0
-    mf.split_day.launches = 0
+    mf.split_day.launches = mf.tf32_day.launches = 0
     bp.bp_beam.launches = bp.beamform_plain.calls = 0
     response.apply_spectral_filter.launches = 0
     stacking.svdwf_panels.launches = 0
@@ -588,8 +590,10 @@ results = workflow.scan_days(list(DATES), make_data, tg, cfg=cfg, **kw)
 wall = time.perf_counter() - t0
 launches = mf.mf_cc.launches
 plain_calls = mf.matched_filter_plain.calls
-if launches < 1 or plain_calls != 0 or mf.mf_cc_highest.launches:
+if (launches < 1 or plain_calls != 0 or mf.mf_cc_highest.launches
+        or mf.tf32_day.launches != launches):
     raise AssertionError(f"main path: {launches} kernel launches, "
+                         f"{mf.tf32_day.launches} of its pre-pass, "
                          f"{plain_calls} plain-version calls, "
                          f"{mf.mf_cc_highest.launches} of the highest build")
 for day, tid, o in REPEATS:
@@ -668,9 +672,11 @@ ref5 = ref                  # held against the kernel again in phase 13
 del got, ref, got5d
 ms = cuda_ms(lambda: plan(dp), 5)
 ms5d = cuda_ms(default5, 5)
-print(f"mf kernel, one day: highest build {ms:.2f} ms "
-      f"({macs / ms / 1e6:.0f} GMAC/s), default build {ms5d:.2f} ms "
-      f"({ms / ms5d:.3f} of it), "
+pre5 = cuda_ms(lambda: mf.tf32_day(dp, L), 5)
+print(f"mf kernel, one day: highest (csrc/mf_highest.cu) {ms:.2f} ms "
+      f"({macs / ms / 1e6:.0f} GMAC/s), default build (csrc/mf.cu) "
+      f"{ms5d:.2f} ms ({ms / ms5d:.3f} of it; its pre-pass {pre5:.3f} "
+      f"ms), "
       f"bound {bound_ms:.2f} ms ({bound_by}: 3 TF32 products at "
       f"{TF32_PEAK_FLOPS / 1e12:.0f} TFLOP/s; the f32 FMA figure "
       f"{fma_ms:.2f} ms), plain {plain_ms:.0f} ms; max|diff| from plain "
@@ -3291,7 +3297,7 @@ print(json.dumps({"kernels": [{
 }, {
     "name": "mf_cc_highest",
     "route": "cuda",
-    "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
+    "source": "seismic_bpmf_tpu_torch/csrc/mf_highest.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
     "launches": launches5,
     "max_abs_err": max(err, err3, err13_f32, errs26["highest"]),

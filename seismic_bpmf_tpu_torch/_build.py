@@ -133,14 +133,14 @@ def _finish(name: str, so: str, proc, tmp: str, t0: float,
 
 
 # the builds of a source that the package loads besides its default one:
-# name -> tuples of -D defines (csrc/mf.cu serves 'highest' from a build
-# that sums each k-step's products outside the tensor cores)
-VARIANTS = {"mf": [("MF_ACC_OUT=1",)]}
+# name -> tuples of -D defines (none: each source is one build; the tools'
+# sweeps build variants of their own, `build_variants`)
+VARIANTS: dict = {}
 
 
 def key(name: str, defines=()) -> str:
     """The name a build of `name` with -D `defines` is known by: the
-    source's name for its default build, else e.g. 'mf[MF_ACC_OUT=1]'."""
+    source's name for its default build, else e.g. 'mf[MF_STAGES=2]'."""
     return f"{name}[{','.join(defines)}]" if defines else name
 
 

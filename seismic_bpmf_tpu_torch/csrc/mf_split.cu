@@ -105,11 +105,6 @@
 #define MFS_PP_THREADS 256
 #define MFS_SMEM_LIMIT 232448
 
-// the f32 span is stored as it is
-struct MfsFlat {
-    __device__ static __forceinline__ int at(int i) { return i; }
-};
-
 struct MfsLayout {
     int K, row, span, n_y4, stages;
     int o_lo, o_f, o_y, o_mv, f_bytes, stage_bytes;
@@ -271,6 +266,22 @@ __device__ __forceinline__ void fence_acc(float (&d)[32])
     for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// stores one window start's bf16 parts and y
+struct MfsPut {
+    __nv_bfloat16* dh;
+    __nv_bfloat16* dl;
+    float* y;
+    long long o;
+    __device__ __forceinline__ void operator()(int i, float v,
+                                               float yv) const
+    {
+        const __nv_bfloat16 h = __float2bfloat16_rn(v);
+        dh[o + i] = h;
+        dl[o + i] = __float2bfloat16_rn(v - __bfloat162float(h));
+        y[o + i] = yv;
+    }
+};
+
 // y and the bf16 parts of every window start of the padded day:
 // (n_ch, ext_al) each, zero parts beyond ext
 __global__ void __launch_bounds__(MFS_PP_THREADS)
@@ -279,29 +290,12 @@ mf_split_prepass(const float* __restrict__ data, long long ext,
                  __nv_bfloat16* __restrict__ dl, float* __restrict__ y)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* d_s = reinterpret_cast<float*>(smem_raw);   // MFS_PP + L + 16
-    float* s1 = d_s + MFS_PP + L + 16;                  // MFS_PP + L each
-    float* s2 = s1 + MFS_PP + L;
-    float* y_s = s2 + MFS_PP + L;                       // MFS_PP
     const int c = blockIdx.y;
     const long long p0 = (long long)blockIdx.x * MFS_PP;
-    const float* drow = data + (long long)c * ext;
-    for (int i = threadIdx.x; i < MFS_PP + L + 16; i += MFS_PP_THREADS) {
-        const long long gi = p0 + i;
-        d_s[i] = gi < ext ? drow[gi] : 0.0f;
-    }
-    __syncthreads();
-    mf_window_y<MFS_YG, MfsFlat>(d_s, s1, s2, y_s, MFS_PP, L, threadIdx.x,
-                                 MFS_PP_THREADS);
-    const long long o = (long long)c * ext_al + p0;
-    for (int i = threadIdx.x; i < MFS_PP && p0 + i < ext_al;
-         i += MFS_PP_THREADS) {
-        const float v = d_s[i];
-        const __nv_bfloat16 h = __float2bfloat16_rn(v);
-        dh[o + i] = h;
-        dl[o + i] = __float2bfloat16_rn(v - __bfloat162float(h));
-        y[o + i] = y_s[i];
-    }
+    const MfsPut put{dh, dl, y, (long long)c * ext_al + p0};
+    mf_prepass_block<MFS_YG, MFS_PP, MFS_PP_THREADS>(
+        data + (long long)c * ext, ext, ext_al, p0, L,
+        reinterpret_cast<float*>(smem_raw), put);
 }
 
 __global__ void __launch_bounds__(MFS_THREADS, 1)
@@ -570,7 +564,7 @@ int mf_split_row_width(int L) { return mfs_row(L); }
 
 long long mf_split_prepass_smem_bytes(int L)
 {
-    return 4LL * (4 * MFS_PP + 3 * L + 16);
+    return 4LL * mf_prepass_floats(MFS_PP, L);
 }
 
 // The pre-pass on `stream`: y, hi and lo of every window start, (n_ch,

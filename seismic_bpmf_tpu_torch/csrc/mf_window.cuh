@@ -1,7 +1,7 @@
-// The matched-filter kernels' normalization, shared by csrc/mf.cu and
-// csrc/mf_split.cu: y(p) = rsqrt(r2 - r1^2 / L) from the L-sample window
-// sums r1, r2 of a staged f32 data span, 0 where the window variance is
-// <= 1e-10 (so zero-filled gaps give CC = 0).
+// The matched-filter kernels' normalization, shared by csrc/mf.cu,
+// csrc/mf_highest.cu and csrc/mf_split.cu: y(p) = rsqrt(r2 - r1^2 / L)
+// from the L-sample window sums r1, r2 of a staged f32 data span, 0 where
+// the window variance is <= 1e-10 (so zero-filled gaps give CC = 0).
 
 #pragma once
 
@@ -49,4 +49,42 @@ __device__ __forceinline__ void mf_window_y(const float* d_s, float* s1_s,
         y_s[YSkew::at(p)] = (var > 1e-10f) ? rsqrtf(fabsf(var) + 1e-30f) : 0.0f;
     }
     __syncthreads();
+}
+
+// a staged span stored as it is
+struct MfwFlat {
+    __device__ static __forceinline__ int at(int i) { return i; }
+};
+
+// Floats of shared memory one block of `mf_prepass_block` needs.
+__host__ __device__ inline int mf_prepass_floats(int PP, int L)
+{
+    return 4 * PP + 3 * L + 16;
+}
+
+// One block of a day's pre-pass (the split kernels' `*_prepass`): stages
+// the window starts [p0, p0 + PP) of one padded channel row `drow` and the
+// L + 16 samples after them (zeros at and past ext), computes y of each
+// start with `mf_window_y`, and calls put(i, v, y) for every start i with
+// p0 + i < ext_al, v the f32 sample at p0 + i.  y at p reads the samples
+// from p on only, in the same partial order wherever the span starts, so
+// it has the bits a per-span computation gives.  `smem` holds
+// `mf_prepass_floats(PP, L)` floats.
+template <int YG, int PP, int THREADS, typename Put>
+__device__ __forceinline__ void mf_prepass_block(
+    const float* __restrict__ drow, long long ext, long long ext_al,
+    long long p0, int L, float* smem, const Put& put)
+{
+    float* d_s = smem;                                 // PP + L + 16
+    float* s1 = d_s + PP + L + 16;                     // PP + L each
+    float* s2 = s1 + PP + L;
+    float* y_s = s2 + PP + L;                          // PP
+    for (int i = threadIdx.x; i < PP + L + 16; i += THREADS) {
+        const long long gi = p0 + i;
+        d_s[i] = gi < ext ? drow[gi] : 0.0f;
+    }
+    __syncthreads();
+    mf_window_y<YG, MfwFlat>(d_s, s1, s2, y_s, PP, L, threadIdx.x, THREADS);
+    for (int i = threadIdx.x; i < PP && p0 + i < ext_al; i += THREADS)
+        put(i, d_s[i], y_s[i]);
 }

@@ -8,19 +8,27 @@ data window that starts at ``lag + moveout``; zero-variance windows
 
 The CUDA kernels read each template channel at its moveout as a pointer
 offset, so the plan keeps the demeaned, weight-over-norm scaled template
-rows as they are, plus a per-(channel, template) moveout table.  Both
-kernels split every product operand in two parts and run the three
-products fh*dh + (fh*dl + fl*dh) on the tensor cores with f32
-accumulation; the window normalization comes from the unsplit f32 data.
-There is one kernel per split:
+rows as they are, plus a per-(channel, template) moveout table.  The
+kernels split every product operand in two parts and run the products of
+the parts on the tensor cores with f32 accumulation; the window
+normalization comes from the unsplit f32 data.  There is one kernel per
+split and accumulation:
 
   `mf_cc` (`csrc/mf.cu`): TF32 parts (`split_tf32`, 11 significant bits
-  each, f32-class accuracy); the rung 'default' (and the 'screen' scan,
-  which runs 'default' on a bf16-rounded day).  `mf_cc_highest` is the
-  rung 'highest': the same source built with MF_ACC_OUT=1, which sums
-  each k-step's products outside the tensor cores' accumulator (their
-  additions truncate; see csrc/mf.cu).  `matched_filter_plain` is the
-  same function in plain PyTorch.
+  each, f32-class accuracy), the four products (fh*dh + fh*dl) + (fl*dh +
+  fl*dl); the rung 'default' (and the 'screen' scan, which runs 'default'
+  on a bf16-rounded day).  A pre-pass (`tf32_day`) splits the day and
+  computes its window normalization once a call; the main kernel reads
+  them through a ring of shared-memory stages into `wgmma`.
+  `matched_filter_plain` is the same function in plain PyTorch,
+  `tf32_day_plain` the pre-pass's.
+
+  `mf_cc_highest` (`csrc/mf_highest.cu`): the rung 'highest', the same
+  TF32 parts and plan tensors, three products (fh*dh + fh*dl + fl*dh) by
+  `mma.sync`, each k-step's products summed outside the tensor cores'
+  accumulator (their additions truncate; see csrc/mf_highest.cu).  Its
+  plain version is `matched_filter_plain` too, which adds the fl*dl term
+  (~2^-22 of a product) the kernel drops.
 
   `mf_cc_split` (`csrc/mf_split.cu`): bf16 parts (`split_bf16`); the rung
   'high'.  A pre-pass (`split_day`) splits the day and computes its window
@@ -28,9 +36,9 @@ There is one kernel per split:
   shared-memory stages.  `matched_filter_split_plain` is the same function
   in plain PyTorch, `split_day_plain` the pre-pass's.
 
-The plan splits the template rows once and lays them out as the kernel
-stages them (`stage_tf32_rows`, `stage_split_rows`); csrc/mf.cu splits the
-day span by span.
+The plan splits the template rows once and lays them out as the kernels
+read them (`stage_tf32_rows`, `stage_split_rows`); csrc/mf_highest.cu
+splits the day span by span.
 
 A wrapper uses its plain version only for tensors on the CPU.
 
@@ -50,11 +58,17 @@ import torch
 
 from .._device import resolve_device
 
-LAG_TILE = 512       # lags per kernel block (MF_T in csrc/mf.cu)
-TEMPLATE_TILE = 32   # templates per kernel block of csrc/mf.cu (MF_TP) and
-                     # per `tile_lo` entry of both kernels (MFS_TILE)
-TF32_K_STEP = 8      # taps per k-step of csrc/mf.cu: K = round_up(L + 7, 8)
-SPLIT_ROW_FRONT = 8  # zeros in front of a staged TF32 row (MF_FRONT)
+LAG_TILE = 2048      # lags per block of csrc/mf.cu (MF_T)
+TEMPLATE_TILE = 32   # templates per `tile_lo` entry of every kernel (MF_TILE,
+                     # MFS_TILE) and per block of csrc/mf_highest.cu (MF_TP)
+BLOCK_TEMPLATES = 4  # templates per block of csrc/mf.cu (MF_TPB)
+TF32_K_STEP = 8      # taps per k-step of the TF32 kernels: K = round_up(L +
+                     # 34, 8) in csrc/mf.cu, round_up(L + 7, 8) in
+                     # csrc/mf_highest.cu
+SPLIT_ROW_FRONT = 8  # zeros in front of a plan's TF32 row (MF_GFRONT)
+ROW_FRONT = 40       # zeros in front of a row staged by csrc/mf.cu (MF_FRONT)
+STAGES = 4           # csrc/mf.cu's deepest ring (MF_STAGES)
+HIGHEST_LAG_TILE = 512   # lags per block of csrc/mf_highest.cu (MF_T)
 SPLIT_LAG_TILE = 4096   # lags per block of the split kernel (MFS_T)
 SPLIT_BLOCK_TEMPLATES = 4  # templates per block of the split kernel (MFS_TPB)
 SPLIT_ROW_OFF = 72   # zeros in front of a staged split row (MFS_OFF)
@@ -69,20 +83,62 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _tf32_row_width(L: int) -> int:
-    """KP of csrc/mf.cu: K = round_up(L + 7, 8) taps and 8 zeros in front."""
+    """Elements of a plan's TF32 row (`mf_grow`, csrc/mf_highest.cu's KP):
+    round_up(L + 7, 8) taps' room and 8 zeros in front."""
     return _round_up(L + 7, TF32_K_STEP) + SPLIT_ROW_FRONT
 
 
-def _skewed_words(n: int) -> int:
-    """Words a span of n elements takes in csrc/mf.cu's skewed layout
-    (MF_SK(n) + 4: 4 pad words after every LAG_TILE / 8)."""
-    return n + 4 * (n // (LAG_TILE // 8)) + 4
+def _k_taps(L: int) -> int:
+    """Taps of csrc/mf.cu's k-loop (`mf_k`): every shift s < 32 and
+    16-byte phase delta < 4 of an L-tap row, in steps of 8."""
+    return _round_up(L + 34, TF32_K_STEP)
+
+
+def _row_width(L: int) -> int:
+    """Elements of a template row staged by csrc/mf.cu (`mf_row`):
+    ROW_FRONT zeros, then room for K taps."""
+    return _k_taps(L) + ROW_FRONT
+
+
+def _stage_bytes(L: int, max_delta: int) -> int:
+    """Bytes of one ring stage of csrc/mf.cu (`mf_layout_n`): the data
+    span's hi and lo parts (1 KB aligned each), the block's template rows,
+    y with 8 pad words after every 64, the moveouts."""
+    span = _round_up(max_delta + 4 + 32 * 63 + _k_taps(L), 32)
+    pb = _round_up(4 * span, 1024)
+    n_y4 = _round_up(max_delta + 4 + LAG_TILE, 4)
+    y_words = n_y4 + 8 * (-(-n_y4 // 64))
+    f_bytes = BLOCK_TEMPLATES * 2 * 4 * _row_width(L)
+    return _round_up(2 * pb + f_bytes + 4 * y_words + 4 * BLOCK_TEMPLATES,
+                     1024)
+
+
+def stages(L: int, max_delta: int) -> int:
+    """Stages of csrc/mf.cu's ring at these sizes: the deepest up to STAGES
+    that fits shared memory, else 1 (`mf_layout`)."""
+    stage = _stage_bytes(L, max_delta)
+    for n in range(STAGES, 1, -1):
+        if 1024 + n * (stage + 16) <= SMEM_LIMIT:
+            return n
+    return 1
 
 
 def _smem_bytes(L: int, max_delta: int) -> int:
-    """Mirror of `mf_smem_bytes` in csrc/mf.cu."""
+    """Mirror of `mf_smem_bytes` in csrc/mf.cu: the ring at `stages`, its
+    1 KB alignment and mbarriers."""
+    return 1024 + stages(L, max_delta) * (_stage_bytes(L, max_delta) + 16)
+
+
+def _skewed_words(n: int) -> int:
+    """Words a span of n elements takes in csrc/mf_highest.cu's skewed
+    layout (MF_SK(n) + 4: 4 pad words after every HIGHEST_LAG_TILE / 8)."""
+    return n + 4 * (n // (HIGHEST_LAG_TILE // 8)) + 4
+
+
+def _highest_smem_bytes(L: int, max_delta: int) -> int:
+    """Mirror of `mf_highest_smem_bytes` in csrc/mf_highest.cu."""
     KP = _tf32_row_width(L)
-    n_y = LAG_TILE + max_delta
+    n_y = HIGHEST_LAG_TILE + max_delta
     span = n_y + KP - SPLIT_ROW_FRONT + 8     # + 8: the loads issued ahead
     n_sum = n_y + L
     return (4 * 2 * TEMPLATE_TILE * KP
@@ -167,31 +223,67 @@ def _lib_split():
     return lib
 
 
-ACC_OUT = ("MF_ACC_OUT=1",)  # the -D defines of csrc/mf.cu's 'highest' build
-
-
-def _lib(defines=()):
+def _lib():
     from .. import _build
 
-    lib = _build.load("mf", defines)
-    if _build.key("mf", defines) not in _BOUND:
+    lib = _build.load("mf")
+    if "mf" not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32, i32,
-                                  i32, i64, i64, i64, i32, vp]
+        lib.mf_prepass_launch.argtypes = [vp, i64, i64, i32, i32, vp, vp,
+                                          vp, vp]
+        lib.mf_prepass_launch.restype = i32
+        lib.mf_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, i32, i32,
+                                  i32, i32, i64, i64, i64, i32, vp]
         lib.mf_launch.restype = i32
         lib.mf_smem_bytes.argtypes = [i32, i32]
         lib.mf_smem_bytes.restype = i64
         lib.mf_error_string.argtypes = [i32]
         lib.mf_error_string.restype = ctypes.c_char_p
-        for fn in (lib.mf_tile_lags, lib.mf_tile_templates):
+        lib.mf_stages.argtypes = [i32, i32]
+        lib.mf_row_width.argtypes = lib.mf_plan_row_width.argtypes = [i32]
+        lib.mf_stages.restype = lib.mf_row_width.restype = i32
+        lib.mf_plan_row_width.restype = i32
+        for fn in (lib.mf_tile_lags, lib.mf_tile_templates,
+                   lib.mf_block_templates):
             fn.argtypes, fn.restype = [], i32
         if (lib.mf_tile_lags() != LAG_TILE
                 or lib.mf_tile_templates() != TEMPLATE_TILE
-                or lib.mf_smem_bytes(200, 450) != _smem_bytes(200, 450)
-                or lib.mf_smem_bytes(37, 3) != _smem_bytes(37, 3)):
+                or lib.mf_block_templates() != BLOCK_TEMPLATES
+                or any(lib.mf_row_width(L) != _row_width(L)
+                       or lib.mf_plan_row_width(L) != _tf32_row_width(L)
+                       for L in (37, 200))
+                or any(lib.mf_smem_bytes(L, d) != _smem_bytes(L, d)
+                       or lib.mf_stages(L, d) != stages(L, d)
+                       for L, d in ((200, 450), (37, 3), (200, 9000)))):
             raise RuntimeError("csrc/mf.cu and ops/mf.py disagree on the "
                                "kernel's tile sizes")
-        _BOUND.add(_build.key("mf", defines))
+        _BOUND.add("mf")
+    return lib
+
+
+def _lib_highest():
+    from .. import _build
+
+    lib = _build.load("mf_highest")
+    if "mf_highest" not in _BOUND:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mf_highest_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32,
+                                          i32, i32, i64, i64, i64, i32, vp]
+        lib.mf_highest_launch.restype = i32
+        lib.mf_highest_smem_bytes.argtypes = [i32, i32]
+        lib.mf_highest_smem_bytes.restype = i64
+        lib.mf_highest_error_string.argtypes = [i32]
+        lib.mf_highest_error_string.restype = ctypes.c_char_p
+        for fn in (lib.mf_highest_tile_lags, lib.mf_highest_tile_templates):
+            fn.argtypes, fn.restype = [], i32
+        if (lib.mf_highest_tile_lags() != HIGHEST_LAG_TILE
+                or lib.mf_highest_tile_templates() != TEMPLATE_TILE
+                or any(lib.mf_highest_smem_bytes(L, d)
+                       != _highest_smem_bytes(L, d)
+                       for L, d in ((200, 450), (37, 3)))):
+            raise RuntimeError("csrc/mf_highest.cu and ops/mf.py disagree "
+                               "on the kernel's tile sizes")
+        _BOUND.add("mf_highest")
     return lib
 
 
@@ -250,11 +342,13 @@ def split_bf16(x: torch.Tensor) -> tuple:
 
 def stage_tf32_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
                     L: int) -> torch.Tensor:
-    """The f32-class kernel's template rows as it stages them in shared
-    memory: (n_ch, n_tiles, 2, TEMPLATE_TILE, KP) f32 with KP =
-    round_up(L + 7, 8) + 8.  Axis 2 is (hi, lo), the TF32 parts; each row
-    is 8 zeros, the L taps, zeros.  One (channel, tile) block is one
-    contiguous copy into the kernel's shared memory."""
+    """The f32-class kernels' template rows: (n_ch, n_tiles, 2,
+    TEMPLATE_TILE, KP) f32 with KP = round_up(L + 7, 8) + 8.  Axis 2 is
+    (hi, lo), the TF32 parts; each row is 8 zeros, the L taps, zeros.  One
+    (channel, tile) block is one contiguous copy into csrc/mf_highest.cu's
+    shared memory; csrc/mf.cu copies a block's 4 templates' rows into its
+    stage, each ROW_FRONT - 8 elements into a zeroed row of
+    `_row_width(L)`."""
     n_ch, n_tp_pad = filt_hi.shape[:2]
     n_tiles = n_tp_pad // TEMPLATE_TILE
     rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, _tf32_row_width(L)),
@@ -303,15 +397,15 @@ def split_rows_parts(filt_rows: torch.Tensor, L: int) -> tuple:
 
 
 def _parts_plain(split, data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
-                 L: int, n_corr: int, lo_p: int, hi_p: int,
-                 lag_block: int) -> torch.Tensor:
+                 L: int, n_corr: int, lo_p: int, hi_p: int, lag_block: int,
+                 lolo: bool) -> torch.Tensor:
     """The scan of both plain versions: the day split as the kernel splits
-    it (`split`), the three products fh*dh + (fh*dl + fl*dh) as f32 matrix
-    products of the parts (each product exact in f32; needs
-    ``torch.backends.cuda.matmul.allow_tf32`` False, the default), the
-    normalization y from the unsplit f32 day, the mask, and the sum over
-    channels.  Chunked over `lag_block` lags: one unfolded day would not
-    fit in memory."""
+    it (`split`), the products of the parts as f32 matrix products (each
+    product exact in f32; needs ``torch.backends.cuda.matmul.allow_tf32``
+    False, the default), (fh*dh + fh*dl) + (fl*dh + fl*dl) with `lolo`,
+    else fh*dh + (fh*dl + fl*dh), the normalization y from the unsplit f32
+    day, the mask, and the sum over channels.  Chunked over `lag_block`
+    lags: one unfolded day would not fit in memory."""
     n_ch, ext = data_pad.shape
     dev = data_pad.device
     out = torch.zeros((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
@@ -337,9 +431,14 @@ def _parts_plain(split, data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
             ok = (p >= lo_p) & (p <= hi_p)
             pc = p.clamp(0, n_pos - 1)
             wh, wl = w_hi[pc], w_lo[pc]
-            corr = (torch.matmul(wh, f_hi)
-                    + (torch.matmul(wl, f_hi) + torch.matmul(wh, f_lo))
-                    )[..., 0]
+            if lolo:
+                corr = ((torch.matmul(wh, f_hi) + torch.matmul(wl, f_hi))
+                        + (torch.matmul(wh, f_lo) + torch.matmul(wl, f_lo))
+                        )[..., 0]
+            else:
+                corr = (torch.matmul(wh, f_hi)
+                        + (torch.matmul(wl, f_hi) + torch.matmul(wh, f_lo))
+                        )[..., 0]
             val = torch.where(ok, corr * y[pc], torch.zeros_like(corr))
             out[act, b0 : b0 + b.numel()] += val
     return out
@@ -348,17 +447,19 @@ def _parts_plain(split, data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
 def matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
                          L: int, n_corr: int, lo_p: int, hi_p: int,
                          lag_block: int = 4096) -> torch.Tensor:
-    """Plain PyTorch version of the f32-class kernel, on the tensors'
+    """Plain PyTorch version of the f32-class kernels, on the tensors'
     device.
 
     data_pad (n_ch, ext) f32; filt_hi, filt_lo (n_ch, n_tp_pad, >= L) f32,
     the two TF32 parts of the scaled template rows (`split_tf32`); mv_table
     (n_ch, n_tp_pad) int32 padded moveouts, -1 for a channel that adds
-    nothing.  The day is split with `split_tf32`."""
+    nothing.  The day is split with `split_tf32`; the four products (fh*dh
+    + fh*dl) + (fl*dh + fl*dl) are csrc/mf.cu's (csrc/mf_highest.cu drops
+    fl*dl, ~2^-22 of a product)."""
     matched_filter_plain.calls += 1
     return _parts_plain(split_tf32, data_pad, filt_hi, filt_lo, mv_table,
                         n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                        lag_block=lag_block)
+                        lag_block=lag_block, lolo=True)
 
 
 matched_filter_plain.calls = 0
@@ -370,19 +471,11 @@ def _check_launch(lib, prefix: str, rc: int) -> None:
         raise RuntimeError(f"{prefix} kernel launch failed: {err}")
 
 
-def _mf_cc(wrapper, defines, data_pad, filt_rows, mv_table, tile_lo, *,
-           n_tp, L, n_corr, lo_p, hi_p, max_delta, lag_block):
-    """`mf_cc` and `mf_cc_highest`: the plain version on CPU tensors, else
-    the launch of csrc/mf.cu's build with -D `defines`, counted on
-    `wrapper`."""
-    if data_pad.device.type == "cpu":
-        filt_hi, filt_lo = tf32_rows_parts(filt_rows, L)
-        return matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table,
-                                    n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
-                                    hi_p=hi_p, lag_block=lag_block)
-    if data_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {data_pad.device}")
-    n_ch, ext = data_pad.shape
+def _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, *, n_tp, L,
+                     max_delta, smem_bytes) -> None:
+    """Raises ValueError on a 'highest'/'default' plan's tensors that the
+    TF32 kernels do not take."""
+    n_ch = data_pad.shape[0]
     _check_plan_tensors(data_pad, (("data_pad", data_pad, torch.float32),
                                    ("filt_rows", filt_rows, torch.float32),
                                    ("mv_table", mv_table, torch.int32),
@@ -395,25 +488,16 @@ def _mf_cc(wrapper, defines, data_pad, filt_rows, mv_table, tile_lo, *,
             or n_tp > n_tp_pad
             or tuple(tile_lo.shape) != (n_ch, n_tp_pad // TEMPLATE_TILE)):
         raise ValueError("inconsistent matched-filter plan shapes")
-    if _smem_bytes(L, max_delta) > SMEM_LIMIT:
+    if smem_bytes(L, max_delta) > SMEM_LIMIT:
         raise ValueError("moveout span too wide for one kernel tile")
-    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
-                      device=data_pad.device)
-    if n_corr <= 0:
-        return out
-    lib = _lib(defines)
-    with torch.cuda.device(data_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mf_launch(
-            data_pad.data_ptr(), ext, filt_rows.data_ptr(),
-            mv_table.data_ptr(), tile_lo.data_ptr(), out.data_ptr(), n_ch,
-            n_tp, n_tp_pad, L, int(n_corr), int(lo_p), int(hi_p),
-            int(max_delta), stream,
-        )
-    _check_launch(lib, "mf", rc)
-    wrapper.launches += 1
-    wrapper.launches_on[data_pad.device.index] += 1
-    return out
+
+
+def _tf32_plain(data_pad, filt_rows, mv_table, *, n_tp, L, n_corr, lo_p,
+                hi_p, lag_block):
+    filt_hi, filt_lo = tf32_rows_parts(filt_rows, L)
+    return matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table,
+                                n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
+                                hi_p=hi_p, lag_block=lag_block)
 
 
 def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
@@ -424,11 +508,35 @@ def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
     rows' two TF32 parts as `stage_tf32_rows` lays them out.
 
     On CPU tensors this is `matched_filter_plain`; on CUDA tensors it
-    launches the default build of csrc/mf.cu (each channel's products
-    chained through the tensor cores' accumulator) or raises."""
-    return _mf_cc(mf_cc, (), data_pad, filt_rows, mv_table, tile_lo,
-                  n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                  max_delta=max_delta, lag_block=lag_block)
+    launches csrc/mf.cu's pre-pass (`tf32_day`) and then its main kernel
+    on the pre-pass's arrays, or raises."""
+    if data_pad.device.type == "cpu":
+        return _tf32_plain(data_pad, filt_rows, mv_table, n_tp=n_tp, L=L,
+                           n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                           lag_block=lag_block)
+    if data_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {data_pad.device}")
+    _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, n_tp=n_tp, L=L,
+                     max_delta=max_delta, smem_bytes=_smem_bytes)
+    n_ch = data_pad.shape[0]
+    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
+                      device=data_pad.device)
+    if n_corr <= 0:
+        return out
+    hi, lo, y = tf32_day(data_pad, L)
+    lib = _lib()
+    with torch.cuda.device(data_pad.device):
+        rc = lib.mf_launch(
+            hi.data_ptr(), lo.data_ptr(), y.data_ptr(), hi.shape[1],
+            filt_rows.data_ptr(), mv_table.data_ptr(), tile_lo.data_ptr(),
+            out.data_ptr(), n_ch, n_tp, mv_table.shape[1], L, int(n_corr),
+            int(lo_p), int(hi_p), int(max_delta),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(lib, "mf", rc)
+    mf_cc.launches += 1
+    mf_cc.launches_on[data_pad.device.index] += 1
+    return out
 
 
 mf_cc.launches = 0
@@ -438,13 +546,35 @@ mf_cc.launches_on = collections.Counter()   # by card index
 def mf_cc_highest(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
                   L: int, n_corr: int, lo_p: int, hi_p: int, max_delta: int,
                   lag_block: int = 4096) -> torch.Tensor:
-    """`mf_cc` for a 'highest' plan: on CUDA tensors it launches the
-    MF_ACC_OUT build of csrc/mf.cu (each k-step's products summed from
-    zero on the tensor cores, the partials added in round-to-nearest f32)
-    or raises; on CPU tensors it is `matched_filter_plain`."""
-    return _mf_cc(mf_cc_highest, ACC_OUT, data_pad, filt_rows, mv_table,
-                  tile_lo, n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
-                  hi_p=hi_p, max_delta=max_delta, lag_block=lag_block)
+    """`mf_cc` for a 'highest' plan: on CUDA tensors it launches
+    csrc/mf_highest.cu (each k-step's products summed from zero on the
+    tensor cores, the partials added in round-to-nearest f32) or raises; on
+    CPU tensors it is `matched_filter_plain`."""
+    if data_pad.device.type == "cpu":
+        return _tf32_plain(data_pad, filt_rows, mv_table, n_tp=n_tp, L=L,
+                           n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                           lag_block=lag_block)
+    if data_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {data_pad.device}")
+    _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, n_tp=n_tp, L=L,
+                     max_delta=max_delta, smem_bytes=_highest_smem_bytes)
+    n_ch, ext = data_pad.shape
+    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
+                      device=data_pad.device)
+    if n_corr <= 0:
+        return out
+    lib = _lib_highest()
+    with torch.cuda.device(data_pad.device):
+        rc = lib.mf_highest_launch(
+            data_pad.data_ptr(), ext, filt_rows.data_ptr(),
+            mv_table.data_ptr(), tile_lo.data_ptr(), out.data_ptr(), n_ch,
+            n_tp, mv_table.shape[1], L, int(n_corr), int(lo_p), int(hi_p),
+            int(max_delta), torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(lib, "mf_highest", rc)
+    mf_cc_highest.launches += 1
+    mf_cc_highest.launches_on[data_pad.device.index] += 1
+    return out
 
 
 mf_cc_highest.launches = 0
@@ -463,7 +593,7 @@ def matched_filter_split_plain(data_pad, filt_hi, filt_lo, mv_table, *,
     matched_filter_split_plain.calls += 1
     return _parts_plain(split_bf16, data_pad, filt_hi, filt_lo, mv_table,
                         n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                        lag_block=lag_block)
+                        lag_block=lag_block, lolo=False)
 
 
 matched_filter_split_plain.calls = 0
@@ -479,22 +609,22 @@ def _fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def split_day_plain(data_pad: torch.Tensor, L: int) -> tuple:
-    """Plain PyTorch version of the split kernel's pre-pass, on the
-    tensor's device: (hi, lo, y), each (n_ch, ext_al) with ext_al = ext
-    rounded up to SPLIT_ALIGN.  hi, lo = `split_bf16` of the day (zeros
-    past ext); y[c, p] = rsqrt of the L-sample window's f32 variance sum
-    at p (0 where it is <= 1e-10), the data read as zeros past ext, summed
-    in csrc/mf_window.cuh's order: SPLIT_YG-sample partials of sums and
-    fused squares, the partials in turn, the last L mod SPLIT_YG samples
-    one by one, var = fma(-r1 * r1, 1 / L, r2), and the reciprocal square
-    root rounded once (the card's ``rsqrtf`` lies within 2 ulp of it)."""
+def _day_plain(split, data_pad: torch.Tensor, L: int) -> tuple:
+    """The pre-passes' plain version: (hi, lo, y), each (n_ch, ext_al)
+    with ext_al = ext rounded up to SPLIT_ALIGN; hi, lo = `split` of the
+    day (zeros past ext); y[c, p] = rsqrt of the L-sample window's f32
+    variance sum at p (0 where it is <= 1e-10), the data read as zeros past
+    ext, summed in csrc/mf_window.cuh's order: SPLIT_YG-sample partials of
+    sums and fused squares, the partials in turn, the last L mod SPLIT_YG
+    samples one by one, var = fma(-r1 * r1, 1 / L, r2), and the reciprocal
+    square root rounded once (the card's ``rsqrtf`` lies within 2 ulp of
+    it)."""
     n_ch, ext = data_pad.shape
     n = _round_up(ext, SPLIT_ALIGN)
     d = torch.zeros((n_ch, n + L + SPLIT_YG), dtype=torch.float32,
                     device=data_pad.device)
     d[:, :ext] = data_pad
-    hi, lo = split_bf16(d[:, :n])
+    hi, lo = split(d[:, :n])
     n_grp = L // SPLIT_YG
     n_s = n + max(n_grp - 1, 0) * SPLIT_YG
     s1 = torch.zeros((n_ch, n_s), dtype=torch.float32, device=d.device)
@@ -519,6 +649,31 @@ def split_day_plain(data_pad: torch.Tensor, L: int) -> tuple:
     return hi, lo, y
 
 
+def split_day_plain(data_pad: torch.Tensor, L: int) -> tuple:
+    """Plain PyTorch version of the split kernel's pre-pass, on the
+    tensor's device: (hi, lo, y) as `_day_plain` describes them, hi and lo
+    the `split_bf16` of the day."""
+    return _day_plain(split_bf16, data_pad, L)
+
+
+def tf32_day_plain(data_pad: torch.Tensor, L: int) -> tuple:
+    """Plain PyTorch version of csrc/mf.cu's pre-pass, on the tensor's
+    device: (hi, lo, y) as `_day_plain` describes them, hi and lo the
+    `split_tf32` of the day (f32)."""
+    return _day_plain(split_tf32, data_pad, L)
+
+
+def _day_arrays(data_pad: torch.Tensor, dtype) -> tuple:
+    _check_plan_tensors(data_pad, (("data_pad", data_pad, torch.float32),))
+    n_ch, ext = data_pad.shape
+    n = _round_up(ext, SPLIT_ALIGN)
+    dev = data_pad.device
+    hi = torch.empty((n_ch, n), dtype=dtype, device=dev)
+    return hi, torch.empty_like(hi), torch.empty((n_ch, n),
+                                                 dtype=torch.float32,
+                                                 device=dev)
+
+
 def split_day(data_pad: torch.Tensor, L: int) -> tuple:
     """The split kernel's pre-pass: (hi, lo, y) of the padded day as
     `split_day_plain` describes them.  On a CPU tensor this is
@@ -528,17 +683,12 @@ def split_day(data_pad: torch.Tensor, L: int) -> tuple:
         return split_day_plain(data_pad, L)
     if data_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {data_pad.device}")
-    _check_plan_tensors(data_pad, (("data_pad", data_pad, torch.float32),))
+    hi, lo, y = _day_arrays(data_pad, torch.bfloat16)
     n_ch, ext = data_pad.shape
-    n = _round_up(ext, SPLIT_ALIGN)
-    dev = data_pad.device
-    hi = torch.empty((n_ch, n), dtype=torch.bfloat16, device=dev)
-    lo = torch.empty_like(hi)
-    y = torch.empty((n_ch, n), dtype=torch.float32, device=dev)
     lib = _lib_split()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(data_pad.device):
         rc = lib.mf_split_prepass_launch(
-            data_pad.data_ptr(), ext, n, n_ch, L, hi.data_ptr(),
+            data_pad.data_ptr(), ext, hi.shape[1], n_ch, L, hi.data_ptr(),
             lo.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _check_launch(lib, "mf_split", rc)
@@ -547,6 +697,32 @@ def split_day(data_pad: torch.Tensor, L: int) -> tuple:
 
 
 split_day.launches = 0
+
+
+def tf32_day(data_pad: torch.Tensor, L: int) -> tuple:
+    """csrc/mf.cu's pre-pass: (hi, lo, y) of the padded day as
+    `tf32_day_plain` describes them, (n_ch, ext_al) f32 each.  On a CPU
+    tensor this is `tf32_day_plain`; on a CUDA tensor it launches
+    `mf_prepass` of csrc/mf.cu (counted on `tf32_day.launches`) or
+    raises."""
+    if data_pad.device.type == "cpu":
+        return tf32_day_plain(data_pad, L)
+    if data_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {data_pad.device}")
+    hi, lo, y = _day_arrays(data_pad, torch.float32)
+    n_ch, ext = data_pad.shape
+    lib = _lib()
+    with torch.cuda.device(data_pad.device):
+        rc = lib.mf_prepass_launch(
+            data_pad.data_ptr(), ext, hi.shape[1], n_ch, L, hi.data_ptr(),
+            lo.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, "mf", rc)
+    tf32_day.launches += 1
+    return hi, lo, y
+
+
+tf32_day.launches = 0
 
 
 def mf_cc_split(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
@@ -636,14 +812,15 @@ class MatchedFilterPlan:
     padded days.
 
     `precision` keeps the JAX package's rung names.  'highest' and
-    'default' run the f32-class kernel (`mf_cc_highest`, `mf_cc`: two
-    builds of csrc/mf.cu that differ in how they accumulate): the plan
-    splits the rows in two TF32 parts once (`split_tf32`) and keeps them
-    laid out as the kernel stages them (`filt_rows`, `stage_tf32_rows`;
-    `tf32_rows_parts` reads the parts back).  'high' runs the split kernel (`mf_cc_split`)
-    on bf16 parts (`split_bf16`, `stage_split_rows`, `split_rows_parts`).
-    Each kernel splits the day itself.  `lag_block` is the plain versions'
-    lag chunk."""
+    'default' run the f32-class kernels (`mf_cc_highest`,
+    csrc/mf_highest.cu, and `mf_cc`, csrc/mf.cu, which differ in how they
+    multiply and accumulate): the plan splits the rows in two TF32 parts
+    once (`split_tf32`) and keeps them laid out as both kernels read them
+    (`filt_rows`, `stage_tf32_rows`; `tf32_rows_parts` reads the parts
+    back).  'high' runs the split kernel (`mf_cc_split`) on bf16 parts
+    (`split_bf16`, `stage_split_rows`, `split_rows_parts`).  Each kernel
+    splits the day itself.  `lag_block` is the plain versions' lag
+    chunk."""
 
     def __init__(self, templates, moveouts, weights, n_samp: int,
                  lag_block: int = 4096, precision: str = "highest",
@@ -712,9 +889,8 @@ class MatchedFilterPlan:
         t_hi = np.where(used, tiles, -1).max(-1)
         any_used = used.any(-1)
         self.max_delta = int((t_hi - t_lo)[any_used].max(initial=0))
-        smem = (_split_smem_bytes(L, self.max_delta)
-                if precision == "high"
-                else _smem_bytes(L, self.max_delta))
+        smem = {"high": _split_smem_bytes, "highest": _highest_smem_bytes,
+                "default": _smem_bytes}[precision](L, self.max_delta)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"moveout span {self.max_delta} samples within a "

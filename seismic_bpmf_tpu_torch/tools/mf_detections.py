@@ -1,17 +1,21 @@
-"""Holds the `high` campaign's detections of one tree to another's.
+"""Holds an MF campaign's detections of one tree to another's.
 
     python -m seismic_bpmf_tpu_torch.tools.mf_detections \
-        [--reference-tree DIR] [--precision high]
+        [--reference-tree DIR] [--precision high | screen]
 
-Runs `chip_smoke.py` phase 11's campaign (`tools/mf_world.py`'s world of
-128 templates x 30 channels over its two days of 2,160,000 samples,
-`workflow.scan_days` at the rung, phase 11's engine settings and noise
-seed) in a process of its own in this tree and, with --reference-tree, in
-the other tree (say, the parent commit unpacked by `git archive`); prints
-each tree's detections a day and whether the two give the same template
-ids at the same samples, with the largest difference of their CC, beside
-the card's name and power limit.  A change of the split kernel that keeps
-the campaign's decisions gives "identical: True".
+At `high` it runs `chip_smoke.py` phase 11's campaign
+(`tools/mf_world.py`'s world of 128 templates x 30 channels over its two
+days of 2,160,000 samples, `workflow.scan_days` at the rung, phase 11's
+engine settings and noise seed); at `screen` phase 4's campaign (the same
+world and settings, phase 4's noise seed) and then phase 24's
+(`tools/year_world.py`'s 1024-template year bank, `tools/year_scan.py`'s
+campaign over days 0-1 and then day 2 from its state file, phase 24's
+white noise).  Each runs in a process of its own in this tree and, with
+--reference-tree, in the other tree (say, the parent commit unpacked by
+`git archive`); prints each tree's detections a day and whether the two
+give the same template ids at the same samples, with the largest
+difference of their CC, beside the card's name and power limit.  A change
+of a kernel that keeps the campaign's decisions gives "identical: True".
 """
 
 from __future__ import annotations
@@ -25,36 +29,54 @@ import tempfile
 
 # runs in a tree's root: the campaign through that tree's package
 _CAMPAIGN = """
-import json, sys
+import json, os, sys, tempfile
 import numpy as np
 from seismic_bpmf_tpu_torch import workflow
 from seismic_bpmf_tpu_torch.config import Config
-from seismic_bpmf_tpu_torch.tools.mf_world import (
-    DATES, L, SR, MFWorld, day_start)
-precision, out = sys.argv[1:3]
+world_name, precision, out = sys.argv[1:4]
 SEED = 20260816
-world = MFWorld(SEED, n_tp=128)
-_, tg = world.bank()
-kw = dict(minimum_interevent_time=5.0, min_channels=6, min_stations=3,
-          max_kurto=1e6, rng=np.random.default_rng(SEED + 4))
-res = workflow.scan_days(list(DATES), world.make_data, tg,
-                         cfg=Config(sampling_rate_hz=SR,
-                                    template_len_sec=L / SR),
-                         precision=precision, **kw)
-found = {day: {tid: [[int(round((e.origin_time_epoch - day_start(day))
-                                * SR)), float(e.aux_data["cc"])]
-                      for e in evs]
-               for tid, evs in r.items()} for day, r in res.items()}
+if world_name == "year":
+    from seismic_bpmf_tpu_torch.tools.year_scan import campaign, dates_of
+    from seismic_bpmf_tpu_torch.tools.year_world import (
+        build_bank, build_world)
+    world = build_world()
+    bank = build_bank(world, 1024)
+    noise = np.random.default_rng(SEED + 24).normal(size=500).astype(
+        np.float32)
+    dates = dates_of(3)
+    sr = world.cfg.sampling_rate_hz
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "year_state.json")
+        for upto in (2, 3):
+            res.update(campaign(world, bank, dates[:upto], state_file=state,
+                                precision=precision, white_noise=noise))
+else:
+    from seismic_bpmf_tpu_torch.tools.mf_world import DATES, L, SR, MFWorld
+    world = MFWorld(SEED, n_tp=128)
+    _, tg = world.bank()
+    sr = SR
+    seed = SEED + (2 if precision == "screen" else 4)
+    kw = dict(minimum_interevent_time=5.0, min_channels=6, min_stations=3,
+              max_kurto=1e6, rng=np.random.default_rng(seed))
+    res = workflow.scan_days(list(DATES), world.make_data, tg,
+                             cfg=Config(sampling_rate_hz=SR,
+                                        template_len_sec=L / SR),
+                             precision=precision, **kw)
+found = {str(day): {tid: [[int(round(e.origin_time_epoch * sr)),
+                           float(e.aux_data["cc"])] for e in evs]
+                    for tid, evs in r.items()} for day, r in res.items()}
 with open(out, "w") as f:
     json.dump(found, f)
 """
 
 
-def campaign(tree: str, precision: str, tmp: str) -> dict:
-    """{day: {template id: [[sample, cc], ...]}} of the campaign in
-    `tree`, run in a process of its own."""
+def campaign(tree: str, world: str, precision: str, tmp: str) -> dict:
+    """{day: {template id: [[sample, cc], ...]}} of the campaign on
+    `world` ('tutorial' or 'year') in `tree`, run in a process of its own;
+    samples count from the epoch."""
     out = os.path.join(tmp, f"found-{len(os.listdir(tmp))}.json")
-    subprocess.run([sys.executable, "-c", _CAMPAIGN, precision, out],
+    subprocess.run([sys.executable, "-c", _CAMPAIGN, world, precision, out],
                    cwd=os.path.abspath(tree), check=True)
     with open(out) as f:
         return json.load(f)
@@ -87,18 +109,21 @@ def main():
         check=True).stdout.strip()
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    with tempfile.TemporaryDirectory() as tmp:
-        trees = [here] + ([args.reference_tree] if args.reference_tree
-                          else [])
-        found = [campaign(t, args.precision, tmp) for t in trees]
-    for tree, f in zip(trees, found):
-        print(f"{tree}: {args.precision} detections a day "
-              f"{({d: sum(map(len, r.values())) for d, r in f.items()})} "
-              f"[{card}]", flush=True)
-    if len(found) == 2:
-        same, worst = compare(*found)
-        print(f"identical: {same}; max|CC difference| at shared detections "
-              f"{worst:.3g} [{card}]", flush=True)
+    trees = [here] + ([args.reference_tree] if args.reference_tree else [])
+    worlds = (["tutorial", "year"] if args.precision == "screen"
+              else ["tutorial"])
+    for world in worlds:
+        with tempfile.TemporaryDirectory() as tmp:
+            found = [campaign(t, world, args.precision, tmp) for t in trees]
+        for tree, f in zip(trees, found):
+            print(f"{tree}: {world} {args.precision} detections a day "
+                  f"{({d: sum(map(len, r.values())) for d, r in f.items()})}"
+                  f" [{card}]", flush=True)
+        if len(found) == 2:
+            same, worst = compare(*found)
+            print(f"{world} {args.precision} identical: {same}; max|CC "
+                  f"difference| at shared detections {worst:.3g} [{card}]",
+                  flush=True)
 
 
 if __name__ == "__main__":

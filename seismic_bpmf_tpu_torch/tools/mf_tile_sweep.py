@@ -1,7 +1,8 @@
 """Times a fused MF kernel's compile-time tile choices on one day.
 
-    python -m seismic_bpmf_tpu_torch.tools.mf_tile_sweep [mf | mf_split] \
-        [--variants A,B ...] [--reference-tree DIR]
+    python -m seismic_bpmf_tpu_torch.tools.mf_tile_sweep \
+        [mf | mf_highest | mf_split] [--variants A,B ...] \
+        [--reference-tree DIR]
 
 Builds the kernel's source once per variant of its compile-time sizes (all
 nvcc processes at once), runs each on the main path's shapes (128
@@ -10,16 +11,21 @@ templates x 30 channels x L = 200 x 2,160,000 samples, moveouts in
 events, the best of 2 x 3 launches) and its largest difference from the
 first variant, with the card's name and power limit.
 
-  mf        csrc/mf.cu: (MF_NSUB 128-lag sub-tiles per block: 1, 2, 4
-            or 8; MF_MINB blocks per SM for the register budget;
-            MF_ACC_OUT 0 for the 'default' build, 1 for the 'highest'
-            one), each at its rung's precision;
-  mf_split  csrc/mf_split.cu at precision 'high': (MFS_STAGES, the ring's
-            depth; MFS_DIAG, 0 the kernel, 1 a diagnostic build without
-            the products (staging, ring and epilogue), 2 one that only
-            stages (the consumers release each stage at once); the
-            diagnostic builds give wrong CC); the pre-pass's time
-            (`ops.mf.split_day`) is printed too.
+  mf          csrc/mf.cu at precision 'default': (MF_STAGES, the ring's
+              depth; MF_DIAG, 0 the kernel, 1 a diagnostic build without
+              the products (staging, ring and epilogue), 2 one that only
+              stages (the consumers release each stage at once), 3 one
+              that only multiplies (no copies, no waits, no epilogue: the
+              product loop's own rate), 4 products and epilogue without
+              copies or waits; the diagnostic builds give wrong CC); the
+              pre-pass's time (`ops.mf.tf32_day`) and the rate of the
+              TF32 operations the main kernel issues are printed too;
+  mf_highest  csrc/mf_highest.cu at precision 'highest': (MF_NSUB 128-lag
+              sub-tiles per block: 1, 2, 4 or 8; MF_MINB blocks per SM
+              for the register budget);
+  mf_split    csrc/mf_split.cu at precision 'high': (MFS_STAGES, MFS_DIAG
+              as MF_DIAG's 0-2); the pre-pass's time (`ops.mf.split_day`)
+              is printed too.
 
 --reference-tree names a directory that holds another version of this
 package (say, the parent commit unpacked by `git archive`): the same day
@@ -27,8 +33,6 @@ then runs there too, in a process of its own through that tree's
 `MatchedFilterPlan` at the same precision, once before the variants and
 once after them, and each variant is held to it: the largest difference
 between the CC's, and whether they agree within rtol 1e-4, atol 1e-5.
-For `mf` that tree runs at 'highest' and the first variant is the default
-build: a kernel whose default build kept its bits gives max|diff| 0.
 Compare two trees' times only within one run of this tool.
 """
 
@@ -50,8 +54,10 @@ from ..ops import mf
 KERNELS = {
     # name: (define names, precision, variants; the first is the source's
     # default)
-    "mf": (("MF_NSUB", "MF_MINB", "MF_ACC_OUT"), "highest",
-           [(4, 2, 0), (4, 2, 1), (4, 1, 0), (2, 2, 0), (8, 1, 0)]),
+    "mf": (("MF_STAGES", "MF_DIAG"), "default",
+           [(4, 0), (3, 0), (2, 0), (4, 1), (4, 2), (4, 3), (4, 4)]),
+    "mf_highest": (("MF_NSUB", "MF_MINB"), "highest",
+                   [(4, 2), (4, 1), (2, 2), (8, 1)]),
     "mf_split": (("MFS_STAGES", "MFS_DIAG"), "high",
                  [(3, 0), (2, 0), (1, 0), (3, 1), (3, 2)]),
 }
@@ -82,16 +88,28 @@ torch.save({"cc": cc.cpu(), "times": times}, out)
 """
 
 
-def _route(name: str, variant, precision: str) -> tuple:
-    """(the build's key in `_build._LIBS`, the plan precision that runs it)
-    of a variant, with ops.mf's mirrors of its tile sizes set."""
+def _route(name: str, variant, precision: str) -> str:
+    """The build's key in `_build._LIBS` of a variant, with ops.mf's
+    mirrors of its tile sizes set."""
     if name == "mf":
-        mf.LAG_TILE = 128 * variant[0]
-        if variant[2]:
-            return _build.key("mf", mf.ACC_OUT), "highest"
-        return "mf", "default"
-    mf.SPLIT_STAGES = variant[0]
-    return name, precision
+        mf.STAGES = variant[0]
+    elif name == "mf_highest":
+        mf.HIGHEST_LAG_TILE = 128 * variant[0]
+    else:
+        mf.SPLIT_STAGES = variant[0]
+    return name
+
+
+def _issued_tflops(plan, ms: float) -> float:
+    """TF32 TFLOP/s of the products csrc/mf.cu issues for `plan`'s day:
+    two m64n64k8 products a k-step for every template slot of a block,
+    used channel and lag tile."""
+    slots = -(-plan.n_tp // mf.BLOCK_TEMPLATES) * mf.BLOCK_TEMPLATES
+    tiles = -(-plan.n_corr_unit // mf.LAG_TILE)
+    chans = int((plan.tile_lo >= 0).sum()) / plan.tile_lo.shape[1]
+    n_ks = mf._k_taps(plan.L) // mf.TF32_K_STEP
+    flops = 2 * slots * tiles * chans * n_ks * 2 * 64 * 64 * 8
+    return flops / ms / 1e9
 
 
 def _day_ms(plan, dp) -> tuple:
@@ -150,12 +168,16 @@ def main():
                                    card))
         first = None
         for var, lab, (so, _) in zip(variants, label, built):
-            lib_key, rung = _route(name, var, precision)
+            lib_key = _route(name, var, precision)
             mf._BOUND.discard(lib_key)
             _build._LIBS[lib_key] = ctypes.CDLL(so)
-            plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=rung)
+            plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=precision)
             dp = plan.pad_data(d)
-            out = plan(dp)
+            try:
+                out = plan(dp)
+            except RuntimeError as exc:    # a launch the build refuses
+                print(f"{name} {lab}: {exc} [{card}]", flush=True)
+                continue
             torch.cuda.synchronize()
             if first is None:
                 first = out
@@ -163,8 +185,14 @@ def main():
             ms, times = _day_ms(plan, dp)
             extra = ""
             if name == "mf_split":
-                extra = (f"; pre-pass {_prepass_ms(dp, L):.3f} ms, "
-                         f"{mf.split_stages(L, plan.max_delta)} stages")
+                extra = (f"; pre-pass {_prepass_ms(mf.split_day, dp, L):.3f}"
+                         f" ms, {mf.split_stages(L, plan.max_delta)} stages")
+            elif name == "mf":
+                pre = _prepass_ms(mf.tf32_day, dp, L)
+                extra = (f"; pre-pass {pre:.3f} ms, "
+                         f"{mf.stages(L, plan.max_delta)} stages, issued "
+                         f"TF32 {_issued_tflops(plan, ms - pre):.1f} "
+                         f"TFLOP/s (the day less its pre-pass)")
             if refs:
                 cc = refs[0]["cc"]
                 outc = out.cpu()
@@ -183,15 +211,15 @@ def main():
                                    card))
 
 
-def _prepass_ms(dp, L) -> float:
-    """Best of 2 x 3 runs of the split kernel's pre-pass, ms."""
+def _prepass_ms(prepass, dp, L) -> float:
+    """Best of 2 x 3 runs of a kernel's pre-pass, ms."""
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(2):
         e0.record()
         for _ in range(3):
-            mf.split_day(dp, L)
+            prepass(dp, L)
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / 3)

@@ -95,7 +95,8 @@ SPLIT_CASES = dict(CASES, odd_moveouts_ragged_edges=_odd_moveouts_ragged,
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
 def test_kernel_matches_plain_on_card(card, case):
-    """Both builds of csrc/mf.cu: 'highest' (MF_ACC_OUT) and 'default'."""
+    """Both TF32 kernels: csrc/mf_highest.cu ('highest') and csrc/mf.cu
+    ('default', with its pre-pass)."""
     tp, mv, w, data = SPLIT_CASES[case](16)
     for precision, wrapper in (("highest", mf.mf_cc_highest),
                                ("default", mf.mf_cc)):
@@ -103,11 +104,13 @@ def test_kernel_matches_plain_on_card(card, case):
                                     precision=precision, device=card)
         dp = plan.pad_data(data)
         counts = [mf.mf_cc.launches, mf.mf_cc_highest.launches,
-                  mf.matched_filter_plain.calls]
+                  mf.matched_filter_plain.calls, mf.tf32_day.launches]
         got = plan(dp)
         counts[wrapper is mf.mf_cc_highest] += 1
+        counts[3] += wrapper is mf.mf_cc
         assert [mf.mf_cc.launches, mf.mf_cc_highest.launches,
-                mf.matched_filter_plain.calls] == counts
+                mf.matched_filter_plain.calls,
+                mf.tf32_day.launches] == counts
         filt_hi, filt_lo = mf.tf32_rows_parts(plan.filt_rows, plan.L)
         want = mf.matched_filter_plain(
             dp, filt_hi, filt_lo, plan.mv_table, n_tp=plan.n_tp, L=plan.L,
@@ -139,6 +142,100 @@ def _planted_repeats(seed, n_tp=4, n_sta=10, n_comp=3, L=200,
                     st = o + mv[i, s, c]
                     data[s, c, st : st + L] += wave[i, s, c]
     return wave, mv, w, data, lags
+
+
+def _widest_span(L):
+    """The largest max_delta whose ring of csrc/mf.cu (one stage) fits
+    shared memory."""
+    lo, hi = 0, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if mf._smem_bytes(L, mid) <= mf.SMEM_LIMIT
+                  else (lo, mid))
+    return lo
+
+
+def _tf32_ring_case(case):
+    T = mf.LAG_TILE
+    if case == "one_channel":
+        return _bank(70, n_tp=9, n_sta=1, n_comp=1, L=200, n_samp=T + 500)
+    if case == "channel_skipped_in_the_ring":
+        tp, mv, w, data = _bank(71, n_tp=6, n_sta=4, n_comp=2, L=64,
+                                n_samp=T + 900)
+        w[:, 2, 1] = 0.0             # no template uses channel 5 of 8
+        return tp, mv, w, data
+    if case in ("ragged_templates_and_lags", "screen_upload"):
+        # 13 templates: the last block of 4 holds one; n_corr not a
+        # multiple of the lag tile
+        return _bank(72, n_tp=13, n_sta=3, n_comp=3, L=51,
+                     n_samp=2 * T + 301 + 50, mv_range=(-41, 333))
+    # the widest moveout span inside a template tile that shared memory
+    # holds (a ring of one stage)
+    L = 40
+    span = _widest_span(L)
+    tp, mv, w, data = _bank(73, n_tp=4, n_sta=2, n_comp=2, L=L,
+                            n_samp=span + T + 700, mv_range=(0, span))
+    mv[0, 0, 0], mv[1, 1, 1] = 0, span
+    return tp, mv, w, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_channel", "channel_skipped_in_the_ring",
+                                  "ragged_templates_and_lags",
+                                  "widest_span", "screen_upload"])
+def test_kernel_ring_edges_on_card(card, case):
+    """csrc/mf.cu's ring at its edges against the plain version: a single
+    channel, a channel the tile skips between used ones, template and lag
+    counts that are not multiples of the block's, the widest span that
+    fits (one stage), and a `screen` upload (the day rounded to bf16, so
+    its TF32 lo parts are 0)."""
+    tp, mv, w, data = _tf32_ring_case(case)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1],
+                                precision="default", device=card)
+    n_stages = mf.stages(plan.L, plan.max_delta)
+    assert n_stages == (1 if case == "widest_span" else mf.STAGES)
+    if case == "channel_skipped_in_the_ring":
+        assert plan.tile_lo[:, 0].tolist().count(-1) == 1
+        assert int(plan.tile_lo[5, 0]) == -1
+    if case == "ragged_templates_and_lags":
+        assert plan.n_tp % mf.BLOCK_TEMPLATES
+        assert plan.n_corr_unit % mf.LAG_TILE
+    dp = plan.pad_data(data, dtype="bfloat16" if case == "screen_upload"
+                       else "float32")
+    if case == "screen_upload":
+        assert not bool(mf.split_tf32(dp)[1].any())
+    pre = mf.tf32_day.launches
+    got = plan(dp)
+    assert mf.tf32_day.launches == pre + 1
+    want = mf.matched_filter_plain(
+        dp, *mf.tf32_rows_parts(plan.filt_rows, plan.L), plan.mv_table,
+        n_tp=plan.n_tp, L=plan.L, n_corr=plan.n_corr_unit, lo_p=plan.lo_p,
+        hi_p=plan.hi_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [200, 37])
+def test_prepass_on_card_matches_its_twin(card, L):
+    """csrc/mf.cu's pre-pass: its TF32 parts equal the plain twin's bit for
+    bit; its y lies within 2 ulp of the twin's (the same partial order and
+    fused multiply-adds; the card's rsqrtf within 2 ulp of the twin's
+    once-rounded one), 0 at the same window starts."""
+    tp, mv, w, data = _zero_variance(74)
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1],
+                                precision="default", device=card)
+    dp = plan.pad_data(data)
+    hi, lo, y = mf.tf32_day(dp, L)
+    h2, l2, y2 = mf.tf32_day_plain(dp.cpu(), L)
+    torch.cuda.synchronize()
+    assert torch.equal(hi.cpu(), h2) and torch.equal(lo.cpu(), l2)
+    y = y.cpu()
+    assert torch.equal(y == 0, y2 == 0) and bool((y >= 0).all())
+    ulp = (y.view(torch.int32) - y2.view(torch.int32)).abs()
+    assert int(ulp.max()) <= 2
+    # the same y as the split kernel's pre-pass: one shared code
+    assert torch.equal(y, mf.split_day(dp, L)[2].cpu())
 
 
 @pytest.mark.cuda

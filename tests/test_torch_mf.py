@@ -249,10 +249,10 @@ def _planted_repeats(seed, n_tp=4, n_sta=10, n_comp=3, L=200,
 
 
 def test_highest_plain_is_exact_at_planted_repeats():
-    """The 'highest' rung's arithmetic (three products of TF32 parts, f32
+    """The 'highest' rung's arithmetic (the products of TF32 parts, f32
     sums) lies within 5e-7 of the float64 oracle at every planted repeat:
-    the split is exact enough, so what csrc/mf.cu's 'highest' build must
-    repair is how the tensor cores accumulate, not the split."""
+    the split is exact enough, so what csrc/mf_highest.cu must repair is
+    how the tensor cores accumulate, not the split."""
     tp, mv, w, data, lags = _planted_repeats(41)
     got = mf.matched_filter(tp, mv, w, data, precision="highest",
                             device="cpu").numpy()
@@ -269,8 +269,8 @@ def test_highest_plain_is_exact_at_planted_repeats():
     ("screen", "mf_cc"), ("high", "mf_cc_split")])
 def test_rungs_route_to_their_builds(monkeypatch, precision, route):
     """Each rung reaches its kernel's wrapper through the engine: 'highest'
-    the MF_ACC_OUT build of csrc/mf.cu, 'default' and 'screen' the default
-    build, 'high' csrc/mf_split.cu; no other."""
+    csrc/mf_highest.cu, 'default' and 'screen' csrc/mf.cu, 'high'
+    csrc/mf_split.cu; no other."""
     from seismic_bpmf_tpu_torch.detection import MatchedFilter
     from seismic_bpmf_tpu_torch.config import Config
     from seismic_bpmf_tpu_torch.data import TemplateGroup
@@ -303,7 +303,8 @@ def test_rungs_route_to_their_builds(monkeypatch, precision, route):
 
 
 # --------------------------------------------------------------------------
-# the f32-class kernel (csrc/mf.cu): TF32 parts, its layouts and index maps
+# the f32-class kernels: TF32 parts, and csrc/mf_highest.cu's layouts and
+# index maps (csrc/mf.cu's: tests/test_torch_mf_tc.py)
 def _tf32_rna_reference(x):
     """Round to TF32 (10 stored mantissa bits), to nearest with ties away
     from zero, computed in float64 from the value, not from its bits."""
@@ -398,27 +399,28 @@ def test_staged_tf32_rows_layout():
 
 
 def test_smem_mirror_and_limit():
-    """The Python mirror of the kernel's shared-memory size at the main
-    path's shape, two blocks of it on one SM, and the plan's refusal of a
-    span that cannot fit."""
+    """The Python mirror of csrc/mf_highest.cu's shared-memory size at
+    the main path's shape, two blocks of it on one SM, and the plan's
+    refusal of a span that cannot fit."""
     # 2 x 32 rows x 216 f32 + f32 (32 + skewed y of 962 + 1178 + 2 x 1162)
     # + two skewed spans of 1178 elements, for L = 200, max_delta = 450:
     # a skewed span of n takes n + 4 (n // 64) + 4 words
-    assert mf._smem_bytes(200, 450) == (
+    assert mf._highest_smem_bytes(200, 450) == (
         4 * 2 * 32 * 216 + 4 * (32 + 1026 + 1178 + 2 * 1162 + 2 * 1254))
-    assert 2 * (mf._smem_bytes(200, 450) + 1024) <= 228 * 1024
+    assert 2 * (mf._highest_smem_bytes(200, 450) + 1024) <= 228 * 1024
     tp, mv, w, data = _bank(35, mv_range=(-30, 60))
     mv[1, 0, 0] = 200000
     with pytest.raises(ValueError, match="shared memory"):
         mf.MatchedFilterPlan(tp, mv, w, 300000, device="cpu")
 
 
-NSUB = mf.LAG_TILE // 128         # MF_NSUB of csrc/mf.cu
+NSUB = mf.HIGHEST_LAG_TILE // 128   # MF_NSUB of csrc/mf_highest.cu
 RUN = 16 * NSUB                   # lags of a lane group (MF_RUN)
 
 
 def _sk(e, run=RUN):
-    """MF_SK of csrc/mf.cu: 4 pad words after every `run` elements."""
+    """MF_SK of csrc/mf_highest.cu: 4 pad words after every `run`
+    elements."""
     return e + 4 * (e // run)
 
 

@@ -261,12 +261,12 @@ def test_nothing_is_compiled_at_import():
     from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: F401
 
     assert _build._LIBS == {}
-    assert _build.sources() == ["bp", "mf", "mf_split"]
+    assert _build.sources() == ["bp", "mf", "mf_highest", "mf_split"]
     try:
         _build._nvcc()
     except RuntimeError:
         # no CUDA compiler: a kernel's first use raises, naming nvcc
-        for name in ("bp", "mf", "mf_split"):
+        for name in ("bp", "mf", "mf_highest", "mf_split"):
             with pytest.raises(RuntimeError, match="nvcc"):
                 _build.load(name)
 

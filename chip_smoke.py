@@ -243,7 +243,9 @@ Phases (any failure exits non-zero; nothing is caught):
      {"data": 3}: the first sharded step (batches of 32 and 30) against
      the unsharded step on the card within phase 22's gates, then phase
      22's training (256 windows x 6 epochs) on the 4-shard mesh, each
-     epoch's loss within 1e-3 relative of phase 22's; ms a step;
+     epoch's loss within 1e-3 relative of phase 22's; ms a step; a warm
+     step of 32 unsharded and on 4 shards (one CUDA graph over the shards'
+     forward and backward): its ms and launches (torch.profiler);
  30. `utils.observe.profile_trace` around a warm 'screen' day at phase 4's
      shape in a fresh process (its one Chrome trace holds kernel #1's row)
      and in this one on phase 4's bank and day 1 (the device rows counted:
@@ -353,6 +355,9 @@ from seismic_bpmf_tpu_torch.source import (  # noqa: E402
 )
 from seismic_bpmf_tpu_torch.tools.magnitude_world import (  # noqa: E402
     build_world as build_magnitude_world,
+)
+from seismic_bpmf_tpu_torch.tools.mesh_days import (  # noqa: E402
+    step_profile, wall_ms,
 )
 from seismic_bpmf_tpu_torch.tools.month_world import (  # noqa: E402
     build_world as build_month_world, training_windows,
@@ -2956,7 +2961,9 @@ print(f"cli on the card: info {info28['backend']} {info28['devices']}; "
       f"({time.perf_counter() - t28:.1f} s) [{CARD}]", flush=True)
 
 # 29. `train_phasenet(mesh=)`: phase 22's training on virtual meshes of the
-#     card, the batch split over {"data": 4} and {"data": 3}
+#     card, the batch split over {"data": 4} and {"data": 3}; then a warm
+#     step at the script's batch unsharded and on 4 shards (one CUDA graph
+#     a step): its ms and its launches (torch.profiler's runtime rows)
 t29 = time.perf_counter()
 cuda0 = torch.device("cuda", torch.cuda.current_device())
 MESHES29 = {n: make_mesh({"data": n}, devices=[cuda0] * n) for n in (4, 3)}
@@ -3007,6 +3014,18 @@ rel29 = max(abs(a - b) / abs(b) for a, b in zip(losses29, losses22))
 if len(losses29) != len(losses22) or rel29 > 1e-3:
     raise AssertionError(f"sharded training: losses {losses29} against "
                          f"phase 22's {losses22} (gate 1e-3 relative)")
+nb29 = MONTH_TRAIN["batch_size"] // 4 * 4
+b29 = (torch.from_numpy(x22[first22[:nb29]]).cuda(),
+       torch.from_numpy(labels22[first22[:nb29]]).cuda())
+warm29 = {}
+for where in ("unsharded", "4 shards"):
+    m29 = init_weights(PhaseNet(), torch.Generator().manual_seed(0)).cuda()
+    o29 = torch.optim.Adam(m29.parameters(), lr=LR22)
+    st29 = (make_sharded_train_step(m29, o29, MESHES29[4])
+            if where == "4 shards" else make_train_step(m29, o29))
+    ms29 = wall_ms(lambda: st29(b29), [cuda0], 10)
+    warm29[where] = (ms29, step_profile(st29, b29, [cuda0])["launches"])
+del m29, o29, st29, b29
 print(f"sharded training: first step against the unsharded on the card, "
       + "; ".join(f"{n} shards (batch {v[0]}): loss {v[1]:.3g}, gradients "
                   f"{v[2]:.3g} of the largest, weights {v[3]:.3g} beyond "
@@ -3016,8 +3035,10 @@ print(f"sharded training: first step against the unsharded on the card, "
       + " ".join(f"{v:.4f}" for v in losses29)
       + f" (within {rel29:.3g} relative of phase 22's), {n_steps22} steps "
       f"in {train29_s:.2f} s, {1e3 * train29_s / n_steps22:.1f} ms a step "
-      f"(phase 22: {1e3 * train22_s / n_steps22:.1f}) "
-      f"({time.perf_counter() - t29:.1f} s) [{CARD}]", flush=True)
+      f"(phase 22: {1e3 * train22_s / n_steps22:.1f}); a warm step of "
+      f"{nb29}: " + ", ".join(f"{k} {v[0]:.2f} ms, {v[1]:g} launches"
+                              for k, v in warm29.items())
+      + f" ({time.perf_counter() - t29:.1f} s) [{CARD}]", flush=True)
 
 # 30. `profile_trace` around a warm 'screen' day: in a fresh process, whose
 #     trace must hold kernel #1's row, and here on phase 4's bank and day 1,

@@ -64,7 +64,7 @@ class Shards:
     split batch, layer by layer, in one autograd graph.  A tensor
     argument (a weight) is taken from `replicas` where it is there (one
     copy a device for the whole forward, `replicate`), else copied to the
-    shard's device by a differentiable `.to()`.  `_BatchNorm` normalizes
+    shard's device by `_to_device`.  `_BatchNorm` normalizes
     with the whole batch's statistics (`_ShardsBatchNorm`).  `shape` is
     the first shard's."""
 
@@ -92,7 +92,7 @@ class Shards:
                 return a.parts[k]
             if isinstance(a, torch.Tensor):
                 rep = cls.replicas.get(id(a))
-                return a.to(dev) if rep is None else rep[k]
+                return _to_device(a, dev) if rep is None else rep[k]
             if isinstance(a, (list, tuple)):
                 return type(a)(pick(v, k, dev) for v in a)
             return a
@@ -104,6 +104,46 @@ class Shards:
                             **{key: pick(v, k, dev)
                                for key, v in kwargs.items()}))
         return Shards(out)
+
+
+def current_streams(devices) -> list:
+    """The current stream of each CUDA device of `devices`, once each."""
+    return [torch.cuda.current_stream(d) for d in dict.fromkeys(devices)
+            if d.type == "cuda"]
+
+
+@contextlib.contextmanager
+def on_streams(streams):
+    """Each of `streams` current on its device within the block, in this
+    thread (its device too; both put back after)."""
+    with contextlib.ExitStack() as stack:
+        for s in streams:
+            stack.enter_context(torch.cuda.stream(s))
+        yield
+
+
+class _ToDevice(torch.autograd.Function):
+    """`x.to(device)` whose gradient goes back on the streams that were
+    current on the two devices in the forward.  The autograd engine runs
+    a backward on a thread of the device it starts on, whose current
+    stream on any other device is that device's default stream, on which
+    a CUDA graph's capture may not wait."""
+
+    @staticmethod
+    def forward(ctx, x, device):
+        ctx.device = x.device
+        ctx.streams = current_streams([x.device, device])
+        return x.to(device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with on_streams(ctx.streams):
+            return grad.to(ctx.device), None
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`; a copy that `_ToDevice` differentiates."""
+    return t if t.device == device else _ToDevice.apply(t, device)
 
 
 @contextlib.contextmanager
@@ -121,7 +161,7 @@ def replicate(params, devices):
     for dev in devices:
         if dev not in on:
             on[dev] = [v.view_as(p) for v, p in zip(
-                flat.to(dev).split(sizes), params)]
+                _to_device(flat, dev).split(sizes), params)]
     Shards.replicas = {id(p): [on[dev][i] for dev in devices]
                        for i, p in enumerate(params)}
     try:
@@ -152,11 +192,13 @@ class _ShardsBatchNorm(torch.autograd.Function):
     * (x - mean), gathered once and totalled on the first device, give
     the weight's and the bias's gradients and, sent back once, each
     shard's dx = (dy - sum dy / N - (x - mean) invstd^2 sum dy (x - mean)
-    / N) * scale."""
+    / N) * scale.  The backward runs on the streams that were current
+    on the shards' devices in the forward (see `_ToDevice`)."""
 
     @staticmethod
     def forward(ctx, bn, weight, bias, *parts):
         first = parts[0].device
+        ctx.streams = current_streams([p.device for p in parts])
         if len({p.shape for p in parts}) > 1:
             raise ValueError(f"shards of unequal shapes "
                              f"{[tuple(p.shape) for p in parts]}")
@@ -184,15 +226,16 @@ class _ShardsBatchNorm(torch.autograd.Function):
     def backward(ctx, *grads):
         invstd, scale, *xmu = ctx.saved_tensors
         first = invstd.device
-        sums = torch.stack([
-            torch.stack([g.sum(dim=(0, 2)), (g * d).sum(dim=(0, 2))])
-            .to(first) for g, d in zip(grads, xmu)]).sum(dim=0)
-        grad_bias, grad_weight = sums[0], sums[1] * invstd
-        coef = _to_each(torch.stack([
-            sums[0] / ctx.n, sums[1] * invstd.square() / ctx.n,
-            scale])[:, None, :, None], grads)
-        dx = [torch.addcmul(g - c[0], d, c[1], value=-1.0) * c[2]
-              for g, d, c in zip(grads, xmu, coef)]
+        with on_streams(ctx.streams):
+            sums = torch.stack([
+                torch.stack([g.sum(dim=(0, 2)), (g * d).sum(dim=(0, 2))])
+                .to(first) for g, d in zip(grads, xmu)]).sum(dim=0)
+            grad_bias, grad_weight = sums[0], sums[1] * invstd
+            coef = _to_each(torch.stack([
+                sums[0] / ctx.n, sums[1] * invstd.square() / ctx.n,
+                scale])[:, None, :, None], grads)
+            dx = [torch.addcmul(g - c[0], d, c[1], value=-1.0) * c[2]
+                  for g, d, c in zip(grads, xmu, coef)]
         return (None, grad_weight, grad_bias, *dx)
 
 

@@ -5,7 +5,8 @@ on the user's own region, with Gaussian-blurred pick labels plus a noise
 class (the PhaseNet convention) and a cross-entropy loss:
 
   windows_from_events     : picked Events -> (windows, pick labels)
-  make_sharded_train_step : one step of a batch split over a mesh
+  make_sharded_train_step : one step of a batch split over a mesh (on
+                            CUDA, one graph replayed across the cards)
   train_phasenet          : the epoch loop over `make_train_step` (Adam),
                             or over `make_sharded_train_step` with `mesh=`
 
@@ -14,6 +15,8 @@ Windows are in torch's layout, (n, 3, window).
 
 from __future__ import annotations
 
+import contextlib
+import weakref
 from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
@@ -23,8 +26,8 @@ from torch import nn
 from ..parallel.mesh import mesh_device
 from .phasenet import (
     WINDOW, PhaseNet, SeisBenchPhaseNet, Shards, _ieee_convolutions,
-    from_flax_variables, gaussian_pick_labels, init_weights,
-    make_train_step, replicate,
+    _to_device, from_flax_variables, gaussian_pick_labels, init_weights,
+    make_train_step, on_streams, replicate,
 )
 
 
@@ -104,6 +107,108 @@ def _state_dict(model: nn.Module,
     return variables
 
 
+# the private allocator calls by which `_CapturedStep` routes the other
+# cards' allocations during a capture to the graph's pool; a CUDA build
+# of torch without them cannot capture a step across cards
+_POOL_CALLS = ("_cuda_beginAllocateCurrentStreamToPool",
+               "_cuda_endAllocateToPool", "_cuda_releasePool")
+if torch.version.cuda is not None and not all(
+        hasattr(torch._C, name) for name in _POOL_CALLS):
+    raise ImportError(
+        f"torch {torch.__version__} lacks "
+        f"{[n for n in _POOL_CALLS if not hasattr(torch._C, n)]}, which the "
+        f"sharded training step's capture across cards needs")
+
+
+class _CapturedStep:
+    """A sharded step's forward and backward (`body(x, labels) -> loss`,
+    the gradients left in the parameters' `.grad`), captured once in one
+    CUDA graph across the mesh's cards and replayed each step: the host
+    issues one graph launch where the eager step issues every shard's
+    kernels, copies and cross-card waits from one thread, the JAX
+    package's one compiled program over the mesh.
+
+    The graph reads `x` and `labels`, static copies on the first card
+    into which each call copies its batch (from the host too), and
+    rewrites the loss and the gradients in place each replay; Adam
+    steps outside it, eagerly on the first card.  Each card's work runs on
+    a stream of its own, forked from the first card's capture stream and
+    joined back into it, so that the cards run their shards together and
+    the BatchNorm exchange becomes copy and wait nodes between them; a
+    card's allocations during the capture go to the graph's private pool
+    on that card.  A warm-up run on those streams before the capture
+    (cuDNN's handles and plans, the autograd engine's device threads)
+    leaves the BatchNorm buffers as it found them.  A failed capture or
+    replay raises."""
+
+    def __init__(self, body, model: nn.Module, devices, x, labels):
+        self.devices = list(dict.fromkeys(devices))
+        self.params = list(model.parameters())
+        self.x = x.to(self.devices[0], copy=True)
+        self.labels = labels.to(self.devices[0], copy=True)
+        self.streams = [torch.cuda.Stream(d) for d in self.devices]
+        buffers = list(model.buffers())
+        saved = [b.clone() for b in buffers]
+        for s, d in zip(self.streams, self.devices):
+            s.wait_stream(torch.cuda.current_stream(d))
+        with self._on_streams():
+            body(self.x, self.labels)
+        for s, d in zip(self.streams, self.devices):
+            torch.cuda.current_stream(d).wait_stream(s)
+        with torch.no_grad():
+            for b, v in zip(buffers, saved):
+                b.copy_(v)
+        for p in self.params:
+            p.grad = None
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        pool = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        first = self.streams[0]
+        with torch.cuda.device(first.device), torch.cuda.stream(first):
+            self.graph.capture_begin(pool=pool)
+            try:
+                for s in self.streams[1:]:
+                    s.wait_stream(first)
+                with self._on_streams(pool):
+                    self.loss = body(self.x, self.labels)
+                for s in self.streams[1:]:
+                    first.wait_stream(s)
+            finally:
+                self.graph.capture_end()
+        self.grads = [p.grad for p in self.params]
+        weakref.finalize(self, _release_pools,
+                         [d.index for d in self.devices[1:]], pool)
+
+    @contextlib.contextmanager
+    def _on_streams(self, pool=None):
+        """Each card's stream current on it; with `pool`, each card's
+        allocations but the first's (`CUDAGraph` routes those) go to it."""
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(on_streams(self.streams))
+            if pool is not None:
+                for s in self.streams[1:]:
+                    torch._C._cuda_beginAllocateCurrentStreamToPool(
+                        s.device.index, pool)
+                    stack.callback(torch._C._cuda_endAllocateToPool,
+                                   s.device.index, pool)
+            yield
+
+    def __call__(self, x, labels) -> torch.Tensor:
+        with torch.cuda.device(self.devices[0]):
+            self.x.copy_(x)
+            self.labels.copy_(labels)
+            self.graph.replay()
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+        return self.loss.clone()
+
+
+def _release_pools(devices, pool) -> None:
+    for d in devices:
+        torch._C._cuda_releasePool(d, pool)
+
+
 def make_sharded_train_step(model: nn.Module,
                             optimizer: torch.optim.Optimizer, mesh):
     """`step((x, labels)) -> loss`: `make_train_step`'s step with the
@@ -119,30 +224,49 @@ def make_sharded_train_step(model: nn.Module,
     batch's statistics, gathered to the first device, and the loss is the
     whole batch's mean, so the gradients are the global batch's.  The
     running statistics move once a step; Adam steps on the first
-    device."""
+    device.  On a mesh of CUDA devices the forward and backward run as
+    one CUDA graph over the cards (`_CapturedStep`), whatever device the
+    batch is on, captured at the first step of each batch shape and
+    replayed after; each shape's graph and its memory pools on every card
+    are held until the step function is dropped (`train_phasenet` keeps
+    one shape).  On a CPU mesh they run eagerly."""
     devices = list(mesh.devices.flat)
     n = len(devices)
+    graphs = {}
+
+    def forward_backward(x, labels):
+        b = x.shape[0] // n
+        with replicate(model.parameters(), devices):
+            probas = model(Shards(x[k * b: (k + 1) * b].to(devices[k])
+                                  for k in range(n)))
+            total = None
+            for k, p in enumerate(probas.parts):
+                part = _to_device(torch.sum(
+                    labels[k * b: (k + 1) * b].to(p.device)
+                    * torch.log(p + 1e-7)), devices[0])
+                total = part if total is None else total + part
+            loss = -total / (x.shape[0] * x.shape[2])
+            loss.backward()
+        return loss.detach()
 
     def step(batch):
         x, labels = batch
         if x.shape[0] % n:
             raise ValueError(f"a batch of {x.shape[0]} does not split over "
                              f"{n} devices")
-        b = x.shape[0] // n
         model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with _ieee_convolutions(), replicate(model.parameters(), devices):
-            probas = model(Shards(x[k * b: (k + 1) * b].to(devices[k])
-                                  for k in range(n)))
-            total = None
-            for k, p in enumerate(probas.parts):
-                part = torch.sum(labels[k * b: (k + 1) * b].to(p.device)
-                                 * torch.log(p + 1e-7)).to(devices[0])
-                total = part if total is None else total + part
-            loss = -total / (x.shape[0] * x.shape[2])
-            loss.backward()
+        with _ieee_convolutions():
+            if devices[0].type == "cuda":
+                key = (x.shape, x.dtype, labels.shape, labels.dtype)
+                if key not in graphs:
+                    graphs[key] = _CapturedStep(forward_backward, model,
+                                                devices, x, labels)
+                loss = graphs[key](x, labels)
+            else:
+                optimizer.zero_grad(set_to_none=True)
+                loss = forward_backward(x, labels)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

@@ -20,7 +20,11 @@ use virtual meshes that repeat one card:
   - `train_phasenet(mesh=make_mesh({"data": n}))` (run first): its first
     step against the unsharded step, then two epochs; the step alone at
     the script's batch and at the whole training set, on one card and on
-    the mesh, and a torch.profiler summary of both at the script's batch.
+    the mesh (one CUDA graph a step), and a torch.profiler summary of
+    both at the script's batch (`step_profile`: launches, copies and
+    stream waits a step, each card's kernels and busy ms).
+    `training([cuda:0] * 4, FULL, {})` runs it on a virtual mesh of one
+    card.
 
 Checks (any failure raises): every sharded CC and (max, argmax) equal bit
 for bit to the unsharded kernel's on the first card (the sharded argmax
@@ -142,14 +146,18 @@ def launched_everywhere(wrapper, before: dict, devs, what: str) -> dict:
     return {f"cuda:{i}": n for i, n in sorted(got.items()) if n}
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
+
+
 def step_profile(step, batch, devs, n: int = 3) -> dict:
     """Where a training step's time goes, from torch.profiler over `n`
     steps (a warm one before): the profiled ms a step; a step's CUDA
     runtime calls (count and host ms) for the six that take the most
-    host time (cudaLaunchKernel: the kernels; cudaMemcpyAsync: the copies,
-    peer copies too; cudaEventRecord / cudaStreamWaitEvent: the
-    cross-device orderings); each card's kernel and copy ms a step (its
-    busy time).  Each count and time is divided by `n`."""
+    host time; its launches (`LAUNCH_CALLS`: kernels and graphs), copies
+    (cudaMemcpyAsync, peer copies too) and stream waits
+    (cudaStreamWaitEvent, the cross-device orderings); each card's
+    kernels run (count) and kernel and copy ms a step (its busy time).
+    Each count and time is divided by `n`."""
     from torch.profiler import ProfilerActivity, profile
 
     step(batch)
@@ -161,19 +169,26 @@ def step_profile(step, batch, devs, n: int = 3) -> dict:
             step(batch)
         sync(devs)
         wall = (time.perf_counter() - t) / n
-    calls, host_us, busy_us = {}, {}, {}
+    calls, host_us, busy_us, kernels = {}, {}, {}, {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev = f"cuda:{e.device_index}"
             busy_us[dev] = busy_us.get(dev, 0) + us
+            if "memcpy" not in e.name.lower() and \
+                    "memset" not in e.name.lower():
+                kernels[dev] = kernels.get(dev, 0) + 1
         elif e.name.startswith("cuda"):
             calls[e.name] = calls.get(e.name, 0) + 1
             host_us[e.name] = host_us.get(e.name, 0) + us
     top = sorted(host_us, key=host_us.get, reverse=True)[:6]
     return dict(profiled_step_ms=_r(1e3 * wall, 2),
+                launches=sum(calls.get(k, 0) for k in LAUNCH_CALLS) / n,
+                copies=calls.get("cudaMemcpyAsync", 0) / n,
+                waits=calls.get("cudaStreamWaitEvent", 0) / n,
                 runtime_calls={k: [calls[k] / n, _r(host_us[k] / 1e3 / n)]
                                for k in top},
+                kernels_run={k: v / n for k, v in sorted(kernels.items())},
                 card_busy_ms={k: _r(v / 1e3 / n)
                               for k, v in sorted(busy_us.items())})
 

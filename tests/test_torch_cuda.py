@@ -1092,38 +1092,90 @@ def test_sharded_bp_kernel_matches_unsharded_on_card(card, mesh_shape, oob):
             [40, mv.shape[0] - 1], device=card)).any())
 
 
+# launches (kernels and graphs) a warm step of the sharded step issues
+# from the host at full width on a virtual {"data": 4} mesh: the CUDA
+# graph of the shards' forward and backward and Adam's seven foreach
+# kernels (the eager step: 1,480)
+SHARDED_STEP_LAUNCHES = 8
+
+
+def _adam_update(g, m, v, t, lr):
+    """torch's Adam update (betas 0.9, 0.999, eps 1e-8) of gradient `g`
+    from moments `m`, `v` at its `t`-th step, in float64."""
+    m, v = 0.9 * m + 0.1 * g, 0.999 * v + 0.001 * g * g
+    return lr * (m / (1 - 0.9 ** t)) / ((v / (1 - 0.999 ** t)).sqrt() + 1e-8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_sharded_train_step_on_a_virtual_card_mesh(card, n_dev):
+@pytest.mark.parametrize("n_dev, width", [(2, "depth 3"), (4, "depth 3"),
+                                          (4, "full")])
+def test_sharded_train_step_on_a_virtual_card_mesh(card, n_dev, width):
     """`make_sharded_train_step` on a virtual mesh of the card against the
-    unsharded step on the card, from the same weights and batch: the loss
-    within 1e-5, the gradients within 1e-4 of the largest, the running
-    statistics within 1e-4 (chip_smoke.py phase 22's gates)."""
+    unsharded step on the card, three steps on three batches, the sharded
+    model's weights, running statistics and Adam moments set in place to
+    the unsharded model's before each (the graph reads them where they
+    lie): after each step the loss within 1e-5, the gradients within 1e-4
+    of the largest, the weights within 1e-6 beyond Adam's update of the
+    two gradients, the running statistics within 1e-4 (chip_smoke.py
+    phase 22's gates).  At full width (`PhaseNet()`, 32 windows of 3,001)
+    the sharded step takes its batches from the host, and a warm step
+    issues at most `SHARDED_STEP_LAUNCHES` launches: it is captured."""
     from seismic_bpmf_tpu_torch.models import training
     from seismic_bpmf_tpu_torch.parallel import make_mesh
+    from seismic_bpmf_tpu_torch.tools.mesh_days import step_profile
 
+    full = width == "full"
+    n, w = (32, phasenet.WINDOW) if full else (8, 600)
     rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.normal(size=(8, 3, 600)).astype(np.float32))
-    picks_ = np.stack([rng.uniform(50, 250, 8), rng.uniform(300, 550, 8)], 1)
-    y = torch.from_numpy(phasenet.gaussian_pick_labels(picks_, 600))
-    out = []
-    for mesh in (None, make_mesh({"data": n_dev}, devices=[card] * n_dev)):
-        m = phasenet.init_weights(phasenet.PhaseNet(depth=3),
-                                  torch.Generator().manual_seed(0)).to(card)
-        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
-        step = (phasenet.make_train_step(m, opt) if mesh is None
-                else training.make_sharded_train_step(m, opt, mesh))
-        loss = float(step((x.to(card), y.to(card))))
-        out.append((loss, {k: p.grad for k, p in m.named_parameters()},
-                    {k: t for k, t in m.state_dict().items()
-                     if "running" in k}))
-    (loss, grads, stats), (sloss, sgrads, sstats) = out
-    assert abs(sloss - loss) <= 1e-5
-    scale = max(float(g.abs().max()) for g in grads.values())
-    for k in grads:
-        assert float((sgrads[k] - grads[k]).abs().max()) <= 1e-4 * scale, k
-    for k in stats:
-        assert torch.allclose(sstats[k], stats[k], rtol=1e-4, atol=1e-6), k
+    batches = []
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(size=(n, 3, w)).astype(np.float32))
+        picks_ = np.stack([rng.uniform(0.1 * w, 0.45 * w, n),
+                           rng.uniform(0.5 * w, 0.9 * w, n)], 1)
+        batches.append((x, torch.from_numpy(
+            phasenet.gaussian_pick_labels(picks_, w))))
+    models = [phasenet.init_weights(
+        phasenet.PhaseNet() if full else phasenet.PhaseNet(depth=3),
+        torch.Generator().manual_seed(0)).to(card) for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3) for m in models]
+    mesh = make_mesh({"data": n_dev}, devices=[card] * n_dev)
+    steps = [phasenet.make_train_step(models[0], opts[0]),
+             training.make_sharded_train_step(models[1], opts[1], mesh)]
+    m, sm = models
+    for t, (x, y) in enumerate(batches, 1):
+        with torch.no_grad():
+            for p, sp in zip(m.parameters(), sm.parameters()):
+                sp.copy_(p)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    if p in opts[0].state:
+                        opts[1].state[sp][key].copy_(opts[0].state[p][key])
+            for b, sb in zip(m.buffers(), sm.buffers()):
+                sb.copy_(b)
+        moments = {k: [opts[0].state[p][key].double().clone()
+                       if p in opts[0].state else 0.0
+                       for key in ("exp_avg", "exp_avg_sq")]
+                   for k, p in m.named_parameters()}
+        loss = float(steps[0]((x.to(card), y.to(card))))
+        sloss = float(steps[1]((x, y) if full else (x.to(card), y.to(card))))
+        assert abs(sloss - loss) <= 1e-5, t
+        grads = {k: p.grad.double() for k, p in m.named_parameters()}
+        sgrads = {k: p.grad.double() for k, p in sm.named_parameters()}
+        scale = max(float(g.abs().max()) for g in grads.values())
+        sd, ssd = m.state_dict(), sm.state_dict()
+        for k, (mom, vel) in moments.items():
+            assert float((sgrads[k] - grads[k]).abs().max()) <= \
+                1e-4 * scale, (t, k)
+            du = (_adam_update(grads[k], mom, vel, t, 1e-3)
+                  - _adam_update(sgrads[k], mom, vel, t, 1e-3))
+            assert float(((ssd[k].double() - sd[k].double()) - du)
+                         .abs().max()) <= 1e-6, (t, k)
+        for k in sd:
+            if "running" in k:
+                assert torch.allclose(ssd[k], sd[k], rtol=1e-4,
+                                      atol=1e-6), (t, k)
+    if full:
+        prof = step_profile(steps[1], batches[0], [card])
+        assert prof["launches"] <= SHARDED_STEP_LAUNCHES, prof
 
 
 @pytest.mark.cuda
@@ -1142,11 +1194,12 @@ def test_mesh_days_on_every_card():
 
 @pytest.mark.cuda
 def test_sharded_training_step_on_every_card_is_no_slower_than_one():
-    """ROADMAP Queue 3 #5, open: a `make_sharded_train_step` step of 256
+    """ROADMAP Queue 3 #5: a `make_sharded_train_step` step of 256
     windows split over every visible card takes no longer than the
-    unsharded step on one card.  It fails on four H100s (58.1-64.5 ms
-    against 37.0-37.6): the shards' ~1,450 launches a step come from one
-    host thread.  Needs two cards or more."""
+    unsharded step on one card.  The eager step failed it on four H100s
+    (58.1-64.5 ms against 37.0-37.6): the shards' ~1,450 launches a step
+    came from one host thread, where the captured step issues one graph
+    launch.  Needs two cards or more."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards or more")
     from seismic_bpmf_tpu_torch.models import training

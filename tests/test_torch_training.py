@@ -271,6 +271,104 @@ def test_sharded_step_equals_the_unsharded_step_float64(arch, n_dev):
     assert int(ssd[next(k for k in sd if "num_batches" in k)]) == 1
 
 
+def test_sharded_steps_equal_the_unsharded_steps_float64():
+    """Three steps of `make_sharded_train_step` on a 4-device CPU mesh,
+    the body that a card captures in one CUDA graph and replays (its
+    eager twin), against three unsharded steps in float64 on changing
+    batches: each step's loss within 1e-12 and a tensor of its own (a
+    replay rewrites the graph's loss), the gradients, the weights, Adam's
+    moments and the running statistics within 1e-10 after every step."""
+    models = [_models("phasenet", np.float64)[2] for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=LR) for m in models]
+    steps = [tpn.make_train_step(models[0], opts[0]),
+             ttr.make_sharded_train_step(models[1], opts[1], _cpu_mesh(4))]
+    losses = [[], []]
+    for seed in (11, 12, 13):
+        x, picks = _batch(seed)
+        batch = (torch.from_numpy(x), torch.from_numpy(
+            tpn.gaussian_pick_labels(picks, W)).double())
+        for k in range(2):
+            losses[k].append(steps[k](batch))
+        assert abs(float(losses[1][-1]) - float(losses[0][-1])) <= 1e-12
+        m, sm = models
+        for (k, p), sp in zip(m.named_parameters(), sm.parameters()):
+            assert float((sp.grad - p.grad).abs().max()) <= 1e-10, k
+            for key in ("exp_avg", "exp_avg_sq"):
+                assert float((opts[1].state[sp][key]
+                              - opts[0].state[p][key]).abs().max()) <= 1e-10
+        sd, ssd = m.state_dict(), sm.state_dict()
+        for k in sd:
+            assert float((ssd[k].double() - sd[k].double()).abs().max()) \
+                <= 1e-10, k
+    assert len({id(v) for v in losses[1]}) == 3
+    assert [float(v) for v in losses[1]] != [float(losses[1][0])] * 3
+
+
+# aten operations one sharded step dispatches on the CPU (depth 3, filters
+# 4, 8 windows of 256 over 4 devices, float64): the shards' forward and
+# backward with the BatchNorm exchange, which the card replays as one
+# CUDA graph, and Adam's per-parameter ops
+SHARDED_STEP_OPS = 1328
+
+
+def test_sharded_step_dispatches_a_pinned_number_of_ops():
+    """A warm `make_sharded_train_step` step on a 4-device CPU mesh
+    dispatches at most `SHARDED_STEP_OPS` aten operations (counted by a
+    `TorchDispatchMode`), so that no change brings the eager step's
+    launches back into the graph unnoticed."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    tm = _models("phasenet", np.float64)[2]
+    step = ttr.make_sharded_train_step(
+        tm, torch.optim.Adam(tm.parameters(), lr=LR), _cpu_mesh(4))
+    x, picks = _batch(8)
+    batch = (torch.from_numpy(x),
+             torch.from_numpy(tpn.gaussian_pick_labels(picks, W)).double())
+    step(batch)
+    with Count():
+        step(batch)
+    assert 0 < Count.n <= SHARDED_STEP_OPS, Count.n
+
+
+def test_a_cuda_mesh_captures_the_step_whatever_the_batch_device(
+        monkeypatch):
+    """On a mesh of CUDA devices the sharded step always goes through
+    `_CapturedStep` (one graph a batch shape), a batch in host memory
+    too: it never runs the eager step on the cards.  The capture is
+    replaced by a recorder, so this runs without a card."""
+    import types
+
+    made = []
+
+    class Recorder:
+        def __init__(self, body, model, devices, x, labels):
+            made.append((x.device, labels.device, x.shape))
+
+        def __call__(self, x, labels):
+            return torch.zeros((), dtype=x.dtype)
+
+    monkeypatch.setattr(ttr, "_CapturedStep", Recorder)
+    tm = _models("phasenet", np.float32)[2]
+    mesh = types.SimpleNamespace(devices=np.array(
+        [torch.device("cuda", 0)] * 2, dtype=object))
+    step = ttr.make_sharded_train_step(
+        tm, torch.optim.Adam(tm.parameters(), lr=LR), mesh)
+    x, picks = _batch(8, dtype=np.float32)
+    batch = (torch.from_numpy(x),
+             torch.from_numpy(tpn.gaussian_pick_labels(picks, W)))
+    for _ in range(2):
+        assert float(step(batch)) == 0.0
+    assert made == [(torch.device("cpu"), torch.device("cpu"),
+                     batch[0].shape)]
+
+
 def test_train_phasenet_on_a_mesh_rounds_the_batch_to_the_mesh():
     x, picks = _train_set(n=64)
 

@@ -26,9 +26,10 @@ Each JSON line has bench.py's keys and metric names: {"metric", "value",
 "unit", "vs_baseline"}.  The unit names the card and its power limit
 (nvidia-smi); `vs_baseline` divides by bench.py's CPU constants.  The
 rungs keep the JAX package's names: 'highest' runs kernel #1's
-`mma.sync` design (csrc/mf_highest.cu), 'high' kernel #2 (bf16 parts),
-'default' kernel #1's default build (csrc/mf.cu: four TF32 products by
-`wgmma`, f32 class, where the JAX package's 'default' is one bf16 pass);
+'highest' build (csrc/mf.cu, its partials summed outside the tensor
+cores), 'high' kernel #2 (bf16 parts), 'default' kernel #1's default build
+(csrc/mf.cu: four TF32 products by `wgmma`, f32 class, where the JAX
+package's 'default' is one bf16 pass);
 every BP rung runs kernel #3 in f32.
 
 Everything runs on the card unless --device cpu is given, which runs the
@@ -77,8 +78,9 @@ EXTRAS_FILE = "BENCH_TORCH_EXTRAS.json"
 
 # the kernel behind each MF rung: (wrapper, what it is)
 MF_KERNELS = {
-    "highest": (mf.mf_cc_highest, "kernel #1 csrc/mf_highest.cu, three "
-                                  "TF32 products by mma.sync"),
+    "highest": (mf.mf_cc_highest, "kernel #1 csrc/mf.cu 'highest' build, "
+                                  "four TF32 products by wgmma, partials "
+                                  "summed outside the tensor cores"),
     "high": (mf.mf_cc_split, "kernel #2 csrc/mf_split.cu, three bf16 "
                              "products"),
     "default": (mf.mf_cc, "kernel #1 csrc/mf.cu default build, four TF32 "
@@ -221,7 +223,7 @@ def parity_oracles(x: dict, mf_only: bool = False) -> dict:
 
 def check_parity(quick: bool = False, device=None) -> bool:
     """Every kernel against the float64 oracles on bench.py's small
-    parity shapes: MF at 'highest' (kernel #1, csrc/mf_highest.cu),
+    parity shapes: MF at 'highest' (kernel #1's 'highest' build),
     'high' (kernel #2) and 'default' (kernel #1's default build), within
     5e-6; BP (kernel #3) at 'highest' and 'high' in both reduce modes
     (2e-5 / 2e-4, the argmax equal everywhere at 'highest' and at more

@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles every kernel of seismic_bpmf_tpu_torch/csrc with nvcc;
-  3. the fused MF kernel (f32-class: TF32-split operands, tensor cores),
-     its 'highest' design (csrc/mf_highest.cu) and its default build
-     (csrc/mf.cu: a pre-pass and a `wgmma` ring; 'default', 'screen'),
+  3. the fused MF kernel (f32-class: TF32-split operands, tensor cores;
+     csrc/mf.cu: a pre-pass and a `wgmma` ring), its 'highest' build (the
+     partials summed outside the tensor cores) and its default build
+     ('default', 'screen'),
      against its plain PyTorch version on the card, at full bank width (128
      templates x 10 stations x 3 components, L = 200, moveouts in
      [-50, 400)) on a 2^17-sample window with a zero-filled gap, f32 gate
@@ -21,10 +22,10 @@ Phases (any failure exits non-zero; nothing is caught):
   5. exactness: one day at 'highest' through `matched_filter_day`, whose
      plans launch the 'highest' build only, each detection's CC within
      1e-6 of the float64 oracle `ops.reference.matched_filter_at` (and,
-     checked after phase 11, closer than the `high` rung's); both kernels'
-     day against the plain version, their times, the default build's
-     pre-pass's time and their bound (three TF32 products on the tensor
-     cores, beside the f32 FMA figure);
+     checked after phase 11, closer than the `high` rung's); both builds'
+     day against the plain version, their times, the pre-pass's time and
+     their bound (three TF32 products on the tensor cores, beside the f32
+     FMA figure);
   6. where a warm 'screen' day's time goes (host clock, torch.profiler);
   7. the BP kernel against its plain PyTorch version on the card at the
      BP configuration's width (100,000 lattice sources x 32 stations x 2
@@ -678,10 +679,10 @@ del got, ref, got5d
 ms = cuda_ms(lambda: plan(dp), 5)
 ms5d = cuda_ms(default5, 5)
 pre5 = cuda_ms(lambda: mf.tf32_day(dp, L), 5)
-print(f"mf kernel, one day: highest (csrc/mf_highest.cu) {ms:.2f} ms "
-      f"({macs / ms / 1e6:.0f} GMAC/s), default build (csrc/mf.cu) "
-      f"{ms5d:.2f} ms ({ms / ms5d:.3f} of it; its pre-pass {pre5:.3f} "
-      f"ms), "
+print(f"mf kernel, one day: highest build (csrc/mf.cu) {ms:.2f} ms "
+      f"({macs / ms / 1e6:.0f} GMAC/s; max|CC - oracle| {worst:.3g} at its "
+      f"{n_checked} detections), default build {ms5d:.2f} ms "
+      f"({ms / ms5d:.3f} of it; the pre-pass of each {pre5:.3f} ms), "
       f"bound {bound_ms:.2f} ms ({bound_by}: 3 TF32 products at "
       f"{TF32_PEAK_FLOPS / 1e12:.0f} TFLOP/s; the f32 FMA figure "
       f"{fma_ms:.2f} ms), plain {plain_ms:.0f} ms; max|diff| from plain "
@@ -3318,7 +3319,7 @@ print(json.dumps({"kernels": [{
 }, {
     "name": "mf_cc_highest",
     "route": "cuda",
-    "source": "seismic_bpmf_tpu_torch/csrc/mf_highest.cu",
+    "source": "seismic_bpmf_tpu_torch/csrc/mf.cu",
     "replaces": "seismic_bpmf_tpu/ops/pallas_mf.py:120",
     "launches": launches5,
     "max_abs_err": max(err, err3, err13_f32, errs26["highest"]),

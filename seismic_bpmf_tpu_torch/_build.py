@@ -133,9 +133,10 @@ def _finish(name: str, so: str, proc, tmp: str, t0: float,
 
 
 # the builds of a source that the package loads besides its default one:
-# name -> tuples of -D defines (none: each source is one build; the tools'
-# sweeps build variants of their own, `build_variants`)
-VARIANTS: dict = {}
+# name -> tuples of -D defines (csrc/mf.cu's 'highest' build, `ops.mf`'s
+# HIGHEST_BUILD; the tools' sweeps build variants of their own,
+# `build_variants`)
+VARIANTS: dict = {"mf": [("MF_ACC_OUT=1",)]}
 
 
 def key(name: str, defines=()) -> str:

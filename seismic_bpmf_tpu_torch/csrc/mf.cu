@@ -3,9 +3,9 @@
 // warpgroup tensor-core instruction (`wgmma`, CUDA C++, sm_90a).
 //
 // Replaces the TPU kernel `seismic_bpmf_tpu/ops/pallas_mf.py::_mf_kernel`
-// for the rung 'default' and the 'screen' scan (csrc/mf_highest.cu serves
-// 'highest'; the `high` twin `_mf_kernel_split` is csrc/mf_split.cu).  It
-// computes
+// at the f32 rungs: this build serves 'default' and the 'screen' scan, the
+// build with MF_ACC_OUT=1 serves 'highest' (below; the `high` twin
+// `_mf_kernel_split` is csrc/mf_split.cu).  It computes
 //
 //   fh = tf32(f),  fl = tf32(f - fh)                (host, once per plan)
 //   dh = tf32(d),  dl = tf32(d - dh)                (pre-pass, once a call)
@@ -32,7 +32,7 @@
 // the main path (128 templates x 30 channels x 200 taps x 2.16 M lags) is
 // 3 x 3.32e12 TF32 operations against ~1.4 GB of data in and CC out:
 // ~20 ms at 495 TFLOP/s dense TF32, memory ~0.4 ms.  The previous design
-// (`mma.sync.m16n8k8`, the one csrc/mf_highest.cu keeps) staged and split
+// (`mma.sync.m16n8k8`, which also served 'highest') staged and split
 // each channel's span and recomputed its window norms in every block,
 // between two block barriers, for each of the bank's template tiles again,
 // and `mma.sync` TF32 peaks well below the card's rate: 63.9 ms a day on an
@@ -95,8 +95,34 @@
 //   The ring has up to MF_STAGES stages (the launch takes as many as fit
 // shared memory); a channel that `tile_lo` marks -1 is skipped by the
 // producer and the consumers alike, so it costs no stage.  The times of
-// each design are in PERF.md (tools/mf_tile_sweep.py mf).  The index maps
-// are mirrored on the CPU by tests/test_torch_mf_tc.py.
+// each design are in PERF.md (tools/mf_tile_sweep.py mf, mf_highest).  The
+// index maps are mirrored on the CPU by tests/test_torch_mf_tc.py.
+//
+// The 'highest' build (MF_ACC_OUT=1) differs in the consumers' sums alone.
+// The tensor cores add into their f32 accumulator with truncation, not
+// round to nearest.  Near a detection every product of a channel has one
+// sign, so a sum carried through a channel's 60 dependent products loses a
+// little at each, always toward zero: ~2e-6 of the CC at the main path's
+// shape, where 'highest' must stay within 1e-6 of the float64 oracle.  So
+// each group of MF_ACC_G k-steps of a template is summed from zero in a
+// partial fragment (B = dl first, with scale-d 0, then B = dh): the tensor
+// cores truncate only at the scale of one group's partial.  The partial is
+// added into the running sum by an ordinary round-to-nearest f32 add; the
+// sum keeps its hi and lo rows apart until the epilogue.  The add reads the
+// partial only once its group has finished (`wgmma.wait_group 0`): ptxas
+// serializes every `wgmma` of the kernel where an accumulator is read while
+// another product is in flight, as a second partial alternating with the
+// first would need.  So a consumer warpgroup leaves the tensor cores to the
+// other three while it adds; a k-step is a commit group of its own, its A
+// in one of two register sets.  The sum, the partial and the network sum
+// fit the 112 registers a consumer thread has, as the accumulator and the
+// network sum of the default build do.  One day of the main path on an
+// H100 80GB HBM3 at 700 W: 53.9 ms at MF_ACC_G = 2, where the `mma.sync`
+// design that served 'highest' before took 72.3 in the same run; larger
+// groups run faster (48.9 ms at 5, 47.0 at 10) but lie further from the
+// oracle at planted repeats (4.8e-07 and 6.6e-07, 2.4e-07 at 2), and two
+// consumer warpgroups of two templates each ran slower (52.4 ms at 5)
+// (PERF.md, tools/mf_tile_sweep.py mf_highest).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -114,6 +140,13 @@
                         // rate), 4 products and epilogue (no copies, no
                         // waits)
 #endif
+#ifndef MF_ACC_OUT
+#define MF_ACC_OUT 0    // 1: the 'highest' build (partials summed outside
+                        // the tensor cores' accumulator)
+#endif
+#ifndef MF_ACC_G
+#define MF_ACC_G 2      // k-steps a partial of the 'highest' build
+#endif
 #define MF_YG 16        // samples per partial of the window sums
 #define MF_N 64         // columns of one product, 32 lags apart
 #define MF_T (32 * MF_N)                 // lags a block: 2048
@@ -128,6 +161,9 @@
 // count covers both
 #define MF_PRODUCER_REGS 32
 #define MF_CONSUMER_REGS 112
+#if MF_ACC_OUT && MF_ACC_G < 1
+#error "a partial of the 'highest' build takes one k-step at least"
+#endif
 #define MF_GFRONT 8     // zeros in front of a row as the plan stages it
 #define MF_FRONT 40     // zeros in front of a row in a stage: >= 31 + 3
 #define MF_TILE 32      // templates a `tile_lo` entry covers (TEMPLATE_TILE)
@@ -500,8 +536,9 @@ mf_kernel(const float* __restrict__ dh,      // (n_ch, ext_al) TF32 parts
                 a[u] = used[u] ? b0i + mv - g0 : 0;   // < max_delta + 4
 #endif
             }
-            // written first by a product with scale-d 0: no other
-            // instruction may define the accumulators while products are in
+            // the tensor cores' accumulators (the partials of the 'highest'
+            // build) are written first by a product with scale-d 0: no
+            // other instruction may define them while products are in
             // flight, or ptxas serializes them
             float acc[MF_TPW][32];
 #if MF_DIAG == 1
@@ -522,15 +559,61 @@ mf_kernel(const float* __restrict__ dh,      // (n_ch, ext_al) TF32 parts
                         + (wg * MF_TPW + u) * s.row + MF_FRONT + q - sft
                         - dlt;
             }
-            uint32_t a0[MF_TPW][MF_GROUP][4], a1[MF_TPW][MF_GROUP][4];
-            // k-steps ks .. ks + nk - 1 of every template into registers
-            // (k = 8 ks + q and + 4 of the hi and the lo row), then their
-            // products, one group
+            // k-step ks of a template into registers: k = 8 ks + q and + 4
+            // of the hi and the lo row
 #define MF_LOAD_A(r, f, o)                                                   \
             {                                                                \
                 r[0] = f[o]; r[1] = f[(o) + lo_off];                         \
                 r[2] = f[(o) + 4]; r[3] = f[(o) + lo_off + 4];               \
             }
+#if MF_ACC_OUT
+            // each group of MF_ACC_G k-steps of template u summed from zero
+            // into `part` (B = dl first, with scale-d 0, then dh) and added
+            // into acc[u] in round-to-nearest f32 once the whole group has
+            // finished (the note at the top: ptxas serializes the products
+            // if an accumulator is read while one is in flight, even after
+            // wait_group 1); a k-step is a commit group of its own, its A in
+            // one of two register sets, loaded while the k-step before runs
+            float part[32];
+            uint32_t ar[2][4];
+#pragma unroll
+            for (int u = 0; u < MF_TPW; ++u)
+#pragma unroll
+                for (int r = 0; r < 32; ++r) acc[u][r] = 0.0f;
+#define MF_PARTIAL(u, ks, nk)                                                \
+            {                                                                \
+                _Pragma("unroll")                                            \
+                for (int kk = 0; kk < (nk); ++kk) {                          \
+                    const uint32_t o = 32 * ((ks) + kk);                     \
+                    if (kk >= 2)            /* its A set is free */          \
+                        wgmma_wait<1>();                                     \
+                    MF_LOAD_A(ar[kk & 1], fr[u], 8 * ((ks) + kk))            \
+                    wgmma_fence();                                           \
+                    wgmma_tf32(part, ar[kk & 1],                             \
+                               mf_desc(bh[u] + s.o_lo + o), kk > 0);         \
+                    wgmma_tf32(part, ar[kk & 1], mf_desc(bh[u] + o), 1);     \
+                    wgmma_commit();                                          \
+                }                                                            \
+                wgmma_wait<0>();                                             \
+                fence_acc(part);                                             \
+                _Pragma("unroll")                                            \
+                for (int r = 0; r < 32; ++r) acc[u][r] += part[r];           \
+            }
+            const int n_grp = n_ks / MF_ACC_G;
+            for (int gi = 0; gi < n_grp; ++gi)
+#pragma unroll
+                for (int u = 0; u < MF_TPW; ++u)
+                    MF_PARTIAL(u, MF_ACC_G * gi, MF_ACC_G)
+            // the k-steps after the last whole group, one a group
+            for (int ks = MF_ACC_G * n_grp; ks < n_ks; ++ks)
+#pragma unroll
+                for (int u = 0; u < MF_TPW; ++u)
+                    MF_PARTIAL(u, ks, 1)
+#undef MF_PARTIAL
+#else
+            uint32_t a0[MF_TPW][MF_GROUP][4], a1[MF_TPW][MF_GROUP][4];
+            // k-steps ks .. ks + nk - 1 of every template into registers,
+            // then their products, one group
 #define MF_STEP(ar, ks, nk)                                                  \
             {                                                                \
                 _Pragma("unroll")                                            \
@@ -562,10 +645,11 @@ mf_kernel(const float* __restrict__ dh,      // (n_ch, ext_al) TF32 parts
             if (ks + 1 < n_ks) MF_STEP(a1, ks + 1, 1)
             if (ks + 2 < n_ks) MF_STEP(a0, ks + 2, 1)
 #undef MF_STEP
-#undef MF_LOAD_A
             wgmma_wait<0>();
 #pragma unroll
             for (int u = 0; u < MF_TPW; ++u) fence_acc(acc[u]);
+#endif
+#undef MF_LOAD_A
 #if MF_DIAG == 3
             // keeps the products: ptxas drops those whose sums go unused
             if (lo_p == INT_MIN)
@@ -647,6 +731,9 @@ int mf_tile_lags(void) { return MF_T; }
 int mf_row_width(int L) { return mf_row(L); }
 
 int mf_plan_row_width(int L) { return mf_grow(L); }
+
+// 0 for the 'default' build; the 'highest' build's k-steps a partial
+int mf_partial_steps(void) { return MF_ACC_OUT ? MF_ACC_G : 0; }
 
 long long mf_prepass_smem_bytes(int L)
 {

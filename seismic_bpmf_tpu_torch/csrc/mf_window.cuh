@@ -1,5 +1,5 @@
-// The matched-filter kernels' normalization, shared by csrc/mf.cu,
-// csrc/mf_highest.cu and csrc/mf_split.cu: y(p) = rsqrt(r2 - r1^2 / L)
+// The matched-filter kernels' normalization, shared by csrc/mf.cu and
+// csrc/mf_split.cu: y(p) = rsqrt(r2 - r1^2 / L)
 // from the L-sample window sums r1, r2 of a staged f32 data span, 0 where
 // the window variance is <= 1e-10 (so zero-filled gaps give CC = 0).
 

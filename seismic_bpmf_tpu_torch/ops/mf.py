@@ -11,7 +11,7 @@ offset, so the plan keeps the demeaned, weight-over-norm scaled template
 rows as they are, plus a per-(channel, template) moveout table.  The
 kernels split every product operand in two parts and run the products of
 the parts on the tensor cores with f32 accumulation; the window
-normalization comes from the unsplit f32 data.  There is one kernel per
+normalization comes from the unsplit f32 data.  There is one build per
 split and accumulation:
 
   `mf_cc` (`csrc/mf.cu`): TF32 parts (`split_tf32`, 11 significant bits
@@ -23,12 +23,12 @@ split and accumulation:
   `matched_filter_plain` is the same function in plain PyTorch,
   `tf32_day_plain` the pre-pass's.
 
-  `mf_cc_highest` (`csrc/mf_highest.cu`): the rung 'highest', the same
-  TF32 parts and plan tensors, three products (fh*dh + fh*dl + fl*dh) by
-  `mma.sync`, each k-step's products summed outside the tensor cores'
-  accumulator (their additions truncate; see csrc/mf_highest.cu).  Its
-  plain version is `matched_filter_plain` too, which adds the fl*dl term
-  (~2^-22 of a product) the kernel drops.
+  `mf_cc_highest` (`csrc/mf.cu` built with MF_ACC_OUT=1, `HIGHEST_BUILD`):
+  the rung 'highest', the same pre-pass, plan tensors, ring and four
+  products, but each group of HIGHEST_PARTIAL_STEPS k-steps summed from zero
+  on the tensor cores and the partials added in round-to-nearest f32
+  outside them (their additions truncate; see csrc/mf.cu).  Its plain
+  version is `matched_filter_plain` too.
 
   `mf_cc_split` (`csrc/mf_split.cu`): bf16 parts (`split_bf16`); the rung
   'high'.  A pre-pass (`split_day`) splits the day and computes its window
@@ -37,8 +37,7 @@ split and accumulation:
   in plain PyTorch, `split_day_plain` the pre-pass's.
 
 The plan splits the template rows once and lays them out as the kernels
-read them (`stage_tf32_rows`, `stage_split_rows`); csrc/mf_highest.cu
-splits the day span by span.
+read them (`stage_tf32_rows`, `stage_split_rows`).
 
 A wrapper uses its plain version only for tensors on the CPU.
 
@@ -60,15 +59,14 @@ from .._device import resolve_device
 
 LAG_TILE = 2048      # lags per block of csrc/mf.cu (MF_T)
 TEMPLATE_TILE = 32   # templates per `tile_lo` entry of every kernel (MF_TILE,
-                     # MFS_TILE) and per block of csrc/mf_highest.cu (MF_TP)
+                     # MFS_TILE)
 BLOCK_TEMPLATES = 4  # templates per block of csrc/mf.cu (MF_TPB)
-TF32_K_STEP = 8      # taps per k-step of the TF32 kernels: K = round_up(L +
-                     # 34, 8) in csrc/mf.cu, round_up(L + 7, 8) in
-                     # csrc/mf_highest.cu
+TF32_K_STEP = 8      # taps per k-step of csrc/mf.cu: K = round_up(L + 34, 8)
 SPLIT_ROW_FRONT = 8  # zeros in front of a plan's TF32 row (MF_GFRONT)
 ROW_FRONT = 40       # zeros in front of a row staged by csrc/mf.cu (MF_FRONT)
 STAGES = 4           # csrc/mf.cu's deepest ring (MF_STAGES)
-HIGHEST_LAG_TILE = 512   # lags per block of csrc/mf_highest.cu (MF_T)
+HIGHEST_BUILD = ("MF_ACC_OUT=1",)   # the defines of the 'highest' build
+HIGHEST_PARTIAL_STEPS = 2    # k-steps a partial of that build (MF_ACC_G)
 SPLIT_LAG_TILE = 4096   # lags per block of the split kernel (MFS_T)
 SPLIT_BLOCK_TEMPLATES = 4  # templates per block of the split kernel (MFS_TPB)
 SPLIT_ROW_OFF = 72   # zeros in front of a staged split row (MFS_OFF)
@@ -83,8 +81,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _tf32_row_width(L: int) -> int:
-    """Elements of a plan's TF32 row (`mf_grow`, csrc/mf_highest.cu's KP):
-    round_up(L + 7, 8) taps' room and 8 zeros in front."""
+    """Elements of a plan's TF32 row (`mf_grow`): round_up(L + 7, 8) taps'
+    room and 8 zeros in front."""
     return _round_up(L + 7, TF32_K_STEP) + SPLIT_ROW_FRONT
 
 
@@ -127,23 +125,6 @@ def _smem_bytes(L: int, max_delta: int) -> int:
     """Mirror of `mf_smem_bytes` in csrc/mf.cu: the ring at `stages`, its
     1 KB alignment and mbarriers."""
     return 1024 + stages(L, max_delta) * (_stage_bytes(L, max_delta) + 16)
-
-
-def _skewed_words(n: int) -> int:
-    """Words a span of n elements takes in csrc/mf_highest.cu's skewed
-    layout (MF_SK(n) + 4: 4 pad words after every HIGHEST_LAG_TILE / 8)."""
-    return n + 4 * (n // (HIGHEST_LAG_TILE // 8)) + 4
-
-
-def _highest_smem_bytes(L: int, max_delta: int) -> int:
-    """Mirror of `mf_highest_smem_bytes` in csrc/mf_highest.cu."""
-    KP = _tf32_row_width(L)
-    n_y = HIGHEST_LAG_TILE + max_delta
-    span = n_y + KP - SPLIT_ROW_FRONT + 8     # + 8: the loads issued ahead
-    n_sum = n_y + L
-    return (4 * 2 * TEMPLATE_TILE * KP
-            + 4 * (TEMPLATE_TILE + _skewed_words(n_y) + span + 2 * n_sum
-                   + 2 * _skewed_words(span)))
 
 
 def _split_k(L: int) -> int:
@@ -223,11 +204,14 @@ def _lib_split():
     return lib
 
 
-def _lib():
+def _lib(defines=()):
+    """The loaded library of csrc/mf.cu's build with -D `defines`: () the
+    'default' build, HIGHEST_BUILD the 'highest' one."""
     from .. import _build
 
-    lib = _build.load("mf")
-    if "mf" not in _BOUND:
+    lib = _build.load("mf", defines)
+    key = _build.key("mf", defines)
+    if key not in _BOUND:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mf_prepass_launch.argtypes = [vp, i64, i64, i32, i32, vp, vp,
                                           vp, vp]
@@ -244,46 +228,22 @@ def _lib():
         lib.mf_stages.restype = lib.mf_row_width.restype = i32
         lib.mf_plan_row_width.restype = i32
         for fn in (lib.mf_tile_lags, lib.mf_tile_templates,
-                   lib.mf_block_templates):
+                   lib.mf_block_templates, lib.mf_partial_steps):
             fn.argtypes, fn.restype = [], i32
+        steps = HIGHEST_PARTIAL_STEPS if defines else 0
         if (lib.mf_tile_lags() != LAG_TILE
                 or lib.mf_tile_templates() != TEMPLATE_TILE
                 or lib.mf_block_templates() != BLOCK_TEMPLATES
+                or lib.mf_partial_steps() != steps
                 or any(lib.mf_row_width(L) != _row_width(L)
                        or lib.mf_plan_row_width(L) != _tf32_row_width(L)
                        for L in (37, 200))
                 or any(lib.mf_smem_bytes(L, d) != _smem_bytes(L, d)
                        or lib.mf_stages(L, d) != stages(L, d)
                        for L, d in ((200, 450), (37, 3), (200, 9000)))):
-            raise RuntimeError("csrc/mf.cu and ops/mf.py disagree on the "
-                               "kernel's tile sizes")
-        _BOUND.add("mf")
-    return lib
-
-
-def _lib_highest():
-    from .. import _build
-
-    lib = _build.load("mf_highest")
-    if "mf_highest" not in _BOUND:
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mf_highest_launch.argtypes = [vp, i64, vp, vp, vp, vp, i32, i32,
-                                          i32, i32, i64, i64, i64, i32, vp]
-        lib.mf_highest_launch.restype = i32
-        lib.mf_highest_smem_bytes.argtypes = [i32, i32]
-        lib.mf_highest_smem_bytes.restype = i64
-        lib.mf_highest_error_string.argtypes = [i32]
-        lib.mf_highest_error_string.restype = ctypes.c_char_p
-        for fn in (lib.mf_highest_tile_lags, lib.mf_highest_tile_templates):
-            fn.argtypes, fn.restype = [], i32
-        if (lib.mf_highest_tile_lags() != HIGHEST_LAG_TILE
-                or lib.mf_highest_tile_templates() != TEMPLATE_TILE
-                or any(lib.mf_highest_smem_bytes(L, d)
-                       != _highest_smem_bytes(L, d)
-                       for L, d in ((200, 450), (37, 3)))):
-            raise RuntimeError("csrc/mf_highest.cu and ops/mf.py disagree "
-                               "on the kernel's tile sizes")
-        _BOUND.add("mf_highest")
+            raise RuntimeError(f"csrc/mf.cu ({key}) and ops/mf.py disagree "
+                               f"on the kernel's tile sizes")
+        _BOUND.add(key)
     return lib
 
 
@@ -344,11 +304,9 @@ def stage_tf32_rows(filt_hi: torch.Tensor, filt_lo: torch.Tensor,
                     L: int) -> torch.Tensor:
     """The f32-class kernels' template rows: (n_ch, n_tiles, 2,
     TEMPLATE_TILE, KP) f32 with KP = round_up(L + 7, 8) + 8.  Axis 2 is
-    (hi, lo), the TF32 parts; each row is 8 zeros, the L taps, zeros.  One
-    (channel, tile) block is one contiguous copy into csrc/mf_highest.cu's
-    shared memory; csrc/mf.cu copies a block's 4 templates' rows into its
-    stage, each ROW_FRONT - 8 elements into a zeroed row of
-    `_row_width(L)`."""
+    (hi, lo), the TF32 parts; each row is 8 zeros, the L taps, zeros.
+    csrc/mf.cu copies a block's 4 templates' rows into its stage, each
+    ROW_FRONT - 8 elements into a zeroed row of `_row_width(L)`."""
     n_ch, n_tp_pad = filt_hi.shape[:2]
     n_tiles = n_tp_pad // TEMPLATE_TILE
     rows = torch.zeros((n_ch, n_tiles, 2, TEMPLATE_TILE, _tf32_row_width(L)),
@@ -454,8 +412,7 @@ def matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table, *, n_tp: int,
     the two TF32 parts of the scaled template rows (`split_tf32`); mv_table
     (n_ch, n_tp_pad) int32 padded moveouts, -1 for a channel that adds
     nothing.  The day is split with `split_tf32`; the four products (fh*dh
-    + fh*dl) + (fl*dh + fl*dl) are csrc/mf.cu's (csrc/mf_highest.cu drops
-    fl*dl, ~2^-22 of a product)."""
+    + fh*dl) + (fl*dh + fl*dl) are csrc/mf.cu's, in both its builds."""
     matched_filter_plain.calls += 1
     return _parts_plain(split_tf32, data_pad, filt_hi, filt_lo, mv_table,
                         n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
@@ -472,7 +429,7 @@ def _check_launch(lib, prefix: str, rc: int) -> None:
 
 
 def _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, *, n_tp, L,
-                     max_delta, smem_bytes) -> None:
+                     max_delta) -> None:
     """Raises ValueError on a 'highest'/'default' plan's tensors that the
     TF32 kernels do not take."""
     n_ch = data_pad.shape[0]
@@ -488,7 +445,7 @@ def _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, *, n_tp, L,
             or n_tp > n_tp_pad
             or tuple(tile_lo.shape) != (n_ch, n_tp_pad // TEMPLATE_TILE)):
         raise ValueError("inconsistent matched-filter plan shapes")
-    if smem_bytes(L, max_delta) > SMEM_LIMIT:
+    if _smem_bytes(L, max_delta) > SMEM_LIMIT:
         raise ValueError("moveout span too wide for one kernel tile")
 
 
@@ -498,6 +455,42 @@ def _tf32_plain(data_pad, filt_rows, mv_table, *, n_tp, L, n_corr, lo_p,
     return matched_filter_plain(data_pad, filt_hi, filt_lo, mv_table,
                                 n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p,
                                 hi_p=hi_p, lag_block=lag_block)
+
+
+def _tf32_cc(wrapper, defines, data_pad, filt_rows, mv_table, tile_lo, *,
+             n_tp, L, n_corr, lo_p, hi_p, max_delta,
+             lag_block) -> torch.Tensor:
+    """The f32 rungs' route: `matched_filter_plain` on CPU tensors; on CUDA
+    tensors the pre-pass (`tf32_day`) and then the main kernel of csrc/mf.cu's
+    build with -D `defines` on its arrays, counted on `wrapper`, or
+    raises."""
+    if data_pad.device.type == "cpu":
+        return _tf32_plain(data_pad, filt_rows, mv_table, n_tp=n_tp, L=L,
+                           n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                           lag_block=lag_block)
+    if data_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {data_pad.device}")
+    _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, n_tp=n_tp, L=L,
+                     max_delta=max_delta)
+    n_ch = data_pad.shape[0]
+    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
+                      device=data_pad.device)
+    if n_corr <= 0:
+        return out
+    hi, lo, y = tf32_day(data_pad, L)
+    lib = _lib(defines)
+    with torch.cuda.device(data_pad.device):
+        rc = lib.mf_launch(
+            hi.data_ptr(), lo.data_ptr(), y.data_ptr(), hi.shape[1],
+            filt_rows.data_ptr(), mv_table.data_ptr(), tile_lo.data_ptr(),
+            out.data_ptr(), n_ch, n_tp, mv_table.shape[1], L, int(n_corr),
+            int(lo_p), int(hi_p), int(max_delta),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(lib, "mf", rc)
+    wrapper.launches += 1
+    wrapper.launches_on[data_pad.device.index] += 1
+    return out
 
 
 def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
@@ -510,33 +503,9 @@ def mf_cc(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int, L: int,
     On CPU tensors this is `matched_filter_plain`; on CUDA tensors it
     launches csrc/mf.cu's pre-pass (`tf32_day`) and then its main kernel
     on the pre-pass's arrays, or raises."""
-    if data_pad.device.type == "cpu":
-        return _tf32_plain(data_pad, filt_rows, mv_table, n_tp=n_tp, L=L,
-                           n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                           lag_block=lag_block)
-    if data_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {data_pad.device}")
-    _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, n_tp=n_tp, L=L,
-                     max_delta=max_delta, smem_bytes=_smem_bytes)
-    n_ch = data_pad.shape[0]
-    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
-                      device=data_pad.device)
-    if n_corr <= 0:
-        return out
-    hi, lo, y = tf32_day(data_pad, L)
-    lib = _lib()
-    with torch.cuda.device(data_pad.device):
-        rc = lib.mf_launch(
-            hi.data_ptr(), lo.data_ptr(), y.data_ptr(), hi.shape[1],
-            filt_rows.data_ptr(), mv_table.data_ptr(), tile_lo.data_ptr(),
-            out.data_ptr(), n_ch, n_tp, mv_table.shape[1], L, int(n_corr),
-            int(lo_p), int(hi_p), int(max_delta),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _check_launch(lib, "mf", rc)
-    mf_cc.launches += 1
-    mf_cc.launches_on[data_pad.device.index] += 1
-    return out
+    return _tf32_cc(mf_cc, (), data_pad, filt_rows, mv_table, tile_lo,
+                    n_tp=n_tp, L=L, n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
+                    max_delta=max_delta, lag_block=lag_block)
 
 
 mf_cc.launches = 0
@@ -546,35 +515,15 @@ mf_cc.launches_on = collections.Counter()   # by card index
 def mf_cc_highest(data_pad, filt_rows, mv_table, tile_lo, *, n_tp: int,
                   L: int, n_corr: int, lo_p: int, hi_p: int, max_delta: int,
                   lag_block: int = 4096) -> torch.Tensor:
-    """`mf_cc` for a 'highest' plan: on CUDA tensors it launches
-    csrc/mf_highest.cu (each k-step's products summed from zero on the
-    tensor cores, the partials added in round-to-nearest f32) or raises; on
-    CPU tensors it is `matched_filter_plain`."""
-    if data_pad.device.type == "cpu":
-        return _tf32_plain(data_pad, filt_rows, mv_table, n_tp=n_tp, L=L,
-                           n_corr=n_corr, lo_p=lo_p, hi_p=hi_p,
-                           lag_block=lag_block)
-    if data_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {data_pad.device}")
-    _check_tf32_plan(data_pad, filt_rows, mv_table, tile_lo, n_tp=n_tp, L=L,
-                     max_delta=max_delta, smem_bytes=_highest_smem_bytes)
-    n_ch, ext = data_pad.shape
-    out = torch.empty((n_tp, max(int(n_corr), 0)), dtype=torch.float32,
-                      device=data_pad.device)
-    if n_corr <= 0:
-        return out
-    lib = _lib_highest()
-    with torch.cuda.device(data_pad.device):
-        rc = lib.mf_highest_launch(
-            data_pad.data_ptr(), ext, filt_rows.data_ptr(),
-            mv_table.data_ptr(), tile_lo.data_ptr(), out.data_ptr(), n_ch,
-            n_tp, mv_table.shape[1], L, int(n_corr), int(lo_p), int(hi_p),
-            int(max_delta), torch.cuda.current_stream().cuda_stream,
-        )
-    _check_launch(lib, "mf_highest", rc)
-    mf_cc_highest.launches += 1
-    mf_cc_highest.launches_on[data_pad.device.index] += 1
-    return out
+    """`mf_cc` for a 'highest' plan: on CUDA tensors it launches the
+    pre-pass and then csrc/mf.cu's 'highest' build (`HIGHEST_BUILD`: each
+    group of HIGHEST_PARTIAL_STEPS k-steps summed from zero on the tensor
+    cores, the partials added in round-to-nearest f32) or raises; on CPU
+    tensors it is `matched_filter_plain`."""
+    return _tf32_cc(mf_cc_highest, HIGHEST_BUILD, data_pad, filt_rows,
+                    mv_table, tile_lo, n_tp=n_tp, L=L, n_corr=n_corr,
+                    lo_p=lo_p, hi_p=hi_p, max_delta=max_delta,
+                    lag_block=lag_block)
 
 
 mf_cc_highest.launches = 0
@@ -812,14 +761,13 @@ class MatchedFilterPlan:
     padded days.
 
     `precision` keeps the JAX package's rung names.  'highest' and
-    'default' run the f32-class kernels (`mf_cc_highest`,
-    csrc/mf_highest.cu, and `mf_cc`, csrc/mf.cu, which differ in how they
-    multiply and accumulate): the plan splits the rows in two TF32 parts
-    once (`split_tf32`) and keeps them laid out as both kernels read them
-    (`filt_rows`, `stage_tf32_rows`; `tf32_rows_parts` reads the parts
-    back).  'high' runs the split kernel (`mf_cc_split`) on bf16 parts
-    (`split_bf16`, `stage_split_rows`, `split_rows_parts`).  Each kernel
-    splits the day itself.  `lag_block` is the plain versions' lag
+    'default' run the two builds of csrc/mf.cu (`mf_cc_highest` and
+    `mf_cc`, which differ in how they accumulate): the plan splits the rows
+    in two TF32 parts once (`split_tf32`) and keeps them laid out as both
+    read them (`filt_rows`, `stage_tf32_rows`; `tf32_rows_parts` reads the
+    parts back).  'high' runs the split kernel (`mf_cc_split`) on bf16 parts
+    (`split_bf16`, `stage_split_rows`, `split_rows_parts`).  Each kernel's
+    pre-pass splits the day.  `lag_block` is the plain versions' lag
     chunk."""
 
     def __init__(self, templates, moveouts, weights, n_samp: int,
@@ -889,8 +837,8 @@ class MatchedFilterPlan:
         t_hi = np.where(used, tiles, -1).max(-1)
         any_used = used.any(-1)
         self.max_delta = int((t_hi - t_lo)[any_used].max(initial=0))
-        smem = {"high": _split_smem_bytes, "highest": _highest_smem_bytes,
-                "default": _smem_bytes}[precision](L, self.max_delta)
+        smem = (_split_smem_bytes if precision == "high"
+                else _smem_bytes)(L, self.max_delta)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"moveout span {self.max_delta} samples within a "

@@ -190,8 +190,7 @@ def mf_layout(n_samp: int, L: int, pad_left: int, max_moveout: int,
     unsharded scan's; together the chunks cover the padded day, so the last
     shard's halo is truly zero.  The halo, max padded moveout + L, holds
     every window of the chunk's lags."""
-    tile = math.lcm(_mf.LAG_TILE, _mf.HIGHEST_LAG_TILE,
-                    _mf.SPLIT_LAG_TILE) * n_t
+    tile = math.lcm(_mf.LAG_TILE, _mf.SPLIT_LAG_TILE) * n_t
     total = -(-max(n_samp - L + 1, pad_left + n_samp) // tile) * tile
     layout = TimeLayout(n_samp=int(n_samp), pad_left=int(pad_left),
                         chunk=total // n_t, left=0,

@@ -10,7 +10,7 @@ use virtual meshes that repeat one card:
   - the MF day: `chip_smoke.py` phase 4's bank (`tools/mf_world.py`: 128
     templates x 30 channels, L = 200) and day 1 (2,160,000 samples), at
     'default' (kernel #1, csrc/mf.cu, which `screen` scans), 'highest'
-    (its `mma.sync` design, csrc/mf_highest.cu) and 'high' (kernel #2), on the
+    (its 'highest' build) and 'high' (kernel #2), on the
     meshes {"tp": 2, "time": n/2}, {"time": n}, {"tp": n} and {"tp": 2,
     "time": n} over the cards twice;
   - the BP day: phase 8's lattice (`tools/bp_world.py`: 100,000 sources x

@@ -1,13 +1,14 @@
 """Holds an MF campaign's detections of one tree to another's.
 
     python -m seismic_bpmf_tpu_torch.tools.mf_detections \
-        [--reference-tree DIR] [--precision high | screen]
+        [--reference-tree DIR] [--precision high | highest | screen]
 
 At `high` it runs `chip_smoke.py` phase 11's campaign
 (`tools/mf_world.py`'s world of 128 templates x 30 channels over its two
 days of 2,160,000 samples, `workflow.scan_days` at the rung, phase 11's
-engine settings and noise seed); at `screen` phase 4's campaign (the same
-world and settings, phase 4's noise seed) and then phase 24's
+engine settings and noise seed); at `highest` the same campaign at that
+rung (phase 5's) with phase 4's noise seed; at `screen` phase 4's campaign
+(the same world and settings, phase 4's noise seed) and then phase 24's
 (`tools/year_world.py`'s 1024-template year bank, `tools/year_scan.py`'s
 campaign over days 0-1 and then day 2 from its state file, phase 24's
 white noise).  Each runs in a process of its own in this tree and, with
@@ -56,7 +57,7 @@ else:
     world = MFWorld(SEED, n_tp=128)
     _, tg = world.bank()
     sr = SR
-    seed = SEED + (2 if precision == "screen" else 4)
+    seed = SEED + (4 if precision == "high" else 2)
     kw = dict(minimum_interevent_time=5.0, min_channels=6, min_stations=3,
               max_kurto=1e6, rng=np.random.default_rng(seed))
     res = workflow.scan_days(list(DATES), world.make_data, tg,
@@ -101,7 +102,8 @@ def compare(a: dict, b: dict) -> tuple:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reference-tree", default=None)
-    ap.add_argument("--precision", default="high")
+    ap.add_argument("--precision", default="high",
+                    choices=("high", "highest", "screen"))
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,9 +7,10 @@
 Builds the kernel's source once per variant of its compile-time sizes (all
 nvcc processes at once), runs each on the main path's shapes (128
 templates x 30 channels x L = 200 x 2,160,000 samples, moveouts in
-[-50, 400)) and prints ptxas's register and spill report, its time (CUDA
-events, the best of 2 x 3 launches) and its largest difference from the
-first variant, with the card's name and power limit.
+[-50, 400), templates 0-15 planted four times each at 30 times the noise)
+and prints ptxas's register and spill report, its time (CUDA events, the
+best of 2 x 3 launches) and its largest difference from the first variant,
+with the card's name and power limit.
 
   mf          csrc/mf.cu at precision 'default': (MF_STAGES, the ring's
               depth; MF_DIAG, 0 the kernel, 1 a diagnostic build without
@@ -20,9 +21,12 @@ first variant, with the card's name and power limit.
               copies or waits; the diagnostic builds give wrong CC); the
               pre-pass's time (`ops.mf.tf32_day`) and the rate of the
               TF32 operations the main kernel issues are printed too;
-  mf_highest  csrc/mf_highest.cu at precision 'highest': (MF_NSUB 128-lag
-              sub-tiles per block: 1, 2, 4 or 8; MF_MINB blocks per SM
-              for the register budget);
+  mf_highest  csrc/mf.cu's 'highest' build (MF_ACC_OUT=1) at precision
+              'highest': (MF_ACC_G, the k-steps a partial; MF_STAGES;
+              MF_DIAG as for mf), with the pre-pass's time and the issued
+              TF32 rate as for mf, and each variant's largest |CC - the
+              float64 oracle| at the planted repeats (the rung's gate is
+              1e-6);
   mf_split    csrc/mf_split.cu at precision 'high': (MFS_STAGES, MFS_DIAG
               as MF_DIAG's 0-2); the pre-pass's time (`ops.mf.split_day`)
               is printed too.
@@ -50,18 +54,22 @@ import torch
 
 from .. import _build
 from ..ops import mf
+from ..ops.reference import matched_filter_at
 
 KERNELS = {
-    # name: (define names, precision, variants; the first is the source's
-    # default)
-    "mf": (("MF_STAGES", "MF_DIAG"), "default",
+    # name: (source, its build's fixed defines, define names, precision,
+    # variants; the first is the build's default)
+    "mf": ("mf", (), ("MF_STAGES", "MF_DIAG"), "default",
            [(4, 0), (3, 0), (2, 0), (4, 1), (4, 2), (4, 3), (4, 4)]),
-    "mf_highest": (("MF_NSUB", "MF_MINB"), "highest",
-                   [(4, 2), (4, 1), (2, 2), (8, 1)]),
-    "mf_split": (("MFS_STAGES", "MFS_DIAG"), "high",
+    "mf_highest": ("mf", mf.HIGHEST_BUILD, ("MF_ACC_G", "MF_STAGES",
+                                            "MF_DIAG"), "highest",
+                   [(2, 4, 0), (3, 4, 0), (5, 4, 0), (10, 4, 0), (2, 3, 0),
+                    (2, 4, 3)]),
+    "mf_split": ("mf_split", (), ("MFS_STAGES", "MFS_DIAG"), "high",
                  [(3, 0), (2, 0), (1, 0), (3, 1), (3, 2)]),
 }
 RTOL, ATOL = 1e-4, 1e-5
+N_PLANTED, PER_PLANTED = 16, 4   # templates planted, repeats of each
 
 # runs in the reference tree: the same day through that tree's plan
 _REFERENCE = """
@@ -88,22 +96,23 @@ torch.save({"cc": cc.cpu(), "times": times}, out)
 """
 
 
-def _route(name: str, variant, precision: str) -> str:
+def _route(name: str, variant) -> str:
     """The build's key in `_build._LIBS` of a variant, with ops.mf's
     mirrors of its tile sizes set."""
     if name == "mf":
         mf.STAGES = variant[0]
-    elif name == "mf_highest":
-        mf.HIGHEST_LAG_TILE = 128 * variant[0]
-    else:
-        mf.SPLIT_STAGES = variant[0]
-    return name
+        return _build.key("mf")
+    if name == "mf_highest":
+        mf.HIGHEST_PARTIAL_STEPS, mf.STAGES = variant[:2]
+        return _build.key("mf", mf.HIGHEST_BUILD)
+    mf.SPLIT_STAGES = variant[0]
+    return _build.key("mf_split")
 
 
 def _issued_tflops(plan, ms: float) -> float:
-    """TF32 TFLOP/s of the products csrc/mf.cu issues for `plan`'s day:
-    two m64n64k8 products a k-step for every template slot of a block,
-    used channel and lag tile."""
+    """TF32 TFLOP/s of the products csrc/mf.cu (either build) issues for
+    `plan`'s day: two m64n64k8 products a k-step for every template slot
+    of a block, used channel and lag tile."""
     slots = -(-plan.n_tp // mf.BLOCK_TEMPLATES) * mf.BLOCK_TEMPLATES
     tiles = -(-plan.n_corr_unit // mf.LAG_TILE)
     chans = int((plan.tile_lo >= 0).sum()) / plan.tile_lo.shape[1]
@@ -134,7 +143,7 @@ def main():
     ap.add_argument("--reference-tree", default=None)
     args = ap.parse_args()
     name = args.kernel
-    defines, precision, variants = KERNELS[name]
+    source, fixed, defines, precision, variants = KERNELS[name]
     if args.variants is not None:
         variants = [tuple(int(v) for v in s.split(","))
                     for s in args.variants]
@@ -143,8 +152,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     built = _build.build_variants(
-        name, [tuple(f"{k}={v}" for k, v in zip(defines, var))
-               for var in variants], extra_flags=("-Xptxas", "-v"))
+        source, [(*fixed, *(f"{k}={v}" for k, v in zip(defines, var)))
+                 for var in variants], extra_flags=("-Xptxas", "-v"))
     label = [" ".join(f"{k}={v}" for k, v in zip(defines, var))
              for var in variants]
     for lab, (so, log) in zip(label, built):
@@ -158,6 +167,15 @@ def main():
     mv = rng.integers(-50, 400, size=(n_tp, n_sta, n_comp))
     w = np.full((n_tp, n_sta, n_comp), 1.0 / 30, np.float32)
     d = rng.standard_normal((n_sta, n_comp, n), dtype=np.float32)
+    lags = rng.integers(1000, n - 1000, size=(N_PLANTED, PER_PLANTED))
+    for t in range(N_PLANTED):
+        for o in lags[t]:
+            for s in range(n_sta):
+                for c in range(n_comp):
+                    st = o + mv[t, s, c]
+                    d[s, c, st : st + L] += 30.0 * tp[t, s, c]
+    exact = np.stack([matched_filter_at(tp[t], mv[t], w[t], d, lags[t])
+                      for t in range(N_PLANTED)])
     macs = n_tp * n_sta * n_comp * L * (n - L + 1)
     with tempfile.TemporaryDirectory() as tmp:
         refs = []
@@ -166,9 +184,12 @@ def main():
             np.savez(src, tp=tp, mv=mv, w=w, d=d)
             refs.append(_reference(args.reference_tree, src, precision, tmp,
                                    card))
+            print(f"reference tree: max|CC - oracle| at the {exact.size} "
+                  f"planted repeats "
+                  f"{_oracle_err(refs[0]['cc'], lags, exact):.3g}", flush=True)
         first = None
         for var, lab, (so, _) in zip(variants, label, built):
-            lib_key = _route(name, var, precision)
+            lib_key = _route(name, var)
             mf._BOUND.discard(lib_key)
             _build._LIBS[lib_key] = ctypes.CDLL(so)
             plan = mf.MatchedFilterPlan(tp, mv, w, n, precision=precision)
@@ -187,12 +208,14 @@ def main():
             if name == "mf_split":
                 extra = (f"; pre-pass {_prepass_ms(mf.split_day, dp, L):.3f}"
                          f" ms, {mf.split_stages(L, plan.max_delta)} stages")
-            elif name == "mf":
+            else:
                 pre = _prepass_ms(mf.tf32_day, dp, L)
                 extra = (f"; pre-pass {pre:.3f} ms, "
                          f"{mf.stages(L, plan.max_delta)} stages, issued "
                          f"TF32 {_issued_tflops(plan, ms - pre):.1f} "
                          f"TFLOP/s (the day less its pre-pass)")
+            extra += (f"; max|CC - oracle| at the {exact.size} planted "
+                      f"repeats {_oracle_err(out, lags, exact):.3g}")
             if refs:
                 cc = refs[0]["cc"]
                 outc = out.cpu()
@@ -209,6 +232,13 @@ def main():
             torch.cuda.empty_cache()
             refs.append(_reference(args.reference_tree, src, precision, tmp,
                                    card))
+
+
+def _oracle_err(out, lags, exact) -> float:
+    """Largest |CC - the float64 oracle| at the planted repeats."""
+    got = out[:N_PLANTED].cpu().numpy()
+    return float(max(np.abs(got[t, lags[t]] - exact[t]).max()
+                     for t in range(N_PLANTED)))
 
 
 def _prepass_ms(prepass, dp, L) -> float:

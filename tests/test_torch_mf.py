@@ -251,8 +251,8 @@ def _planted_repeats(seed, n_tp=4, n_sta=10, n_comp=3, L=200,
 def test_highest_plain_is_exact_at_planted_repeats():
     """The 'highest' rung's arithmetic (the products of TF32 parts, f32
     sums) lies within 5e-7 of the float64 oracle at every planted repeat:
-    the split is exact enough, so what csrc/mf_highest.cu must repair is
-    how the tensor cores accumulate, not the split."""
+    the split is exact enough, so what the kernel's 'highest' build must
+    repair is how the tensor cores accumulate, not the split."""
     tp, mv, w, data, lags = _planted_repeats(41)
     got = mf.matched_filter(tp, mv, w, data, precision="highest",
                             device="cpu").numpy()
@@ -269,8 +269,8 @@ def test_highest_plain_is_exact_at_planted_repeats():
     ("screen", "mf_cc"), ("high", "mf_cc_split")])
 def test_rungs_route_to_their_builds(monkeypatch, precision, route):
     """Each rung reaches its kernel's wrapper through the engine: 'highest'
-    csrc/mf_highest.cu, 'default' and 'screen' csrc/mf.cu, 'high'
-    csrc/mf_split.cu; no other."""
+    csrc/mf.cu's 'highest' build, 'default' and 'screen' its default build,
+    'high' csrc/mf_split.cu; no other."""
     from seismic_bpmf_tpu_torch.detection import MatchedFilter
     from seismic_bpmf_tpu_torch.config import Config
     from seismic_bpmf_tpu_torch.data import TemplateGroup
@@ -303,8 +303,8 @@ def test_rungs_route_to_their_builds(monkeypatch, precision, route):
 
 
 # --------------------------------------------------------------------------
-# the f32-class kernels: TF32 parts, and csrc/mf_highest.cu's layouts and
-# index maps (csrc/mf.cu's: tests/test_torch_mf_tc.py)
+# the f32-class kernels: TF32 parts and the plan's rows (csrc/mf.cu's index
+# maps and both builds' sums: tests/test_torch_mf_tc.py)
 def _tf32_rna_reference(x):
     """Round to TF32 (10 stored mantissa bits), to nearest with ties away
     from zero, computed in float64 from the value, not from its bits."""
@@ -399,116 +399,21 @@ def test_staged_tf32_rows_layout():
 
 
 def test_smem_mirror_and_limit():
-    """The Python mirror of csrc/mf_highest.cu's shared-memory size at
-    the main path's shape, two blocks of it on one SM, and the plan's
-    refusal of a span that cannot fit."""
-    # 2 x 32 rows x 216 f32 + f32 (32 + skewed y of 962 + 1178 + 2 x 1162)
-    # + two skewed spans of 1178 elements, for L = 200, max_delta = 450:
-    # a skewed span of n takes n + 4 (n // 64) + 4 words
-    assert mf._highest_smem_bytes(200, 450) == (
-        4 * 2 * 32 * 216 + 4 * (32 + 1026 + 1178 + 2 * 1162 + 2 * 1254))
-    assert 2 * (mf._highest_smem_bytes(200, 450) + 1024) <= 228 * 1024
+    """A 'highest' plan takes what csrc/mf.cu's ring holds, as a 'default'
+    one does (its 'highest' build stages the same: `_smem_bytes`): four
+    stages at the main path's shape, one block a SM; and it refuses a span
+    that cannot fit."""
+    assert mf._smem_bytes(200, 450) == 1024 + 4 * (43008 + 16)
+    assert mf._smem_bytes(200, 450) <= mf.SMEM_LIMIT < 2 * (
+        mf._smem_bytes(200, 450) + 1024)
     tp, mv, w, data = _bank(35, mv_range=(-30, 60))
+    mv[1, 0, 0] = 15000                  # four stages do not fit, one does
+    plan = mf.MatchedFilterPlan(tp, mv, w, 30000, device="cpu")
+    assert plan.precision_name == "highest"
+    assert mf.stages(plan.L, plan.max_delta) == 1
     mv[1, 0, 0] = 200000
     with pytest.raises(ValueError, match="shared memory"):
         mf.MatchedFilterPlan(tp, mv, w, 300000, device="cpu")
-
-
-NSUB = mf.HIGHEST_LAG_TILE // 128   # MF_NSUB of csrc/mf_highest.cu
-RUN = 16 * NSUB                   # lags of a lane group (MF_RUN)
-
-
-def _sk(e, run=RUN):
-    """MF_SK of csrc/mf_highest.cu: 4 pad words after every `run`
-    elements."""
-    return e + 4 * (e // run)
-
-
-def _lanes():
-    lane = np.arange(32)
-    return lane >> 2, lane & 3            # (g, q) of each lane
-
-
-@pytest.mark.parametrize("nsub", [1, 2, 4, 8])
-def test_kernel_loads_hit_32_banks(nsub):
-    """A warp's A loads (window position m of each lane: elements
-    base + 16 NSUB g + q + 8 m, and + 4) land on 32 distinct banks for
-    every moveout offset; its y loads (lags 16 NSUB g + 2 q + ...) on no
-    bank more than twice; its B loads read distinct words from distinct
-    banks."""
-    g, q = _lanes()
-    run = 16 * nsub
-    for base in range(2 * run):
-        for m in range(3):
-            for c in (0, 4):
-                words = _sk(base + run * g + q + 8 * m + c, run)
-                assert len(set(words % 32)) == 32, (base, m, c)
-        for lag in (0, 1, 8, 9, 16 * (nsub - 1)):
-            words = _sk(base + run * g + 2 * q + lag, run)
-            assert np.bincount(words % 32).max() <= 2, (base, lag)
-    for t, ks in ((0, 0), (5, 3), (31, 25)):
-        for c in (0, 4):
-            words = t * 216 + 8 + q - g + 8 * ks + c
-            uniq = np.unique(words)
-            assert len(uniq) == len(set(uniq % 32)) == 11
-
-
-@pytest.mark.parametrize("nsub, L", [(NSUB, 45), (NSUB, 200), (2, 43)])
-def test_kernel_index_map_reproduces_the_correlation(nsub, L):
-    """The kernel's fragments, loaded with its index maps (a sliding window
-    of 2 NSUB + 1 slots per lane, position m in slot m % that) from the
-    skewed span and the staged row, and multiplied as `mma.m16n8k8`
-    multiplies them, give each lag's correlation once; no load leaves the
-    span."""
-    rng = np.random.default_rng(36)
-    base, run, W = 13, 16 * nsub, 2 * nsub + 1
-    K = -(-(L + 7) // 8) * 8
-    KP = K + 8
-    n_ks = K // 8
-    span = 128 * nsub + base + K + 8          # as mf_layout sizes it
-    d = rng.normal(size=span)
-    f = rng.normal(size=L)
-    skewed = np.zeros(_sk(span, run) + 4)
-    skewed[_sk(np.arange(span), run)] = d
-    row = np.zeros(KP)
-    row[8 : 8 + L] = f
-    g, q = _lanes()
-    e0 = base + run * g + q
-
-    def load(m):
-        assert np.all(e0 + 8 * m + 4 < span)
-        return (skewed[_sk(e0 + 8 * m, run)], skewed[_sk(e0 + 8 * m + 4, run)])
-
-    slots = [load(m) for m in range(W)]
-    acc = np.zeros((nsub, 32, 4))
-    for s0 in range(0, n_ks, W):
-        for i in range(W):
-            ks = s0 + i
-            if ks >= n_ks:
-                continue
-            b = (row[8 + q - g + 8 * ks], row[8 + q - g + 8 * ks + 4])
-            B = np.zeros((8, 8))
-            B[q, g] = b[0]
-            B[q + 4, g] = b[1]
-            for u in range(nsub):
-                p, n = slots[(i + 2 * u) % W], slots[(i + 2 * u + 1) % W]
-                A = np.zeros((16, 8))
-                for reg, (dr, dk) in zip((p[0], n[0], p[1], n[1]),
-                                         ((0, 0), (8, 0), (0, 4), (8, 4))):
-                    A[g + dr, q + dk] = reg
-                C = A @ B
-                for r in range(4):
-                    acc[u, :, r] += C[g + 8 * (r >> 1), 2 * q + (r & 1)]
-            slots[i] = load(ks + W)
-    out = np.full(128 * nsub, np.nan)
-    for u in range(nsub):
-        for r in range(4):
-            lag = run * g + 2 * q + 16 * u + 8 * (r >> 1) + (r & 1)
-            assert np.all(np.isnan(out[lag]))
-            out[lag] = acc[u, :, r]
-    want = np.array([d[base + b : base + b + L] @ f
-                     for b in range(128 * nsub)])
-    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
 
 
 # --------------------------------------------------------------------------

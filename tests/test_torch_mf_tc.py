@@ -1,4 +1,4 @@
-"""csrc/mf.cu's index maps, mirrored on the CPU.
+"""csrc/mf.cu's index maps and both its builds' sums, mirrored on the CPU.
 
 A torch walk of the kernel's blocks (`_emulate`) stages each channel as the
 producer warpgroup does (the pre-pass's TF32 parts of the data span in
@@ -9,11 +9,19 @@ place no copy wrote shows), gathers the `wgmma` operands as the consumers
 do (A from each thread's four registers a k-step: the hi and the lo row
 of one shift; B through the descriptor's rows, 32 lags apart), multiplies
 by the dh and the dl span, and applies y, the mask and the network sum
-through each thread's accumulator fragment.  It must reproduce
-`matched_filter_plain`; the warps' shared-memory loads must be free of
-bank conflicts; and the pre-pass's plain twin must give the JAX package's
-window normalization.
+through each thread's accumulator fragment; for the 'highest' build it
+sums the k-steps in the groups and the order of that build's partial walk
+(`_partial_walk`).  It must reproduce `matched_filter_plain`; the warps'
+shared-memory loads must be free of bank conflicts; and the pre-pass's
+plain twin must give the JAX package's window normalization.  A numpy
+model of the tensor cores' truncating additions (`_cc_model`) shows why the
+'highest' build sums its partials outside them: at a planted repeat the
+partials stay within the rung's 1e-6 of the float64 oracle, one
+accumulator carried through the k-steps does not.
 """
+
+import re
+
 
 import numpy as np
 import pytest
@@ -32,6 +40,8 @@ T = mf.LAG_TILE
 TPB = mf.BLOCK_TEMPLATES
 FRONT = mf.ROW_FRONT
 GFRONT = mf.SPLIT_ROW_FRONT
+G = mf.HIGHEST_PARTIAL_STEPS
+ATOL_HIGHEST = 1e-6         # the 'highest' rung against the float64 oracle
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,14 +94,53 @@ def _y_words(a, sft, q):
     return r + 8 * (r >> 6), lags
 
 
-def _emulate(plan, data_pad, stages=2):
+def _partial_walk(n_ks, g):
+    """What a consumer warpgroup of the 'highest' build does with its
+    template on one stage, in csrc/mf.cu's order (MF_PARTIAL): for each
+    group of `g` k-steps (then one k-step a group) ("issue", products) with
+    products [(k-step, "dl" or "dh", scale-d)], ("wait", 0) and ("add",)."""
+    ev = []
+    n_grp = n_ks // g
+    for ks, nk in ([(g * i, g) for i in range(n_grp)]
+                   + [(k, 1) for k in range(g * n_grp, n_ks)]):
+        ev.append(("issue", [p for k in range(ks, ks + nk)
+                             for p in ((k, "dl", int(k > ks)),
+                                       (k, "dh", 1))]))
+        ev += [("wait", 0), ("add",)]
+    return ev
+
+
+def _play(walk):
+    """Runs a walk as the tensor cores would: groups complete in the order
+    they were committed, `wait n` leaves the newest n in flight.  Checks
+    that no partial is read while a group is in flight (ptxas would
+    serialize the products) and none is overwritten before it was added;
+    returns the groups (their products) in the order they were added."""
+    flight, done, added = [], [], []
+    for e in walk:
+        if e[0] == "issue":
+            assert not done
+            flight.append(e[1])
+        elif e[0] == "wait":
+            while len(flight) > e[1]:
+                done.append(flight.pop(0))
+        else:
+            assert not flight and len(done) == 1
+            added.append(done.pop())
+    assert not flight and not done
+    return added
+
+
+def _emulate(plan, data_pad, stages=2, build="default"):
     """The kernel's output on `plan` and `data_pad`, walked block by
     block, channel by channel through a ring of `stages` stages; also the
-    16-byte phases delta its templates took."""
+    16-byte phases delta its templates took.  `build` 'highest' sums each
+    template's products as its consumer's partial walk does."""
     L, n_tp, n_corr = plan.L, plan.n_tp, plan.n_corr_unit
     K, row, span, n_y4 = _layout(L, plan.max_delta)
     n_ks = K // 8
     KP = mf._tf32_row_width(L)
+    groups = _play(_partial_walk(n_ks, G))
     hi, lo, yd = mf.tf32_day_plain(data_pad, L)
     ext_al = hi.shape[1]
     rows, mv_t, tile_lo = plan.filt_rows, plan.mv_table, plan.tile_lo
@@ -159,7 +208,19 @@ def _emulate(plan, data_pad, stages=2):
                     k = torch.arange(K)[:, None]
                     e = (a - dlt) + 32 * n + k                   # (K, 64)
                     assert int(e.max()) < span
-                    D = A @ st["hi"][phys[e]] + A @ st["lo"][phys[e]]
+                    if build == "highest":
+                        # each group summed from zero, then added into
+                        # the running sum
+                        D = torch.zeros((64, 64))
+                        for prods in groups:
+                            part = torch.zeros((64, 64))
+                            for ks, name, _ in prods:
+                                k = slice(8 * ks, 8 * ks + 8)
+                                b = st[{"dh": "hi", "dl": "lo"}[name]]
+                                part = part + A[:, k] @ b[phys[e[k]]]
+                            D = D + part
+                    else:
+                        D = A @ st["hi"][phys[e]] + A @ st["lo"][phys[e]]
                     if not used:
                         continue
                     assert not torch.isnan(D).any()
@@ -199,21 +260,24 @@ def _world(L, n_tp=13, n_sta=4, n_comp=3, n_samp=5000, seed=0,
     return tp, mv, w, data
 
 
-@pytest.mark.parametrize("L,stages", [(200, 2), (37, 3), (45, 1)])
-def test_the_tile_walk_gives_the_plain_version(L, stages):
+@pytest.mark.parametrize("L,stages,build", [
+    (200, 2, "default"), (37, 3, "default"), (45, 1, "default"),
+    (200, 2, "highest"), (45, 3, "highest")])
+def test_the_tile_walk_gives_the_plain_version(L, stages, build):
     tp, mv, w, data = _world(L)
     plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1],
-                                precision="default", device="cpu")
+                                precision=build, device="cpu")
     assert int((plan.tile_lo < 0).sum()) == 1        # one channel skipped
     assert int((plan.mv_table[:, : plan.n_tp] < 0).sum()) == plan.n_tp + 1
     assert plan.n_corr_unit % T and plan.n_corr_unit > 2 * T   # ragged
     assert plan.n_tp % TPB                                       # ragged
     dp = plan.pad_data(data)
-    got, deltas = _emulate(plan, dp, stages=stages)
+    got, deltas = _emulate(plan, dp, stages=stages, build=build)
     assert deltas == {0, 1, 2, 3}        # B starts at every 16-byte phase
-    want = mf.mf_cc(dp, plan.filt_rows, plan.mv_table, plan.tile_lo,
-                    n_tp=plan.n_tp, L=L, n_corr=plan.n_corr_unit,
-                    lo_p=plan.lo_p, hi_p=plan.hi_p, max_delta=plan.max_delta)
+    wrapper = mf.mf_cc_highest if build == "highest" else mf.mf_cc
+    want = wrapper(dp, plan.filt_rows, plan.mv_table, plan.tile_lo,
+                   n_tp=plan.n_tp, L=L, n_corr=plan.n_corr_unit,
+                   lo_p=plan.lo_p, hi_p=plan.hi_p, max_delta=plan.max_delta)
     assert not torch.isnan(got).any()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-6)
@@ -306,9 +370,9 @@ def test_smem_and_stages():
 
 
 def test_the_plain_version_adds_the_lo_lo_product():
-    """`matched_filter_plain` adds fl*dl as csrc/mf.cu does (the three
-    products of csrc/mf_highest.cu give other bits); both lie within 1e-6
-    of the float64 oracle."""
+    """`matched_filter_plain` adds fl*dl as both builds of csrc/mf.cu do
+    (the three products fh*dh + fh*dl + fl*dh give other bits); both lie
+    within 1e-6 of the float64 oracle."""
     tp, mv, w, data = _world(40, n_tp=4, n_samp=3000)
     plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1],
                                 precision="default", device="cpu")
@@ -323,3 +387,152 @@ def test_the_plain_version_adds_the_lo_lo_product():
     exact = tref.matched_filter(tp, mv, w, data)
     for got in (four, three):
         np.testing.assert_allclose(got.numpy(), exact, rtol=0, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the 'highest' build: its partial walk, its registers, and why it sums
+# outside the tensor cores
+@pytest.mark.parametrize("n_ks, g", [(30, G), (30, 5), (30, 6), (11, 2),
+                                     (7, 5)])
+def test_the_partial_walk_covers_each_k_step_once(n_ks, g):
+    """The groups are the template's k-steps in order, `g` a group and then
+    one a group, each started by B = dl with scale-d 0 and each k-step's dl
+    product before its dh product; every partial is added once, after the
+    wait for its group and with nothing in flight (`_play`)."""
+    groups = _play(_partial_walk(n_ks, g))
+    n_grp = n_ks // g
+    assert [sorted({ks for ks, _, _ in prods}) for prods in groups] == (
+        [list(range(g * i, g * i + g)) for i in range(n_grp)]
+        + [[ks] for ks in range(g * n_grp, n_ks)])
+    for prods in groups:
+        assert [(n, sd) for _, n, sd in prods[:2]] == [("dl", 0), ("dh", 1)]
+        assert all(sd == 1 for _, _, sd in prods[1:])
+        assert prods == sorted(prods, key=lambda p: (p[0], p[1] == "dh"))
+
+
+def test_the_highest_build_stages_what_the_default_build_does():
+    """The 'highest' build's layout and threads are the default build's
+    (one ring, one `_smem_bytes`; 128 producer threads at 32 registers and
+    four consumer warpgroups at 112 fill the 96 a thread that ptxas gives
+    640 threads); a consumer's f32 state (the sum, the partial, the
+    network sum and two sets of A operands) leaves room for its addresses;
+    ops.mf mirrors the source's default group size."""
+    with open(mf.__file__.replace("ops/mf.py", "csrc/mf.cu")) as f:
+        text = f.read()
+
+    def define(name):
+        return int(re.search(rf"^#define {name} (\d+)", text, re.M)[1])
+
+    assert define("MF_ACC_G") == G == 2
+    cwg, prod, cons = (define(n) for n in ("MF_CWG", "MF_PRODUCER_REGS",
+                                           "MF_CONSUMER_REGS"))
+    threads = 128 * (cwg + 1)
+    assert (cwg, 65536 // threads // 8 * 8) == (4, 96)
+    assert 128 * prod + 128 * cwg * cons == 96 * threads
+    assert 32 + 32 + 16 + 2 * 4 == 88 <= cons - 16    # sum, part, tot, A
+    assert mf._smem_bytes(200, 450) == 1024 + 4 * (43008 + 16)
+    tp, mv, w, data = _world(40, n_tp=4, n_samp=3000)
+    plans = [mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], precision=p,
+                                  device="cpu") for p in ("highest",
+                                                          "default")]
+    assert torch.equal(plans[0].filt_rows, plans[1].filt_rows)
+    assert plans[0].max_delta == plans[1].max_delta
+
+
+def _toward_zero(x: float) -> np.float32:
+    """x rounded to f32 toward zero, as the tensor cores' additions."""
+    f = np.float32(x)
+    return np.nextafter(f, np.float32(0)) if abs(float(f)) > abs(x) else f
+
+
+def _planted_repeat(seed=0, n_sta=10, n_comp=3, L=200, n_samp=3000):
+    """One template planted at 10 times the noise: every product of a
+    channel has one sign."""
+    rng = np.random.default_rng(seed)
+    tp = rng.normal(size=(1, n_sta, n_comp, L)).astype(np.float32)
+    mv = rng.integers(-50, 400, size=(1, n_sta, n_comp))
+    w = np.full((1, n_sta, n_comp), 1.0 / (n_sta * n_comp), np.float32)
+    data = rng.normal(size=(n_sta, n_comp, n_samp)).astype(np.float32)
+    lag = 1000 + int(rng.integers(0, 64))
+    for s in range(n_sta):
+        for c in range(n_comp):
+            st = lag + mv[0, s, c]
+            data[s, c, st : st + L] += 10.0 * tp[0, s, c]
+    return tp, mv, w, data, lag
+
+
+def _cc_model(tp, mv, w, data, lag, g=None):
+    """CC of the planted template at `lag` as csrc/mf.cu sums it, in numpy:
+    each channel's taps at the shift and 16-byte phase its lag takes in the
+    kernel's blocks, every k-step's 8 products summed exactly and added
+    into an f32 sum truncated toward zero (the tensor cores), the hi and lo
+    rows apart, y and the network sum in round-to-nearest f32.  `g` None:
+    one accumulator carried through all k-steps, B = dh then dl (the
+    'default' build); else the 'highest' build's partial walk with `g`
+    k-steps a group, each partial from zero and added in round-to-nearest
+    f32."""
+    plan = mf.MatchedFilterPlan(tp, mv, w, data.shape[-1], device="cpu")
+    L, dp = plan.L, plan.pad_data(data)
+    n_ks = mf._k_taps(L) // 8
+    fh, fl = (f.double().numpy() for f in mf.tf32_rows_parts(plan.filt_rows,
+                                                               L))
+    dh, dl, y = mf.tf32_day_plain(dp, L)
+    d = {"dh": dh.double().numpy(), "dl": dl.double().numpy()}
+    if g is not None:
+        groups = _play(_partial_walk(n_ks, g))
+    b0 = lag // T * T
+    tot = np.float32(0)
+    for c in range(plan.n_ch):
+        m = int(plan.mv_table[c, 0])
+        a = b0 + m - ((b0 + int(plan.tile_lo[c, 0])) & ~3)
+        off = (lag - b0) % 32 + (a & 3)      # tap j sits at k = j + off
+        p = lag + m
+        rows = []
+        for f in (fh[c, 0], fl[c, 0]):
+            A = np.zeros(8 * n_ks)
+            A[off : off + L] = f[:L]
+            B = {}
+            for name, x in d.items():
+                B[name] = np.zeros(8 * n_ks)
+                B[name][off : off + L] = x[c, p : p + L]
+
+            def prod(ks, name):
+                return float(A[8 * ks : 8 * ks + 8] @ B[name][8 * ks : 8 * ks + 8])
+
+            if g is None:
+                acc = np.float32(0)
+                for ks in range(n_ks):
+                    for name in ("dh", "dl"):
+                        acc = _toward_zero(float(acc) + prod(ks, name))
+            else:
+                acc = np.float32(0)
+                for prods in groups:
+                    part = np.float32(0)
+                    for ks, name, _ in prods:
+                        part = _toward_zero(float(part) + prod(ks, name))
+                    acc = np.float32(acc + part)
+            rows.append(acc)
+        tot = np.float32(tot + np.float32(rows[0] + rows[1]) * y[c, p].item())
+    return float(tot)
+
+
+@pytest.mark.parametrize("g", [G, 5, 6])
+def test_partials_summed_outside_the_tensor_cores_meet_the_gate(g):
+    """At a planted repeat the 'highest' build's sums (each group of `g`
+    k-steps truncated at its own scale, the partials added to nearest)
+    stay within the rung's 1e-6 of the float64 oracle."""
+    tp, mv, w, data, lag = _planted_repeat()
+    exact = float(tref.matched_filter_at(tp[0], mv[0], w[0], data,
+                                         np.array([lag]))[0])
+    assert exact > 0.99
+    assert abs(_cc_model(tp, mv, w, data, lag, g) - exact) < ATOL_HIGHEST / 3
+
+
+def test_one_truncating_accumulator_misses_the_gate():
+    """The same model with one accumulator through a channel's 60
+    products loses a little at each, always toward zero: more than the
+    'highest' rung's 1e-6 at the same repeat, and below the oracle."""
+    tp, mv, w, data, lag = _planted_repeat()
+    exact = float(tref.matched_filter_at(tp[0], mv[0], w[0], data,
+                                         np.array([lag]))[0])
+    assert _cc_model(tp, mv, w, data, lag) < exact - ATOL_HIGHEST

@@ -257,18 +257,28 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 
 
 def test_nothing_is_compiled_at_import():
-    from seismic_bpmf_tpu_torch import _build, workflow  # noqa: F401
-    from seismic_bpmf_tpu_torch.ops import bp, mf  # noqa: F401
+    from seismic_bpmf_tpu_torch import _build
+    from seismic_bpmf_tpu_torch.ops import mf
 
-    assert _build._LIBS == {}
-    assert _build.sources() == ["bp", "mf", "mf_highest", "mf_split"]
+    # in a fresh interpreter: a test run earlier in this process may have
+    # loaded a library on purpose (the host scans)
+    fresh = subprocess.run(
+        [sys.executable, "-c", "from seismic_bpmf_tpu_torch import _build, "
+         "workflow; from seismic_bpmf_tpu_torch.ops import bp, mf; "
+         "print(len(_build._LIBS))"],
+        capture_output=True, text=True, check=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert fresh.stdout.strip() == "0"
+    assert _build.sources() == ["bp", "mf", "mf_split"]
+    assert _build.builds() == [("bp", ()), ("mf", ()),
+                               ("mf", mf.HIGHEST_BUILD), ("mf_split", ())]
     try:
         _build._nvcc()
     except RuntimeError:
         # no CUDA compiler: a kernel's first use raises, naming nvcc
-        for name in ("bp", "mf", "mf_highest", "mf_split"):
+        for name, defines in _build.builds():
             with pytest.raises(RuntimeError, match="nvcc"):
-                _build.load(name)
+                _build.load(name, defines)
 
 
 def test_host_ops_copies_match_the_jax_package():

@@ -1,0 +1,9 @@
+"""mf_day_s: seconds per MF campaign day, the window's wall time over the
+whole days `scan_days` completed in it (prefetch, upload, scan, refine
+and Events inside)."""
+
+UNIT = "s/day"
+
+
+def read(run):
+    return run.window_s / run.n_days if run.n_days else None

@@ -1,0 +1,18 @@
+"""roofline.mf_high_cc: the least time of the window's days of CC work
+(`work.mf_cc_day`, at the dense bf16 tensor peak, against the bytes at the
+memory bandwidth) over the device time of the kernels that compute it:
+csrc/mf_split.cu's pre-pass and main kernel."""
+
+from benchmark.work import mf_cc_day, roofline_share
+
+UNIT = "%"
+KERNELS = {
+    r"^mf_split_prepass\b":
+        "seismic_bpmf_tpu_torch.ops.mf:split_day.launches",
+    r"^mf_split_kernel\b":
+        "seismic_bpmf_tpu_torch.ops.mf:mf_cc_split.launches",
+}
+
+
+def read(run):
+    return roofline_share(run, KERNELS, mf_cc_day, "bf16_flops")

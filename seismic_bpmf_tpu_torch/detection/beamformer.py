@@ -25,6 +25,7 @@ from ..ops.picks import detect_peaks
 from ..ops.thresholds import bp_detection_threshold
 from ..parallel.mesh import mesh_device
 from ..parallel.sharded import ShardedBeamformPlan
+from ..utils.observe import GLOBAL_TIMER
 from ..utils.time import sec_to_samp, utc_from_epoch
 
 MAX_PLANS = 4  # device-resident plans kept per Beamformer
@@ -226,7 +227,8 @@ class Beamformer:
         device tables.  A plan of the same content for another day length,
         reduction or policy shares the cached plan's tables
         (`BPTables.retimed`).  At most MAX_PLANS stay cached.  With a mesh
-        the plans are `ShardedBeamformPlan`s, keyed the same way."""
+        the plans are `ShardedBeamformPlan`s, keyed the same way.  A build
+        is a `bp_plan` stage."""
         moveouts = self.moveouts
         content = tuple(
             # the bytes in place: a 1M-source grid's moveouts are GBs
@@ -242,14 +244,15 @@ class Beamformer:
             kw = dict(reduce=reduce, out_of_bounds=out_of_bounds,
                       precision=self.precision,
                       tables=same[-1] if same else None)
-            plans[key] = (
-                BeamformPlan(moveouts, self.weights_phases,
-                             self.weights_sources, n_samp,
-                             device=self.device, **kw)
-                if self.mesh is None else
-                ShardedBeamformPlan(moveouts, self.weights_phases,
-                                    self.weights_sources, n_samp, self.mesh,
-                                    **kw))
+            with GLOBAL_TIMER.stage("bp_plan"):
+                plans[key] = (
+                    BeamformPlan(moveouts, self.weights_phases,
+                                 self.weights_sources, n_samp,
+                                 device=self.device, **kw)
+                    if self.mesh is None else
+                    ShardedBeamformPlan(moveouts, self.weights_phases,
+                                        self.weights_sources, n_samp,
+                                        self.mesh, **kw))
             while len(plans) > MAX_PLANS:
                 plans.pop(next(iter(plans)))
             self._plans = plans
@@ -304,13 +307,16 @@ class Beamformer:
         self, window_sec: float = 3600.0, overlap: float = 0.75,
         num_dev: Optional[float] = None,
     ) -> np.ndarray:
+        """The max beam's detection threshold, on the device and back (the
+        `bp_threshold` stage)."""
         if num_dev is None:
             num_dev = self.cfg.n_dev_bp_threshold
         window = int(sec_to_samp(window_sec, sr=self.data.sr))
-        self.detection_threshold = bp_detection_threshold(
-            self.maxbeam, window, overlap=overlap, num_dev=num_dev,
-            device=self.device,
-        ).cpu().numpy()
+        with GLOBAL_TIMER.stage("bp_threshold"):
+            self.detection_threshold = bp_detection_threshold(
+                self.maxbeam, window, overlap=overlap, num_dev=num_dev,
+                device=self.device,
+            ).cpu().numpy()
         return self.detection_threshold
 
     def find_detections(
@@ -322,7 +328,8 @@ class Beamformer:
     ):
         """Peak-pick the max beam and build Events.
 
-        Reference parity: BPMF/template_search.py:574-673.
+        Reference parity: BPMF/template_search.py:574-673.  The peaks
+        and their grouping are the `bp_peaks` stage.
         """
         detection_threshold = np.asarray(detection_threshold)
         if detection_threshold.ndim == 0:
@@ -333,18 +340,20 @@ class Beamformer:
         sr = self.data.sr
         min_iet = int(sec_to_samp(minimum_interevent_time, sr=sr))
 
-        peak_indexes = detect_peaks(self.maxbeam, mpd=min_iet)
-        peak_indexes = peak_indexes[
-            self.maxbeam[peak_indexes] > detection_threshold[peak_indexes]
-        ]
-        # keep the largest peak inside each group
-        for i in range(len(peak_indexes)):
-            lo = max(0, peak_indexes[i] - min_iet // 2)
-            hi = min(peak_indexes[i] + min_iet // 2, len(self.maxbeam))
-            idx = np.arange(lo, hi)
-            upd = np.where(peak_indexes == peak_indexes[i])[0]
-            peak_indexes[upd] = idx[np.argmax(self.maxbeam[idx])]
-        peak_indexes = np.unique(peak_indexes)
+        with GLOBAL_TIMER.stage("bp_peaks"):
+            peak_indexes = detect_peaks(self.maxbeam, mpd=min_iet)
+            peak_indexes = peak_indexes[
+                self.maxbeam[peak_indexes]
+                > detection_threshold[peak_indexes]
+            ]
+            # keep the largest peak inside each group
+            for i in range(len(peak_indexes)):
+                lo = max(0, peak_indexes[i] - min_iet // 2)
+                hi = min(peak_indexes[i] + min_iet // 2, len(self.maxbeam))
+                idx = np.arange(lo, hi)
+                upd = np.where(peak_indexes == peak_indexes[i])[0]
+                peak_indexes[upd] = idx[np.argmax(self.maxbeam[idx])]
+            peak_indexes = np.unique(peak_indexes)
         source_indexes = self.maxbeam_sources[peak_indexes]
 
         detections = []

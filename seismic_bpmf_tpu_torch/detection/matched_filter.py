@@ -122,21 +122,22 @@ class MatchedFilter:
             # true LRU: refresh recency on a hit
             plans[key] = plans.pop(key)
         else:
-            plans[key] = [
-                ShardedMatchedFilterPlan(
-                    templates, moveouts, weights, n_samp, self.mesh,
-                    precision=self._rung(), pad_left=pad_left,
-                    max_moveout=max_mv)
-            ] if self.mesh is not None else [
-                MatchedFilterPlan(
-                    templates[i : i + chunk], moveouts[i : i + chunk],
-                    weights[i : i + chunk], n_samp,
-                    precision=self._rung(), pad_left=pad_left,
-                    max_moveout=max_mv,
-                    device=self.device,
-                )
-                for i in range(0, len(templates), chunk)
-            ]
+            with GLOBAL_TIMER.stage("mf_plan"):
+                plans[key] = [
+                    ShardedMatchedFilterPlan(
+                        templates, moveouts, weights, n_samp, self.mesh,
+                        precision=self._rung(), pad_left=pad_left,
+                        max_moveout=max_mv)
+                ] if self.mesh is not None else [
+                    MatchedFilterPlan(
+                        templates[i : i + chunk], moveouts[i : i + chunk],
+                        weights[i : i + chunk], n_samp,
+                        precision=self._rung(), pad_left=pad_left,
+                        max_moveout=max_mv,
+                        device=self.device,
+                    )
+                    for i in range(0, len(templates), chunk)
+                ]
             # bound the device-resident plans across a campaign whose
             # weights drift: ~2 full bank sweeps' worth of plan sets
             n_keys = max(
@@ -154,8 +155,9 @@ class MatchedFilter:
         if getattr(self, "_data_pad_key", None) == pad_key:
             data_pad = self._data_pad
         else:
-            data_pad = first.pad_data(self.data_arr,
-                                      dtype=self._upload_dtype())
+            with GLOBAL_TIMER.stage("mf_upload"):
+                data_pad = first.pad_data(self.data_arr,
+                                          dtype=self._upload_dtype())
             self._data_pad, self._data_pad_key = data_pad, pad_key
         outs = []
         for plan in plans[key]:
@@ -232,16 +234,18 @@ class MatchedFilter:
     # ------------------------------------------------------------------
     def _prepare_data_arr(self, data):
         """Host side of `set_data`: channel extraction + RMS normalization
-        (reference: BPMF/similarity_search.py:163-185)."""
-        arr = data.get_np_array(
-            self.stations, components=self.components
-        ).astype(np.float32)
-        norm = None
-        if self.normalize:
-            norm = np.std(arr, axis=-1, keepdims=True)
-            norm[norm == 0.0] = 1.0
-            arr = arr / norm
-            norm = norm.squeeze(-1)
+        (reference: BPMF/similarity_search.py:163-185), the
+        `mf_normalize` stage."""
+        with GLOBAL_TIMER.stage("mf_normalize"):
+            arr = data.get_np_array(
+                self.stations, components=self.components
+            ).astype(np.float32)
+            norm = None
+            if self.normalize:
+                norm = np.std(arr, axis=-1, keepdims=True)
+                norm[norm == 0.0] = 1.0
+                arr = arr / norm
+                norm = norm.squeeze(-1)
         return arr, norm
 
     def _upload_dtype(self) -> str:
@@ -253,24 +257,28 @@ class MatchedFilter:
         """Prepare `data` for a later `set_data(data)`: normalize and start
         the padded device upload on the calling (prefetch) thread.  One
         day may be in flight at a time.  Its host seconds go to the
-        `mf_set_data` stage of `utils.observe.GLOBAL_TIMER`."""
+        `mf_set_data` stage of `utils.observe.GLOBAL_TIMER`, split into
+        `mf_normalize` and `mf_upload`."""
         with GLOBAL_TIMER.stage("mf_set_data"):
             arr, norm = self._prepare_data_arr(data)
             bundle = {"arr": arr, "norm": norm, "ref": weakref.ref(data)}
             n_samp = int(arr.shape[-1])
             L = int(self.template_group.waveforms_arr.shape[-1])
             pad_left, max_mv = self._bank_pad_overrides()
-            if self.mesh is None:
-                pad_left, ext = MatchedFilterPlan.data_layout(
-                    n_samp, L, pad_left, max_mv)
-                pad = pad_day_data(arr, arr.shape[0] * arr.shape[1], n_samp,
-                                   pad_left, ext, dtype=self._upload_dtype(),
-                                   device=self.device)
-            else:
-                # the time shards on their devices, halos exchanged
-                grid = self.mesh.grid("tp", "time")
-                ext = mf_layout(n_samp, L, pad_left, max_mv, grid.shape[1])
-                pad = shard_day(arr, grid, ext, dtype=self._upload_dtype())
+            with GLOBAL_TIMER.stage("mf_upload"):
+                if self.mesh is None:
+                    pad_left, ext = MatchedFilterPlan.data_layout(
+                        n_samp, L, pad_left, max_mv)
+                    pad = pad_day_data(
+                        arr, arr.shape[0] * arr.shape[1], n_samp, pad_left,
+                        ext, dtype=self._upload_dtype(), device=self.device)
+                else:
+                    # the time shards on their devices, halos exchanged
+                    grid = self.mesh.grid("tp", "time")
+                    ext = mf_layout(n_samp, L, pad_left, max_mv,
+                                    grid.shape[1])
+                    pad = shard_day(arr, grid, ext,
+                                    dtype=self._upload_dtype())
             bundle["pad"] = (
                 pad, (id(arr), n_samp, pad_left, ext, self._upload_dtype()))
         pre = getattr(self, "_preloaded", None)
@@ -590,19 +598,21 @@ class MatchedFilter:
                     self.cc[tid] = stack[i]
 
     def _batch_extract_collect(self):
-        """Fetch a queued `_batch_extract` result into `self._cand_cache`.
+        """Fetch a queued `_batch_extract` result into `self._cand_cache`
+        (the `mf_collect` stage: the wait for the device and the copy).
         Rows whose block bound failed stay uncached (the per-template
         path re-extracts them exactly); returns those tids."""
         if self._cand_pending is None:
             return []
         dev_tids, eplan, out = self._cand_pending
         self._cand_pending = None
-        if eplan is not None and not isinstance(out, tuple):
-            idx, cc_vals, thr_vals, n_above, kurto, blocks_hit = (
-                eplan.unpack(out))
-        else:
-            idx, cc_vals, thr_vals, n_above, kurto, blocks_hit = (
-                a.cpu().numpy() for a in out)
+        with GLOBAL_TIMER.stage("mf_collect"):
+            if eplan is not None and not isinstance(out, tuple):
+                idx, cc_vals, thr_vals, n_above, kurto, blocks_hit = (
+                    eplan.unpack(out))
+            else:
+                idx, cc_vals, thr_vals, n_above, kurto, blocks_hit = (
+                    a.cpu().numpy() for a in out)
         needs_rerun = []
         for j, tid in enumerate(dev_tids):
             if blocks_hit[j] > self.MAX_CANDIDATE_BLOCKS:
@@ -706,6 +716,7 @@ class MatchedFilter:
         the Events go to the `mf_refine` and `mf_events` stages of
         `utils.observe.GLOBAL_TIMER`."""
         if self.precision == "screen" and len(cc_idx):
+            GLOBAL_TIMER.add("mf_candidates", len(cc_idx))
             with GLOBAL_TIMER.stage("mf_refine"):
                 cc_vals = self._exact_cc_at(tid, tt, cc_idx)
             keep = cc_vals > np.asarray(thr_vals)
@@ -873,100 +884,112 @@ class MatchedFilter:
         (reference: BPMF/similarity_search.py:726-807).
 
         Every chunk's CC scan and batched extraction are queued back to
-        back on the device before any result is read, so chunk N's
-        extraction and fetch overlap chunk N+1's scan."""
-        from time import time as give_time
-
+        back on the device before any result is read (the `mf_dispatch`
+        stage), so chunk N's extraction and fetch overlap chunk N+1's scan;
+        the `mf_detect` stage then collects each chunk (`mf_collect`,
+        `mf_rescan` on a candidate overflow) and selects its detections.
+        Meters: `mf_candidates` (handed to the `screen` refine, 0 where
+        none was) and `mf_detections` (the Events kept)."""
         self.extract_peak_amplitudes = extract_peak_amplitudes
         tg = self.template_group
         n_chunk = self._extraction_chunk(tg.n_templates)
         detections: Dict = {}
         t_mf = t_det = 0.0
+        if self.precision == "screen":
+            GLOBAL_TIMER.add("mf_candidates", 0)
         white_noise = kwargs.get("white_noise")
 
         if self.anomalous_cdf_at_mean_plus_1sig > 0.0:
             for lo in range(0, tg.n_templates, n_chunk):
-                t0 = give_time()
-                self.compute_cc_time_series(tids=tg.tids[lo : lo + n_chunk])
-                t_mf += give_time() - t0
-                t0 = give_time()
-                detections.update(self.find_detections(
-                    minimum_interevent_time,
-                    threshold_window_dur=threshold_window_dur,
-                    overlap=overlap, sanity_check=sanity_check,
-                    verbose=verbose, white_noise=white_noise,
-                ))
-                t_det += give_time() - t0
+                with GLOBAL_TIMER.stage("mf_dispatch") as span:
+                    self.compute_cc_time_series(
+                        tids=tg.tids[lo : lo + n_chunk])
+                t_mf += span.seconds
+                with GLOBAL_TIMER.stage("mf_detect") as span:
+                    detections.update(self.find_detections(
+                        minimum_interevent_time,
+                        threshold_window_dur=threshold_window_dur,
+                        overlap=overlap, sanity_check=sanity_check,
+                        verbose=verbose, white_noise=white_noise,
+                    ))
+                t_det += span.seconds
         else:
             self.minimum_interevent_time = minimum_interevent_time
             self.threshold_window_dur = threshold_window_dur
             self.overlap = overlap
             self.sanity_check = sanity_check
             contexts = []
-            t0 = give_time()
-            # rows stay in the stacked chunk during dispatch; they are
-            # regenerated from the cached plans on a fallback
-            self._defer_rows = True
-            for lo in range(0, tg.n_templates, n_chunk):
-                tids_chunk = tg.tids[lo : lo + n_chunk]
-                self.compute_cc_time_series(tids=tids_chunk)
-                white_noise = self._batch_extract(white_noise, fetch=False)
-                ctx = {
-                    "tids_chunk": list(tids_chunk),
-                    "tids_subset": self.tids_subset,
-                    "weights": self._weights_arr,
-                    "pending": self._cand_pending,
-                }
-                if self._cand_pending is None:
-                    # fewer than 2 device rows: no batch was queued
-                    ctx["cc_full"] = self.cc
-                else:
-                    ctx["host_cc"] = {
-                        tid: cc for tid, cc in self.cc.items()
-                        if isinstance(cc, np.ndarray)
+            with GLOBAL_TIMER.stage("mf_dispatch") as span:
+                # rows stay in the stacked chunk during dispatch; they are
+                # regenerated from the cached plans on a fallback
+                self._defer_rows = True
+                for lo in range(0, tg.n_templates, n_chunk):
+                    tids_chunk = tg.tids[lo : lo + n_chunk]
+                    self.compute_cc_time_series(tids=tids_chunk)
+                    white_noise = self._batch_extract(white_noise,
+                                                      fetch=False)
+                    ctx = {
+                        "tids_chunk": list(tids_chunk),
+                        "tids_subset": self.tids_subset,
+                        "weights": self._weights_arr,
+                        "pending": self._cand_pending,
                     }
-                contexts.append(ctx)
-                self._cand_pending = None
-                self.cc = {}
-                self._cc_stack = (None, None)
-            self._defer_rows = False
-            t_mf += give_time() - t0
-
-            t0 = give_time()
-            placeholder = torch.zeros((2,), dtype=torch.float32,
-                                      device=self.device)
-            for ctx in contexts:
-                self.tids_subset = ctx["tids_subset"]
-                self._weights_arr = ctx["weights"]
-                self._cand_pending = ctx["pending"]
-                self._cand_cache = {}
-                if "cc_full" in ctx:
-                    self.cc = ctx["cc_full"]
-                else:
-                    needs_rerun = set(self._batch_extract_collect())
-                    overflowed = [tid for tid, c in self._cand_cache.items()
-                                  if c[3] > len(c[0])]
-                    if needs_rerun or overflowed:
-                        # rare: rescan this chunk (plans are cached) for
-                        # the exact re-extraction / host fallback
-                        cache = self._cand_cache
-                        self.compute_cc_time_series(tids=ctx["tids_chunk"])
-                        self._cand_cache = cache
-                        for tid in needs_rerun:
-                            self._cand_cache.pop(tid, None)
+                    if self._cand_pending is None:
+                        # fewer than 2 device rows: no batch was queued
+                        ctx["cc_full"] = self.cc
                     else:
-                        self.cc = {
-                            tid: (ctx["host_cc"][tid]
-                                  if tid in ctx["host_cc"] else placeholder)
-                            for tid in ctx["tids_subset"]
+                        ctx["host_cc"] = {
+                            tid: cc for tid, cc in self.cc.items()
+                            if isinstance(cc, np.ndarray)
                         }
-                for tid in list(self.cc.keys()):
-                    detections[tid] = self._find_detections_t(
-                        tid, white_noise=white_noise)
-                    if verbose > 0:
-                        print(f"Template {tid} detected "
-                              f"{len(detections[tid])} events.")
-            t_det += give_time() - t0
+                    contexts.append(ctx)
+                    self._cand_pending = None
+                    self.cc = {}
+                    self._cc_stack = (None, None)
+                self._defer_rows = False
+            t_mf += span.seconds
+
+            with GLOBAL_TIMER.stage("mf_detect") as span:
+                placeholder = torch.zeros((2,), dtype=torch.float32,
+                                          device=self.device)
+                for ctx in contexts:
+                    self.tids_subset = ctx["tids_subset"]
+                    self._weights_arr = ctx["weights"]
+                    self._cand_pending = ctx["pending"]
+                    self._cand_cache = {}
+                    if "cc_full" in ctx:
+                        self.cc = ctx["cc_full"]
+                    else:
+                        needs_rerun = set(self._batch_extract_collect())
+                        overflowed = [
+                            tid for tid, c in self._cand_cache.items()
+                            if c[3] > len(c[0])]
+                        if needs_rerun or overflowed:
+                            # rare: rescan this chunk (plans are cached)
+                            # for the exact re-extraction / host fallback
+                            cache = self._cand_cache
+                            with GLOBAL_TIMER.stage("mf_rescan"):
+                                self.compute_cc_time_series(
+                                    tids=ctx["tids_chunk"])
+                            self._cand_cache = cache
+                            for tid in needs_rerun:
+                                self._cand_cache.pop(tid, None)
+                        else:
+                            self.cc = {
+                                tid: (ctx["host_cc"][tid]
+                                      if tid in ctx["host_cc"]
+                                      else placeholder)
+                                for tid in ctx["tids_subset"]
+                            }
+                    for tid in list(self.cc.keys()):
+                        detections[tid] = self._find_detections_t(
+                            tid, white_noise=white_noise)
+                        if verbose > 0:
+                            print(f"Template {tid} detected "
+                                  f"{len(detections[tid])} events.")
+            t_det += span.seconds
+        GLOBAL_TIMER.add("mf_detections",
+                         sum(len(v) for v in detections.values()))
         if verbose > -1:
             print(f"Total time computing CCs: {t_mf:.2f}s")
             print(f"Total time finding detections: {t_det:.2f}s")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.observe import GLOBAL_TIMER
 from .reference import GAUSSIAN_SAMPLE_LEN
 
 CANDIDATE_BLOCK = 512
@@ -475,7 +476,7 @@ def _rms_plan(n, sliding_window_samp, overlap, white_noise, k, k_blocks,
               device=None, rng=None):
     """Cached `RmsExtractionPlan` (true LRU over 8 geometries).  A plan
     made without a noise table is cached under the key None and keeps the
-    table it drew."""
+    table it drew.  A build is an `rms_plan` stage."""
     dev = resolve_device(device)
     wn = (np.asarray(white_noise, np.float32)[:GAUSSIAN_SAMPLE_LEN]
           if white_noise is not None else None)
@@ -488,9 +489,10 @@ def _rms_plan(n, sliding_window_samp, overlap, white_noise, k, k_blocks,
     else:
         if len(_RMS_PLAN_CACHE) >= 8:
             _RMS_PLAN_CACHE.pop(next(iter(_RMS_PLAN_CACHE)))
-        plan = RmsExtractionPlan(n, sliding_window_samp, overlap=overlap,
-                                 white_noise=wn, k=k, k_blocks=k_blocks,
-                                 device=dev, rng=rng)
+        with GLOBAL_TIMER.stage("rms_plan"):
+            plan = RmsExtractionPlan(n, sliding_window_samp, overlap=overlap,
+                                     white_noise=wn, k=k, k_blocks=k_blocks,
+                                     device=dev, rng=rng)
         _RMS_PLAN_CACHE[key] = plan
     return plan
 

@@ -2,22 +2,25 @@
 
 Counterpart of `seismic_bpmf_tpu.utils.observe`: the workflow records
 its stages (`mf_scan`, `bp_features`, ...) and meters (`cc_samples`,
-`beam_points`) in `GLOBAL_TIMER`; `profile_trace` captures a
-`torch.profiler` trace around a pipeline section.  `mf_bound_ms` and
-`bp_bound_ms` give the least time the card could take for a kernel's
-work (the roofline bound `chip_smoke.py` and `bench_torch.py` print
-beside each kernel's time).
+`beam_points`) in `GLOBAL_TIMER`, each campaign day's share apart
+(`StageTimer.day`); `profile_trace` captures a `torch.profiler` trace
+around a pipeline section, on which every stage is a `stage:<name>`
+range.  `mf_bound_ms` and `bp_bound_ms` give the least time the card
+could take for a kernel's work (the roofline bound `chip_smoke.py` and
+`bench_torch.py` print beside each kernel's time).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
+
+import torch
 
 logger = logging.getLogger("seismic_bpmf_tpu_torch")
 if not logger.handlers:
@@ -28,45 +31,147 @@ if not logger.handlers:
     logger.addHandler(_h)
     logger.setLevel(logging.INFO)
 
+_recording = torch.autograd._profiler_enabled
+_clock = time.perf_counter
+
+
+class _ThreadState(threading.local):
+    """A thread's open stages (innermost last) and its day."""
+
+    def __init__(self):
+        self.stack = []
+        self.day = None
+
+
+class Span:
+    """One stage of a `StageTimer`, the value of `with timer.stage(name) as
+    span`; after the block `seconds` is its duration and `self_seconds`
+    that less its children's (the stages opened inside it on its thread).
+    """
+
+    __slots__ = ("timer", "name", "parent", "child_s", "seconds",
+                 "self_seconds", "_t0", "_range", "_local")
+
+    def __init__(self, timer: "StageTimer", name: str):
+        self.timer = timer
+        self.name = name
+
+    def __enter__(self):
+        self._local = local = self.timer._local
+        stack = local.stack
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self.child_s = 0.0
+        self._range = None
+        if _recording():
+            self._range = torch.profiler.record_function(f"stage:{self.name}")
+            self._range.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        dt = _clock() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        local = self._local
+        local.stack.pop()
+        self.seconds = dt
+        self.self_seconds = own = dt - self.child_s
+        parent = self.parent
+        if parent is not None:
+            parent.child_s += dt
+        timer, name, day = self.timer, self.name, local.day
+        lock = timer._lock
+        lock.acquire()   # `with lock` takes twice as long on the hot path
+        try:
+            timer.times[name] += dt
+            timer.counts[name] += 1
+            timer.parents[name].add(parent and parent.name)
+            if day is not None:
+                rec = (timer.day_spans.get(day)
+                       or timer._day_of(timer.day_spans, day))
+                row = rec.get(name)
+                if row is None:
+                    rec[name] = [dt, own, 1]
+                else:
+                    row[0] += dt
+                    row[1] += own
+                    row[2] += 1
+        finally:
+            lock.release()
+        return False
+
 
 class StageTimer:
-    """Accumulates wall time + counters per named pipeline stage."""
+    """Wall time and calls of named pipeline stages, and meters.
+
+    `times` and `counts` hold each stage's inclusive seconds and calls over
+    the process.  Inside `day(key)` every stage and meter of the calling
+    thread is also filed under `key`: `day_spans[key][name]` = [seconds,
+    self_seconds, calls], self seconds being those less the stages opened
+    inside it on the same thread, and `day_meters[key][meter]` = value,
+    for the last `MAX_DAYS` keys; `parents[name]` is the set of stages it
+    has run inside (None at the top), whatever the path and the order.
+    While a torch profiler records on the thread, each stage is also a
+    `stage:<name>` range of its trace."""
+
+    MAX_DAYS = 10_000
 
     def __init__(self):
         self.times: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.parents: Dict[str, set] = defaultdict(set)
         self.meters: Dict[str, float] = defaultdict(float)
+        self.day_spans: Dict[str, Dict[str, list]] = {}
+        self.day_meters: Dict[str, Dict[str, float]] = {}
+        self._lock = threading.Lock()
+        self._local = _ThreadState()
+
+    def stage(self, name: str) -> Span:
+        return Span(self, name)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    def day(self, key, fresh: bool = False):
+        """File the calling thread's stages and meters under day `key`;
+        `fresh` first drops what was filed under it before."""
+        local = self._local
+        if fresh:
+            with self._lock:
+                self.day_spans.pop(str(key), None)
+                self.day_meters.pop(str(key), None)
+        outer, local.day = local.day, str(key)
         try:
-            yield self
+            yield
         finally:
-            dt = time.perf_counter() - t0
-            self.times[name] += dt
-            self.counts[name] += 1
+            local.day = outer
 
     def add(self, meter: str, value: float):
         """Accumulate a throughput meter (e.g. samples scanned, detections)."""
-        self.meters[meter] += value
+        day = self._local.day
+        with self._lock:
+            self.meters[meter] += value
+            if day is not None:
+                rec = self._day_of(self.day_meters, day)
+                rec[meter] = rec.get(meter, 0.0) + value
+
+    def _day_of(self, book: dict, day: str) -> dict:
+        rec = book.get(day)
+        if rec is None:
+            rec = book[day] = {}
+            if len(book) > self.MAX_DAYS:
+                del book[next(iter(book))]
+        return rec
 
     def report(self) -> Dict:
-        out = {
+        return {
             "stages": {
-                k: {"seconds": round(v, 4), "calls": self.counts[k]}
+                k: {"seconds": round(v, 4), "calls": self.counts[k],
+                    "parents": sorted(self.parents.get(k, ()),
+                                      key=lambda p: p or "")}
                 for k, v in self.times.items()
             },
             "meters": dict(self.meters),
         }
-        for k, v in self.meters.items():
-            # derive rates when a same-named stage exists
-            if k in self.times and self.times[k] > 0:
-                out["meters"][f"{k}_per_sec"] = v / self.times[k]
-        return out
-
-    def log_report(self):
-        logger.info("stage report: %s", json.dumps(self.report()))
 
 
 GLOBAL_TIMER = StageTimer()
@@ -118,10 +223,12 @@ def _bound(t_ops: float, t_bytes: float) -> tuple:
 def mf_bound_ms(plan, data_pad) -> tuple:
     """Least time for one call of an `ops.mf.MatchedFilterPlan` on padded
     day `data_pad`: the multiply-adds of the (template, channel) pairs
-    that add something, as three products of split operands each at the
-    tensor cores' dense rate (bf16 for a 'high' plan, TF32 for
-    'highest'/'default'), against each input read and the output written
-    once (the rows' hi and lo parts, L taps each).  Returns (ms, 'operations'
+    that add something, as the three products of split operands that the
+    function needs (fh*dh + fh*dl + fl*dh), each at the tensor cores' dense
+    rate (bf16 for a 'high' plan, TF32 for 'highest'/'default'), against
+    each input read and the output written once (the rows' hi and lo
+    parts, L taps each).  csrc/mf.cu's fourth product, fl*dl, is the
+    kernel's own extra work and is not counted.  Returns (ms, 'operations'
     or 'bytes', the multiply-adds, their ms at the f32 FMA rate)."""
     pairs = int((plan.mv_table[:, : plan.n_tp] >= 0).sum())
     flops = 2.0 * pairs * plan.L * plan.n_corr_unit

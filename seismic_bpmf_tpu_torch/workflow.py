@@ -76,7 +76,8 @@ def backproject_day(
     else:
         bf.set_data(data)
     with GLOBAL_TIMER.stage("bp_features"):
-        arr = data.get_np_array(network.stations)
+        with GLOBAL_TIMER.stage("bp_stack"):
+            arr = data.get_np_array(network.stations)
         if feature_fn is None:
             features, _ = saturated_envelopes(arr, device=bf.device)
         else:
@@ -97,12 +98,13 @@ def backproject_day(
         )
         for p in range(min(n_feat_comp, len(phases))):
             w_ph[:, p, p] = 1.0
-    bf.set_weights(weights_phases=w_ph)
-    bf.set_weights_sources(
-        method="closest_stations",
-        num_closest_stations=num_closest_stations,
-        normalize=True,
-    )
+    with GLOBAL_TIMER.stage("bp_weights"):
+        bf.set_weights(weights_phases=w_ph)
+        bf.set_weights_sources(
+            method="closest_stations",
+            num_closest_stations=num_closest_stations,
+            normalize=True,
+        )
     with GLOBAL_TIMER.stage("bp_backproject"):
         bf.backproject(features, reduce="max")
         GLOBAL_TIMER.add("beam_points",
@@ -344,7 +346,10 @@ def scan_days(
     each day's data moves.  make_data(date) -> a `Data` with waveforms
     read; the next day is fetched on a background thread while the
     current day computes (for 'mf' it is also normalized and uploaded
-    there).
+    there).  `utils.observe.GLOBAL_TIMER` files each day's stages under
+    `str(date)`: `scan_wait` (waiting for the fetched day), `scan_day`
+    (the day's scan) and, from the background thread, `day_read`
+    (`make_data`) and the upload.
 
     Resume contract: the state file records only ``{date:
     {"n_detections": N}}``.  Completed days are skipped on resume and
@@ -383,8 +388,7 @@ def scan_days(
         stage_kwargs.setdefault("precision", "screen")
         engine = MatchedFilter(template_group, cfg=cfg, **stage_kwargs)
 
-        def fetch(date):
-            return engine.preupload_day(make_data(date))
+        prepare = engine.preupload_day
 
         def run_day(date, data):
             dets = matched_filter_day(
@@ -393,7 +397,7 @@ def scan_days(
             )
             return dets, sum(len(v) for v in dets.values())
     else:
-        fetch = make_data
+        prepare = None
         bf_holder = {"bf": None}
 
         def run_day(date, data):
@@ -408,15 +412,26 @@ def scan_days(
             bf_holder["bf"] = bf
             return dets, len(dets)
 
+    def fetch(date):
+        # on the prefetch thread, filed under the day it fetches; a day
+        # scanned again in the process is filed afresh
+        with GLOBAL_TIMER.day(str(date), fresh=True):
+            with GLOBAL_TIMER.stage("day_read"):
+                data = make_data(date)
+            return data if prepare is None else prepare(data)
+
     pool = ThreadPoolExecutor(max_workers=1)
     try:
         pending = pool.submit(fetch, todo[0]) if todo else None
         for i, date in enumerate(todo):
             key = str(date)
-            data = pending.result()
-            pending = (pool.submit(fetch, todo[i + 1])
-                       if i + 1 < len(todo) else None)
-            detections, n = run_day(date, data)
+            with GLOBAL_TIMER.day(key):
+                with GLOBAL_TIMER.stage("scan_wait"):
+                    data = pending.result()
+                pending = (pool.submit(fetch, todo[i + 1])
+                           if i + 1 < len(todo) else None)
+                with GLOBAL_TIMER.stage("scan_day"):
+                    detections, n = run_day(date, data)
             results[key] = detections
             done[key] = {"n_detections": n}
             if state_file is not None:

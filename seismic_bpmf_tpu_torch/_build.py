@@ -10,11 +10,11 @@ imported: a kernel's library is built when a CUDA tensor first reaches its
 wrapper (or when `build_all` is called).  A failed build raises with
 nvcc's stderr.
 
-``csrc/host_ops.cpp``, the host scans of `ops.host_ops`, is compiled the
-same way by the C++ compiler (``c++``, else ``g++``) into
-``build/seismic_bpmf_tpu_torch/libhost_ops-<hash>.so`` (`load_host`); its
-hash also covers the compiler's version, so a library built by another
-toolchain is never loaded.
+``csrc/host_ops.cpp`` and ``csrc/peaks.cpp``, the host scans of
+`ops.host_ops`, are compiled the same way by the C++ compiler (``c++``,
+else ``g++``) into ``build/seismic_bpmf_tpu_torch/lib<name>-<hash>.so``
+(`load_host`); the hash also covers the compiler's version, so a library
+built by another toolchain is never loaded.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ from ..config import Config, DEFAULT_CONFIG
 from ..data.events import Event
 from ..data.travel_times import SourceTable
 from ..ops.bp import BeamformPlan, _precision_mode
-from ..ops.picks import detect_peaks
+from ..ops.picks import peak_candidates, suppress_peaks
 from ..ops.thresholds import bp_detection_threshold
 from ..parallel.mesh import mesh_device
 from ..parallel.sharded import ShardedBeamformPlan
@@ -329,7 +329,9 @@ class Beamformer:
         """Peak-pick the max beam and build Events.
 
         Reference parity: BPMF/template_search.py:574-673.  The peaks
-        and their grouping are the `bp_peaks` stage.
+        (`detect_peaks`' two steps; meters `bp_peak_candidates`, the local
+        maxima, and `bp_peaks_kept`, those the `mpd` suppression keeps) and
+        their grouping are the `bp_peaks` stage.
         """
         detection_threshold = np.asarray(detection_threshold)
         if detection_threshold.ndim == 0:
@@ -341,7 +343,10 @@ class Beamformer:
         min_iet = int(sec_to_samp(minimum_interevent_time, sr=sr))
 
         with GLOBAL_TIMER.stage("bp_peaks"):
-            peak_indexes = detect_peaks(self.maxbeam, mpd=min_iet)
+            x, candidates = peak_candidates(self.maxbeam)
+            peak_indexes = suppress_peaks(x, candidates, min_iet)
+            GLOBAL_TIMER.add("bp_peak_candidates", float(len(candidates)))
+            GLOBAL_TIMER.add("bp_peaks_kept", float(len(peak_indexes)))
             peak_indexes = peak_indexes[
                 self.maxbeam[peak_indexes]
                 > detection_threshold[peak_indexes]

@@ -3,12 +3,13 @@
 Counterpart of `seismic_bpmf_tpu.ops.host_ops`: ctypes bindings, with its
 signatures, to the package's own copy of the JAX package's native host
 runtime, ``csrc/host_ops.cpp``, which `_build.load_host` compiles with the
-C++ compiler at first use.  Where the JAX module drops silently to NumPy
-when its library is missing, a scan here raises (naming the compiler):
-`available()` says whether the library builds and loads.  The NumPy
-versions (`*_plain`: the oracles of `ops.reference`, and for
-`flag_multiples` the same sequential scan) are what the tests hold the
-native scans to.
+C++ compiler at first use; and to the port's own ``csrc/peaks.cpp``, the
+`mpd` suppression of `ops.picks.detect_peaks` (`peak_suppression`).  Where
+the JAX module drops silently to NumPy when its library is missing, a scan
+here raises (naming the compiler): `available()` says whether the
+libraries build and load.  The NumPy versions (`*_plain`: the oracles of
+`ops.reference`, and for `flag_multiples` the same sequential scan) are
+what the tests hold the native scans to.
 """
 
 from __future__ import annotations
@@ -48,10 +49,26 @@ def _lib():
     return lib
 
 
+def _peaks_lib():
+    from .. import _build
+
+    lib = _build.load_host("peaks")
+    if "peaks" not in _BOUND:
+        lib.peak_suppression.argtypes = [
+            C.POINTER(C.c_int64), C.POINTER(C.c_double),
+            C.POINTER(C.c_int64), C.c_int64, C.c_int64, C.c_int32,
+            C.POINTER(C.c_uint8),
+        ]
+        lib.peak_suppression.restype = None
+        _BOUND.add("peaks")
+    return lib
+
+
 def available() -> bool:
-    """True when the native library builds (or is built) and loads."""
+    """True when the native libraries build (or are built) and load."""
     try:
         _lib()
+        _peaks_lib()
     except (RuntimeError, OSError):
         return False
     return True
@@ -233,3 +250,36 @@ def find_similar_sources_plain(
         mv, source_longitude, source_latitude, cell_longitude,
         cell_latitude, threshold, num_stations_for_diff=k, method=method,
     )
+
+
+def _peak_arrays(pos, xpos, order):
+    pos = np.ascontiguousarray(pos, np.int64)
+    xpos = np.ascontiguousarray(xpos, np.float64)
+    order = np.ascontiguousarray(order, np.int64)
+    if not len(pos) == len(xpos) == len(order):
+        raise ValueError("pos, xpos and order differ in length")
+    if len(order) and (order.min() < 0 or order.max() >= len(pos)):
+        raise ValueError("visiting order outside the peaks")
+    return pos, xpos, order
+
+
+def peak_suppression(pos, xpos, order, mpd: int,
+                     kpsh: bool = False) -> np.ndarray:
+    """Keep mask, in position order, of the peaks at ascending `pos`
+    visited in `order`; see `ops.reference.peak_suppression`."""
+    pos, xpos, order = _peak_arrays(pos, xpos, order)
+    keep = np.zeros(len(pos), np.uint8)
+    _peaks_lib().peak_suppression(
+        pos.ctypes.data_as(C.POINTER(C.c_int64)),
+        xpos.ctypes.data_as(C.POINTER(C.c_double)),
+        order.ctypes.data_as(C.POINTER(C.c_int64)), len(pos),
+        int(min(mpd, 2**62)), 1 if kpsh else 0,
+        keep.ctypes.data_as(C.POINTER(C.c_uint8)))
+    return keep.view(bool)
+
+
+def peak_suppression_plain(pos, xpos, order, mpd: int,
+                           kpsh: bool = False) -> np.ndarray:
+    """`peak_suppression` in NumPy (`ops.reference`)."""
+    return reference.peak_suppression(*_peak_arrays(pos, xpos, order),
+                                      mpd, kpsh)

@@ -6,8 +6,8 @@ that its day scans need: `beamform` (the BP kernel's specification),
 (the backprojection features and threshold), `matched_filter` (the MF
 kernel's specification), `matched_filter_at` (the float64 refine of the
 `screen` rung), `time_dependent_threshold`, `select_cc_indexes`,
-`dedup_detection_indexes` and `find_similar_sources` (redundant grid
-sources).
+`dedup_detection_indexes`, `find_similar_sources` (redundant grid
+sources) and `peak_suppression` (the beamformer's peak finder).
 
 Behavioral parity targets (reference file:line cited per function):
   - beamform .................. external `beampower` package as consumed at
@@ -21,6 +21,7 @@ Behavioral parity targets (reference file:line cited per function):
   - kurtosis .................. BPMF/libc.c:11-53
   - envelope / saturation ..... BPMF/template_search.py:1525-1617
   - find_similar_sources ...... BPMF/libc.c:55-387
+  - peak_suppression .......... BPMF/utils.py:2203-2355 (`mpd` branch)
 """
 
 from __future__ import annotations
@@ -413,6 +414,39 @@ def dedup_detection_indexes(
                 cc_idx.remove(b)
             n_rm += 1
     return np.asarray(cc_idx, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Minimum-distance peak suppression (the beamformer's peak finder)
+# ---------------------------------------------------------------------------
+
+def peak_suppression(
+    pos: np.ndarray, xpos: np.ndarray, order: np.ndarray, mpd: int,
+    kpsh: bool = False,
+) -> np.ndarray:
+    """Greedy minimum-distance suppression of `detect_peaks`: the peaks at
+    ascending positions `pos`, of heights `xpos`, visited in `order`
+    (indexes into `pos`, tallest first); a visited peak still kept deletes
+    the peaks within `mpd` samples of it (with `kpsh`, only the lower
+    ones).  Returns the keep mask in position order.
+
+    Reference: detect_peaks' `mpd` branch (BPMF/utils.py:2203-2355), which
+    rescans every peak for each kept one; here a kept peak visits only its
+    neighbours, the run [lo, hi) of `pos` within `mpd` of it.
+    """
+    pos = np.asarray(pos)
+    lo = np.searchsorted(pos, pos - mpd, side="left")
+    hi = np.searchsorted(pos, pos + mpd, side="right")
+    idel = np.zeros(len(pos), dtype=bool)
+    for r in np.asarray(order).tolist():
+        if not idel[r]:
+            a, b = lo[r], hi[r]
+            if kpsh:
+                idel[a:b] |= xpos[a:b] < xpos[r]
+            else:
+                idel[a:b] = True
+            idel[r] = False
+    return ~idel
 
 
 # ---------------------------------------------------------------------------

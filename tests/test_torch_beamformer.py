@@ -32,7 +32,8 @@ import seismic_bpmf_tpu_torch.config as tconfig  # noqa: E402
 import seismic_bpmf_tpu_torch.data as tdata  # noqa: E402
 from seismic_bpmf_tpu_torch import workflow as twf  # noqa: E402
 from seismic_bpmf_tpu_torch.detection import Beamformer  # noqa: E402
-from seismic_bpmf_tpu_torch.ops import bp  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import bp, host_ops  # noqa: E402
+from seismic_bpmf_tpu_torch.utils.observe import GLOBAL_TIMER  # noqa: E402
 
 SR = 25.0
 DAY = 900.0
@@ -290,6 +291,44 @@ def test_backproject_day_matches_jax(world, tmp_path):
     pd.testing.assert_series_equal(tbf.return_pd_series(),
                                    jbf.return_pd_series(), check_exact=False,
                                    rtol=1e-4, atol=1e-4)
+
+
+def test_backproject_day_peaks_are_the_plain_loops(world, monkeypatch):
+    """A day's peaks through the native `mpd` suppression and through its
+    plain loop: the same peak, source and Event indexes; the day's records
+    hold the suppression's meters, kept <= candidates."""
+    w = world
+    kw = dict(minimum_interevent_time=10.0, threshold_window_sec=150.0,
+              num_closest_stations=N_STA, device="cpu")
+    plain_calls = []
+
+    def plain(*a, **k):
+        plain_calls.append(1)
+        return host_ops.peak_suppression_plain(*a, **k)
+
+    runs = {}
+    for path in ("native", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(host_ops, "peak_suppression", plain)
+        with GLOBAL_TIMER.day(f"peaks-{path}", fresh=True):
+            tbf, tdets = twf.backproject_day(w["tdata"], w["tnet"], w["ttts"],
+                                             cfg=w["tcfg"], **kw)
+        runs[path] = (tbf.peak_indexes, tbf.source_indexes,
+                      [(e.origin_time, e.aux_data["source_index"])
+                       for e in tdets],
+                      GLOBAL_TIMER.day_meters[f"peaks-{path}"])
+    assert plain_calls == [1]
+    (pk, src, evs, meters), (ppk, psrc, pevs, pmeters) = (
+        runs["native"], runs["plain"])
+    np.testing.assert_array_equal(pk, ppk)
+    np.testing.assert_array_equal(src, psrc)
+    assert evs == pevs and len(evs) >= 2
+    for m in (meters, pmeters):
+        assert len(pk) <= m["bp_peaks_kept"] <= m["bp_peak_candidates"]
+    assert meters["bp_peak_candidates"] > meters["bp_peaks_kept"]
+    assert {k: meters[k] for k in ("bp_peak_candidates", "bp_peaks_kept")
+            } == {k: pmeters[k] for k in ("bp_peak_candidates",
+                                          "bp_peaks_kept")}
 
 
 def test_scan_days_bp_campaign_matches_jax(world, tmp_path):

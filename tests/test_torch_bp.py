@@ -3,7 +3,9 @@
 The same seeded numpy inputs go through both packages: the beamformer's
 plain version (`ops.bp`) against `ops.reference.beamform` and the Pallas
 kernel in interpret mode, the characteristic functions (`ops.cf`), the BP
-threshold and the peak finder.  Beam values within rtol 1e-4, atol 1e-5
+threshold and the peak finder (whose native `mpd` suppression is also
+held bit for bit to its plain loop, `ops.reference.peak_suppression`).
+Beam values within rtol 1e-4, atol 1e-5
 (the f32 gate of the JAX package's kernel tests) with identical argmax
 indices; envelopes within 1e-4 (two f32 FFT libraries).
 """
@@ -23,8 +25,11 @@ from seismic_bpmf_tpu.ops.thresholds import (  # noqa: E402
     bp_detection_threshold as jbp_threshold,
 )
 
-from seismic_bpmf_tpu_torch.ops import bp, cf  # noqa: E402
-from seismic_bpmf_tpu_torch.ops.picks import detect_peaks  # noqa: E402
+from seismic_bpmf_tpu_torch import _build  # noqa: E402
+from seismic_bpmf_tpu_torch.ops import bp, cf, host_ops  # noqa: E402
+from seismic_bpmf_tpu_torch.ops.picks import (  # noqa: E402
+    detect_peaks, peak_candidates,
+)
 from seismic_bpmf_tpu_torch.ops.thresholds import (  # noqa: E402
     bp_detection_threshold,
 )
@@ -418,3 +423,59 @@ def test_detect_peaks_suppression_matches_jax_on_a_long_series(kpsh):
         np.testing.assert_array_equal(
             detect_peaks(x, mpd=mpd, kpsh=kpsh),
             jdetect_peaks(x, mpd=mpd, kpsh=kpsh))
+
+
+
+@pytest.mark.parametrize("edge", [None, "rising", "falling", "both"])
+def test_detect_peaks_edges_match_jax_on_flat_tops(edge):
+    """Flat tops (rounded values) part the rising, falling and both-edge
+    maxima; their union is the reference's, with NaN holes."""
+    rng = np.random.default_rng(15)
+    x = np.round(np.convolve(rng.normal(size=20_000), np.hanning(7),
+                             "same"), 1)
+    x[[500, 7001, 7002]] = np.nan
+    for mpd in (1, 10):
+        np.testing.assert_array_equal(
+            detect_peaks(x, mpd=mpd, edge=edge),
+            jdetect_peaks(x, mpd=mpd, edge=edge))
+
+def _peak_series(kind):
+    rng = np.random.default_rng(14)
+    if kind == "smooth":            # ~167,000 distinct local maxima
+        return np.convolve(rng.normal(size=500_000), np.hanning(3), "same")
+    if kind == "rounded":           # thousands of peaks of equal height
+        return np.round(np.convolve(rng.normal(size=60_000), np.hanning(7),
+                                    "same"), 1)
+    if kind == "none":
+        return np.linspace(0.0, 1.0, 1000)
+    return np.hanning(1001)         # "one": a single maximum
+
+
+@pytest.mark.parametrize("kpsh", [False, True])
+@pytest.mark.parametrize("kind,mpd", [
+    ("smooth", 1), ("smooth", 2), ("smooth", 250), ("smooth", 500_000),
+    ("rounded", 7), ("rounded", 250), ("none", 250), ("one", 250),
+])
+def test_native_peak_suppression_is_the_plain_loop(kind, mpd, kpsh):
+    """The native scan's keep mask is the plain loop's, bit for bit, in
+    the visiting order `suppress_peaks` gives it (numpy's argsort of the
+    heights, reversed)."""
+    x, ind = peak_candidates(_peak_series(kind))
+    assert len(ind) == {"none": 0, "one": 1}.get(kind, len(ind))
+    xpos = x[ind]
+    order = np.argsort(xpos)[::-1]
+    keep = host_ops.peak_suppression(ind, xpos, order, mpd, kpsh)
+    np.testing.assert_array_equal(
+        keep, host_ops.peak_suppression_plain(ind, xpos, order, mpd, kpsh))
+    assert keep.dtype == bool and keep.shape == ind.shape
+    if len(ind):
+        assert keep[order[0]]                   # the tallest is kept
+    if kind == "smooth" and mpd > 2:
+        assert 0 < keep.sum() < len(ind) // 10
+
+
+def test_the_peak_suppression_raises_without_a_compiler(monkeypatch):
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
+        detect_peaks(_peak_series("smooth")[:5000], mpd=25)

@@ -35,6 +35,7 @@ from ..ops import bp as _bp
 from ..ops import mf as _mf
 from ..ops.beamform import _flatten_moveouts, fold_components
 from ..ops.matched_filter import bank_tensors, mf_lags
+from ..utils.observe import GLOBAL_TIMER
 from .mesh import Mesh
 
 
@@ -200,6 +201,12 @@ def mf_layout(n_samp: int, L: int, pad_left: int, max_moveout: int,
     return layout
 
 
+# each rung's kernel wrapper in `ops.mf` and the pre-pass it launches first
+_RUNG_KERNELS = {"high": ("mf_cc_split", "split_day"),
+                 "highest": ("mf_cc_highest", "tf32_day"),
+                 "default": ("mf_cc", "tf32_day")}
+
+
 class ShardedMatchedFilterPlan:
     """`ops.mf.MatchedFilterPlan` over a mesh: one plan per template shard
     on each of its devices; a day is scanned as time shards
@@ -253,8 +260,7 @@ class ShardedMatchedFilterPlan:
         dev = self.grid[a, t]
         plan = self.plans[(a, dev)]
         base = t * self.layout.chunk
-        wrapper = {"high": _mf.mf_cc_split, "highest": _mf.mf_cc_highest,
-                   "default": _mf.mf_cc}[plan.precision_name]
+        wrapper = getattr(_mf, _RUNG_KERNELS[plan.precision_name][0])
         return wrapper(day.ext(t, dev), plan.filt_rows, plan.mv_table,
                        plan.tile_lo, n_tp=plan.n_tp, L=plan.L,
                        n_corr=self.n_lags(t), lo_p=plan.lo_p - base,
@@ -262,15 +268,36 @@ class ShardedMatchedFilterPlan:
                        lag_block=plan.lag_block)
 
     def __call__(self, day: ShardedDay) -> torch.Tensor:
-        """A sharded day -> (n_tp, n_corr) CC on the mesh's first device."""
+        """A sharded day -> (n_tp, n_corr) CC on the mesh's first device.
+        The host time of queueing the shards' launches and copies is the
+        `mf_shard_scan` stage of `utils.observe.GLOBAL_TIMER`; its meters
+        are `mf_shard_launches` (the kernel launches queued: the rung's
+        pre-pass and main kernel, as `ops.mf`'s launch counters count
+        them, so 0 on CPU devices) and `mf_gather_bytes` (the CC bytes
+        copied into the first device from another one: 0 where a shard's
+        device is the first itself, as on a virtual mesh)."""
         if day.layout != self.layout:
             raise ValueError(f"day layout {day.layout}, plan {self.layout}")
-        rows = []
-        for a, _, _ in self.shards:
-            rows.append(torch.cat(
-                [_to(self.shard_cc(day, a, t), self.device)
-                 for t in range(self.layout.n_t) if self.n_lags(t)], dim=1))
-        return torch.cat(rows, dim=0)
+        rung = next(iter(self.plans.values())).precision_name
+        counters = [getattr(_mf, name) for name in _RUNG_KERNELS[rung]]
+        launched = sum(c.launches for c in counters)
+        rows, gathered = [], 0
+        with GLOBAL_TIMER.stage("mf_shard_scan"):
+            for a, _, _ in self.shards:
+                blocks = []
+                for t in range(self.layout.n_t):
+                    if not self.n_lags(t):
+                        continue
+                    cc = self.shard_cc(day, a, t)
+                    if self.grid[a, t] != self.device:
+                        gathered += cc.numel() * cc.element_size()
+                    blocks.append(_to(cc, self.device))
+                rows.append(torch.cat(blocks, dim=1))
+            out = torch.cat(rows, dim=0)
+        GLOBAL_TIMER.add("mf_shard_launches",
+                         sum(c.launches for c in counters) - launched)
+        GLOBAL_TIMER.add("mf_gather_bytes", gathered)
+        return out
 
 
 def matched_filter_sharded_pallas(
